@@ -1,0 +1,140 @@
+"""TaylorSeer draft model: finite-difference feature forecasting (§3.3).
+
+The difference table holds Δ⁰..Δᵐ of the cached features at each lane's
+most recent anchor (fully computed) step. A refresh applies
+
+    Δ⁰_new = F,    Δⁱ_new = Δⁱ⁻¹_new − Δⁱ⁻¹_old   (i = 1..m)
+
+and a forecast ``d`` sampler steps past the anchor evaluates eq. (2),
+
+    F_pred(d) = Σ_{i=0}^{m}  Δⁱ / (i! · Nᵉᶠᶠⁱ) · dⁱ,
+
+with Nᵉᶠᶠ the measured spacing of the lane's last two anchors. Anchor
+metadata (``n_anchors``, ``anchor_step``, ``gap``) is held per lane. The
+table work runs through the fused per-lane kernels of
+``repro_torch.kernels.ops`` (their plain versions for CPU tensors).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+State = Dict[str, torch.Tensor]
+
+
+def init_state(order: int, feat_shape, dtype: torch.dtype, lanes: int,
+               device: torch.device) -> State:
+    """A zero table of order+1 difference planes and per-lane metadata."""
+    return {
+        "diffs": torch.zeros((order + 1,) + tuple(feat_shape), dtype=dtype,
+                             device=device),
+        "n_anchors": torch.zeros((lanes,), dtype=torch.int32, device=device),
+        "anchor_step": torch.full((lanes,), -1, dtype=torch.int32,
+                                  device=device),
+        "gap": torch.ones((lanes,), dtype=torch.float32, device=device),
+    }
+
+
+def update_lanes(state: State, feats: torch.Tensor, step: torch.Tensor,
+                 mask: torch.Tensor) -> State:
+    """Masked per-lane anchor refresh: lanes in ``mask`` [B] refresh their
+    table slice and metadata; the others keep both untouched. ``feats``
+    has the (L, 2, B, T, D) feature layout; ``step`` is a scalar or
+    per-lane [B] step index."""
+    diffs = ops.taylor_update_lanes(state["diffs"], feats, mask)
+    step = torch.broadcast_to(step.to(torch.int32), mask.shape)
+    anchor = state["anchor_step"]
+    gap = torch.where(anchor >= 0, (step - anchor).to(torch.float32),
+                      torch.ones_like(state["gap"]))
+    return {
+        "diffs": diffs,
+        "n_anchors": torch.where(mask, state["n_anchors"] + 1,
+                                 state["n_anchors"]),
+        "anchor_step": torch.where(mask, step, anchor),
+        "gap": torch.where(mask, torch.clamp(gap, min=1.0), state["gap"]),
+    }
+
+
+def _ipow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n by binary expansion, the multiplications of ``lax.integer_pow``
+    in the same order (so the weights match the reference bit for bit)."""
+    if n == 0:
+        return torch.ones_like(x)
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def prediction_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
+                       n_anchors: torch.Tensor, mode: str = "taylor", *,
+                       order_cap: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Per-order weights [m+1, *shape] with validity masking: only Δⁱ built
+    from ≥ i+1 anchors are trusted, higher orders get exactly 0.
+    ``order_cap`` (per-lane ints) additionally zeroes orders above it.
+    Modes: ``taylor`` (eq. 2), ``newton`` (binomial extrapolation),
+    ``reuse`` (order-0 feature reuse), ``ab2`` (Adams–Bashforth-2)."""
+    d = d.to(torch.float32)
+    gap = gap.to(torch.float32)
+    shape = torch.broadcast_shapes(d.shape, gap.shape)
+
+    def const(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=d.device)
+
+    ws = []
+    for i in range(order + 1):
+        if mode == "newton":
+            # C(d/gap + i - 1, i) — product form, exact for polynomials
+            x = d / gap
+            w = const(1.0)
+            for j in range(i):
+                w = w * (x + i - 1 - j) / (j + 1)
+        elif mode == "reuse":
+            w = const(1.0 if i == 0 else 0.0)
+        elif mode == "ab2":
+            if i == 0:
+                w = const(1.0)
+            elif i == 1:
+                w = d / gap
+            elif i == 2:
+                w = 0.5 * d / gap
+            else:
+                w = const(0.0)
+        elif mode == "taylor":
+            w = _ipow(d, i) / (math.factorial(i) * _ipow(gap, i))
+        else:
+            raise ValueError(f"unknown draft mode {mode!r}")
+        ws.append(torch.broadcast_to(w, shape))
+    w = torch.stack(ws)
+    orders = torch.arange(order + 1, device=d.device).reshape(
+        (-1,) + (1,) * len(shape))
+    valid = orders < n_anchors
+    if order_cap is not None:
+        valid = valid & (orders <= order_cap)
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def predict_lanes(state: State, step: torch.Tensor,
+                  mode: str = "taylor") -> torch.Tensor:
+    """Per-lane forecast: each lane extrapolates its own table to ``step``
+    (scalar or per-lane [B]) through the fused predict kernel."""
+    d = (step.to(torch.int32) - state["anchor_step"]).to(torch.float32)
+    order = state["diffs"].shape[0] - 1
+    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode)
+    return ops.taylor_predict_lanes(state["diffs"],
+                                    w.to(torch.float32).contiguous())
+
+
+def feature_shape_for(num_layers: int, batch: int, tokens: int,
+                      d_model: int):
+    """Cached-feature layout: per-layer, per-branch increments."""
+    return (num_layers, 2, batch, tokens, d_model)

@@ -1,0 +1,63 @@
+"""Plain PyTorch versions of the three kernels.
+
+The wrappers in ``ops`` use these for tensors that lie on the CPU; the
+chip check compares each kernel with its plain version on the card. Each
+computes the same function as its kernel in the same precision: the
+predict accumulates in f32 in the order i = 0..m (separate multiply and
+add, so it differs from the kernel's FMA chain by FMA rounding), the
+refresh rounds every subtraction to the table dtype (bitwise equal to
+the kernel), the verify sums in f32 in PyTorch's own order.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _lane_shape(ndim: int, lane_axis: int, lanes: int):
+    shape = [1] * ndim
+    shape[lane_axis] = lanes
+    return shape
+
+
+def taylor_predict_lanes_ref(diffs: torch.Tensor, weights: torch.Tensor, *,
+                             lane_axis: int = 2) -> torch.Tensor:
+    """diffs [m+1, ...feat], weights [m+1, B] f32 with ``lane_axis`` the lane
+    axis of the feature layout -> Σ_i w[i, lane]·Δⁱ [...feat], accumulated
+    in f32 and cast to the table dtype."""
+    wshape = _lane_shape(diffs.dim() - 1, lane_axis, weights.shape[1])
+    w = weights.to(torch.float32)
+    acc = w[0].reshape(wshape) * diffs[0].to(torch.float32)
+    for i in range(1, diffs.shape[0]):
+        acc = acc + w[i].reshape(wshape) * diffs[i].to(torch.float32)
+    return acc.to(diffs.dtype)
+
+
+def taylor_update_lanes_ref(old_diffs: torch.Tensor, feats: torch.Tensor,
+                            mask: torch.Tensor, *,
+                            lane_axis: int = 2) -> torch.Tensor:
+    """Masked per-lane refresh: Δ⁰ = F, Δⁱ = Δⁱ⁻¹_new − Δⁱ⁻¹_old in the
+    table dtype for lanes in ``mask`` [B]; the other lanes keep their
+    rows."""
+    rows = [feats.to(old_diffs.dtype)]
+    for i in range(1, old_diffs.shape[0]):
+        rows.append(rows[i - 1] - old_diffs[i - 1])
+    new = torch.stack(rows)
+    mshape = _lane_shape(old_diffs.dim(), lane_axis + 1, mask.shape[0])
+    return torch.where(mask.to(torch.bool).reshape(mshape), new, old_diffs)
+
+
+def verify_accept_ref(pred: torch.Tensor, ref: torch.Tensor,
+                      tau: torch.Tensor, *, eps: float = 1e-8
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pred/ref [W, ...], tau [W] -> (err [W] f32, accept [W] bool) with
+    err = ‖p−r‖₂ / (‖r‖₂ + ε) from f32 sums and accept = err ≤ τ."""
+    W = pred.shape[0]
+    p = pred.reshape(W, -1).to(torch.float32)
+    r = ref.reshape(W, -1).to(torch.float32)
+    d = p - r
+    num = torch.sum(d * d, dim=-1)
+    den = torch.sum(r * r, dim=-1)
+    err = torch.sqrt(num) / (torch.sqrt(den) + eps)
+    return err, err <= tau.to(torch.float32)

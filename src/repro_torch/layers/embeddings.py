@@ -1,0 +1,53 @@
+"""Input embeddings of the DiT: patches, timesteps, class labels."""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+
+def patchify(latents: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, T, p*p*C] tokens, row-major over patches."""
+    b, h, w, c = latents.shape
+    hp, wp = h // patch, w // patch
+    x = latents.reshape(b, hp, patch, wp, patch, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp * wp,
+                                               patch * patch * c)
+
+
+def unpatchify(tokens: torch.Tensor, patch: int, h: int, w: int,
+               c: int) -> torch.Tensor:
+    """[B, T, p*p*C] -> [B, H, W, C]."""
+    b = tokens.shape[0]
+    hp, wp = h // patch, w // patch
+    x = tokens.reshape(b, hp, wp, patch, patch, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal embedding of (possibly fractional) timesteps. t [B]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.to(torch.float32)[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def time_mlp(params: Dict[str, torch.Tensor], t: torch.Tensor,
+             dim: int) -> torch.Tensor:
+    """DiT timestep conditioning in f32: sinusoid -> MLP -> [B, D]."""
+    h = timestep_embedding(t, dim)
+    h = F.silu(h @ params["w1"].to(torch.float32) + params["b1"])
+    return h @ params["w2"].to(torch.float32) + params["b2"]
+
+
+def label_embed(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Class-conditional embedding; the last row is the CFG null class."""
+    return table[labels]

@@ -1,0 +1,23 @@
+"""LayerNorm and AdaLN modulation."""
+from __future__ import annotations
+
+import torch
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance, cast back to the
+    input dtype (the reference's ``jnp.var``)."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mean) / torch.sqrt(var + eps)
+    return (x * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(dtype)
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """AdaLN modulation: x * (1 + scale) + shift, broadcast over tokens."""
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]

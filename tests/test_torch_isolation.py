@@ -1,0 +1,130 @@
+"""The port stands alone: no module under ``src/repro_torch/`` (nor
+``chip_smoke.py``) imports ``jax`` or the JAX package, every module
+imports on a machine without ``nvcc``, and the entry points run on the
+card unless the caller asks for the CPU."""
+import ast
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _modules():
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+@pytest.mark.parametrize("module", _modules())
+def test_every_module_imports_without_nvcc(module, monkeypatch):
+    """Importing builds nothing: no nvcc, no triton, no CUDA needed."""
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    mod = importlib.import_module(module)
+    assert mod is not None
+
+
+def test_kernel_build_is_lazy(tmp_path):
+    """A fresh interpreter with no CUDA toolkit on its path imports every
+    module of the port, and nothing is built or loaded."""
+    from repro_torch.kernels import build
+    assert set(build.SOURCES) == set(build.SIGNATURES)
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            "from repro_torch.kernels import build\n"
+            "assert build._loaded == {} and build.build_logs == {}\n"
+            "print('ok')\n")
+    env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path),
+           "PYTHONPATH": str(REPO / "src"), "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
+                                   "engine", "speca_sample",
+                                   "sample_full"])
+def test_entry_points_default_to_cuda(no_gpu, entry):
+    from repro_torch import configs as PC
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.speca import speca_sample
+    from repro_torch.diffusion.pipeline import sample_full
+    from repro_torch.layers.model import init_params
+    from repro_torch.serving import SpeCaEngine
+
+    cfg = PC.ModelConfig(name="t", num_layers=1, d_model=8, num_heads=2,
+                         d_ff=16, num_classes=2, dtype="float32")
+    dcfg = PC.DiffusionConfig(num_inference_steps=2, latent_size=4)
+    scfg = PC.SpeCaConfig()
+    params = init_params(cfg, torch.Generator(), device="cpu")
+    cond = {"labels": torch.tensor([0])}
+    calls = {
+        "init_params": lambda: init_params(cfg, torch.Generator()),
+        "params_from_jax": lambda: params_from_jax(
+            {g: {k: v.numpy() if isinstance(v, torch.Tensor) else
+                 {kk: vv.numpy() for kk, vv in v.items()}
+                 for k, v in params[g].items()} for g in params}),
+        "engine": lambda: SpeCaEngine(cfg, params, dcfg, scfg),
+        "speca_sample": lambda: speca_sample(cfg, params, dcfg, scfg, cond,
+                                             1),
+        "sample_full": lambda: sample_full(cfg, params, dcfg, cond, 1),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_cuda_tensor_never_takes_the_plain_path():
+    """With no card, a CUDA-typed call must raise, not fall back: the
+    wrappers dispatch on the tensor's device only."""
+    from repro_torch.kernels import ops
+    src = (PORT / "kernels" / "ops.py").read_text()
+    assert "except" not in src and "environ" not in src
+    assert ops._on_cpu(torch.zeros(1)) is True
+    with pytest.raises(ValueError):
+        ops._on_cpu(torch.zeros(1, device="meta"))
