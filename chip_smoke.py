@@ -6,18 +6,24 @@ CUDA toolkit:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
 
-1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, started together) and print the card's name and
    power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (W=4 lanes, table [3, 224, 294912] bf16), in f32
-   too, and at shapes whose C is not a multiple of the block: the refresh
-   bitwise, the predict within one bf16 ulp (rtol 2^-8; f32: 1e-6) of the
-   plain f32 sum, the verify error to rtol 1e-5 with equal accept bits
-   wherever |e − τ| > 1e-5. Time each kernel (CUDA events) beside its
-   plain version, one PyTorch library call where one computes the same
-   function, and its bound (bytes over 3.35 TB/s, f32 operations over
-   67 TFLOP/s — the H100 SXM data sheet at 700 W).
+   serving path's shapes (W=4 lanes, table [3, 224, 294912] bf16, a chain
+   of K=4 positions, latent snapshots [5, 4, 32, 32, 4] f32), in f32 and
+   bf16, and at shapes whose C is not a multiple of the block: the
+   refresh, the rollback and the ring shift bitwise; the predict within
+   one bf16 ulp (rtol 2^-8; f32: 1e-6) of the plain f32 sum; the chain
+   predict within that rtol plus 2^-21·Σ|w·x| (FMA against
+   multiply-then-add rounding of its larger extrapolation terms), and
+   every chain position (K = 1 and 4) bitwise the depth-1 predict kernel;
+   the verify error to rtol 1e-5 with equal accept bits
+   wherever |e − τ| > 1e-5. Time each kernel (CUDA events; for the verify
+   and the rollback also their device time from ``torch.profiler``)
+   beside its plain version, one PyTorch library call where one computes
+   the same function, and its bound (bytes over 3.35 TB/s, f32
+   operations over 67 TFLOP/s — the H100 SXM data sheet at 700 W).
 3. Serve DiT-XL/2 at full width (28 layers, d 1152, bf16, 32×32×4
    latents, 50 DDIM steps) through ``SpeCaEngine.serve_batched``: 8
    requests at lanes=4, taylor_order=2, per-sample accept, fused verify.
@@ -28,7 +34,20 @@ Phases (any failure ends the run with a non-zero exit):
    every kernel must have launched. The first 4 requests are served again
    at lanes=1 and must keep identical per-request counters and accept
    trajectories.
-4. ``speca_sample`` at batch 2 on the same model.
+4. Deep speculation: the same model and requests on
+   ``SpeCaEngine(max_draft_depth=4)`` with ``draft_depth`` 1, 2, 4, 4 by
+   request. The chain predict and the rollback must have launched in this
+   run; every request must keep phase 3's accept trajectory and counters
+   with samples within 1e-5 of phase 3's, in fewer ticks; the first 4
+   requests re-served at lanes=1 keep their counters.
+5. The spectral forecaster: ``SpeCaEngine(forecaster="spectral",
+   max_draft_depth=4)`` serves 4 depth-4 requests at lanes=4 (the ring
+   shift and the chain predict must launch) and at lanes=1, with
+   identical counters.
+6. ``speca_sample`` at batch 2 on the same model.
+
+Each serving phase resets the launch counts just before its run and
+reads them just after, and asserts the kernels of its own path.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``; the line before them is
@@ -53,6 +72,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 LANES = 4
 N_REQUESTS = 8
+CHAIN_K = 4                       # the deep phases' max_draft_depth
+DEEP_DEPTHS = (1, 2, 4, 4)        # draft_depth of request i: [i % 4]
 
 
 def smi_line() -> str:
@@ -76,6 +97,25 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, names, iters: int = 100):
+    """Device time per call of ``fn``: the summed durations of the CUDA
+    kernels whose names contain one of ``names``, from torch.profiler
+    over ``iters`` calls (no host cost between launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and any(n in e.name for n in names))
+    assert total_us > 0, f"the profiler saw no kernel named {names}"
+    return total_us / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -131,18 +171,33 @@ class Smoke:
         diffs = torch.randn(shape, generator=g, device=self.dev).to(dtype)
         feats = torch.randn(shape[1:], generator=g,
                             device=self.dev).to(dtype)
-        # Taylor weights of lanes at different anchor counts: lane 1 cold
-        # (order 0 only), lane 3 at n_anchors=2 — invalid orders are 0.0
+        w = self._weights(m1, W)
+        mask = torch.arange(W, device=self.dev) % 2 == 0     # mixed
+        return diffs, feats, w, mask
+
+    def _weights(self, m1, W, K=None):
+        """Taylor weights [m+1, W] of lanes at different anchor counts
+        (lane 1 cold: order 0 only; lane 3 at n_anchors=2 — invalid orders
+        are 0.0), or [m+1, K, W] for the K positions of a chain."""
+        torch = self.torch
         d = torch.tensor([1.0, 2.0, 3.0, 1.0][:W] + [2.0] * max(W - 4, 0),
                          device=self.dev)
         gap = torch.tensor([1.0, 1.0, 2.0, 3.0][:W] + [1.0] * max(W - 4, 0),
                            device=self.dev)
         n = torch.tensor([3, 1, 4, 2][:W] + [3] * max(W - 4, 0),
                          device=self.dev)
+        if K is not None:
+            d = d + torch.arange(K, device=self.dev)[:, None]
         from repro_torch.core.taylor import prediction_weights
-        w = prediction_weights(m1 - 1, d, gap, n).contiguous()
-        mask = torch.arange(W, device=self.dev) % 2 == 0     # mixed
-        return diffs, feats, w, mask
+        return prediction_weights(m1 - 1, d, gap, n).contiguous()
+
+    def _rollback_indices(self, W):
+        """int32 restore indices that together cover 0..CHAIN_K."""
+        torch = self.torch
+        return [torch.tensor([(a * lane + b) % (CHAIN_K + 1)
+                              for lane in range(W)], dtype=torch.int32,
+                             device=self.dev)
+                for a, b in ((1, 0), (3, 4), (2, 1))]
 
     def check_kernels(self):
         torch = self.torch
@@ -181,10 +236,77 @@ class Smoke:
                    "update_max_abs_err": (uk.float() - up.float()).abs()
                    .max().item(),
                    "verify_max_abs_err": (ek - ep).abs().max().item()}
+            row.update(self._check_chain_kernels(shape, dtype))
             checks.append(row)
             print(f"kernels == plain at {shape} {dtype}: {row}")
+        # the serving rollback: latent snapshots, lane axis first
+        for dtype in (torch.float32, torch.bfloat16):
+            x = self._latent_chain(dtype)
+            for idx in self._rollback_indices(LANES):
+                assert torch.equal(ops.lane_rollback(x, idx, lane_axis=0),
+                                   ref.lane_rollback_ref(x, idx,
+                                                         lane_axis=0)), \
+                    f"rollback not bitwise on latents {dtype}"
         self.record["kernel_checks"] = checks
         self._time_main(main, torch.bfloat16)
+        self._time_chain_kernels(main, torch.bfloat16)
+
+    def _latent_chain(self, dtype):
+        """CHAIN_K+1 latent snapshots [K+1, W, 32, 32, 4] of the serve."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(5)
+        size, ch = self.dcfg.latent_size, self.cfg.in_channels
+        return torch.randn((CHAIN_K + 1, LANES, size, size, ch),
+                           generator=g, device=self.dev).to(dtype)
+
+    def _check_chain_kernels(self, shape, dtype):
+        """The chain predict (K = 1 and CHAIN_K), the rollback and the ring
+        shift against their plain versions at one table shape, and each
+        chain position against the depth-1 kernel; returns the max
+        |kernel − plain| of each."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        diffs, feats, _, mask = self._inputs(shape, dtype, 3)
+        m1, W = shape[0], shape[3]
+        tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+        errs = {}
+        for K in (1, CHAIN_K):
+            w = self._weights(m1, W, K)
+            ck = ops.taylor_predict_chain_lanes(diffs, w)
+            c32 = ref.taylor_predict_chain_lanes_ref(diffs.float(), w)
+            # one rounding to the table dtype (rtol) plus the f32 rounding
+            # by which an FMA chain and a multiply-then-add differ, which
+            # scales with Σ|w·x|: extrapolated chain weights reach ~8, so
+            # near-zero sums of large terms differ by more than a fixed
+            # atol (the depth-1 check above keeps its fixed atol 1e-6)
+            terms = ref.taylor_predict_chain_lanes_ref(diffs.float().abs(),
+                                                       w.abs())
+            excess = ((ck.float() - c32).abs() - tol * c32.abs()
+                      - 2.0 ** -21 * terms).max().item()
+            assert excess <= 0.0, \
+                f"chain K={K} off the plain sum by {excess} at {shape}"
+            for k in range(K):
+                pk = ops.taylor_predict_lanes(diffs, w[:, k].contiguous())
+                assert torch.equal(ck[k], pk), \
+                    f"chain position {k} of {K} != depth-1 kernel at {shape}"
+            cp = ref.taylor_predict_chain_lanes_ref(diffs, w)
+            errs[f"chain_k{K}_max_abs_err"] = (
+                ck.float() - cp.float()).abs().max().item()
+        g = torch.Generator(device=self.dev).manual_seed(4)
+        chain = torch.randn((CHAIN_K + 1,) + tuple(shape[1:]), generator=g,
+                            device=self.dev).to(dtype)
+        for idx in self._rollback_indices(W):
+            assert torch.equal(ops.lane_rollback(chain, idx),
+                               ref.lane_rollback_ref(chain, idx,
+                                                     lane_axis=2)), \
+                f"rollback not bitwise at {shape}"
+        for m in (torch.ones_like(mask), torch.zeros_like(mask), mask):
+            assert torch.equal(ops.spectral_update_lanes(diffs, feats, m),
+                               ref.spectral_update_lanes_ref(diffs, feats,
+                                                             m)), \
+                f"ring shift not bitwise at {shape} mask {m.tolist()}"
+        errs["rollback_max_abs_err"] = errs["ring_max_abs_err"] = 0.0
+        return errs
 
     def _verify_planes(self, shape, dtype):
         """pred/real verify planes [W, T·D] as the lane step forms them."""
@@ -245,9 +367,80 @@ class Smoke:
         ek, _ = ops.verify_accept(pred, real, tau)
         ep, _ = ref.verify_accept_ref(pred, real, tau)
         vb, vf = bound_ms(2 * W * N * es + W * (4 + 4 + 1), 5.0 * W * N)
+        v_d = device_ms(torch, lambda: ops.verify_accept(pred, real, tau),
+                        ("verify_partials_kernel", "verify_finish_kernel"))
         self.kernels["verify_accept"] = dict(
-            ms=v_k, plain_ms=v_p, library_ms=None, bound_ms=vb, bound_by=vf,
+            ms=v_k, device_ms=v_d, plain_ms=v_p, library_ms=None,
+            bound_ms=vb, bound_by=vf,
             max_abs_err=(ek - ep).abs().max().item())
+
+    def _time_chain_kernels(self, shape, dtype):
+        """Times of the chain predict (K = CHAIN_K), the rollback (on the
+        serve's latent snapshots) and the ring shift at the serving
+        shapes, beside their plain versions, library calls and bounds."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        diffs, feats, _, mask = self._inputs(shape, dtype, 2)
+        m1, W, K = shape[0], shape[3], CHAIN_K
+        G = shape[1] * shape[2]
+        R, C = G * W, shape[4] * shape[5]
+        es = diffs.element_size()
+        w = self._weights(m1, W, K)
+        c_k = time_ms(torch, lambda: ops.taylor_predict_chain_lanes(diffs, w))
+        c_p = time_ms(torch, lambda: ref.taylor_predict_chain_lanes_ref(
+            diffs, w))
+        wb, d4 = w.to(dtype), diffs.view(m1, G, W, C)
+        c_l = time_ms(torch, lambda: torch.einsum("zkb,zgbc->kgbc", wb, d4))
+        cols = [w[:, k].contiguous() for k in range(K)]
+        c_1 = time_ms(torch, lambda: [ops.taylor_predict_lanes(diffs, c)
+                                      for c in cols])
+        ck = ops.taylor_predict_chain_lanes(diffs, w)
+        cp = ref.taylor_predict_chain_lanes_ref(diffs, w)
+        cb, cf = bound_ms((m1 + K) * R * C * es + m1 * K * W * 4,
+                          2.0 * m1 * K * R * C)
+        self.kernels["taylor_predict_chain_lanes"] = dict(
+            ms=c_k, plain_ms=c_p, library_ms=c_l, bound_ms=cb, bound_by=cf,
+            depth1_x_k_ms=c_1, k=K,
+            max_abs_err=(ck.float() - cp.float()).abs().max().item())
+
+        x = self._latent_chain(torch.float32)
+        idx = self._rollback_indices(W)[1]
+        xs = tuple(x.shape[1:])
+        take = idx.long().reshape((1, W) + (1,) * (len(xs) - 1)) \
+            .expand((1,) + xs)
+        r_e = time_ms(torch, lambda: ops.lane_rollback(x, idx, lane_axis=0),
+                      iters=100)
+        r_d = device_ms(torch, lambda: ops.lane_rollback(x, idx,
+                                                          lane_axis=0),
+                        ("rollback_kernel",))
+        r_p = time_ms(torch, lambda: ref.lane_rollback_ref(x, idx,
+                                                           lane_axis=0),
+                      iters=100)
+        r_l = time_ms(torch, lambda: torch.take_along_dim(x, take, dim=0),
+                      iters=100)
+        rk = ops.lane_rollback(x, idx, lane_axis=0)
+        rp = ref.lane_rollback_ref(x, idx, lane_axis=0)
+        # one selected row read and one row written per lane, and idx
+        rb, rf = bound_ms(2 * x[0].numel() * x.element_size() + W * 4, 0.0)
+        self.kernels["lane_rollback"] = dict(
+            ms=r_d, event_ms=r_e, plain_ms=r_p, library_ms=r_l, bound_ms=rb,
+            bound_by=rf, max_abs_err=(rk - rp).abs().max().item())
+
+        s_k = time_ms(torch, lambda: ops.spectral_update_lanes(diffs, feats,
+                                                               mask))
+        s_p = time_ms(torch, lambda: ref.spectral_update_lanes_ref(
+            diffs, feats, mask))
+        sk = ops.spectral_update_lanes(diffs, feats, mask)
+        sp = ref.spectral_update_lanes_ref(diffs, feats, mask)
+        fresh = int(mask.sum().item()) * R // W
+        kept = R - fresh
+        # kept rows read m+1 old planes; fresh rows read their features
+        # and old planes 0..m-1 (old plane m drops); all planes written
+        sb, sf = bound_ms((kept * m1 * C + fresh * m1 * C + m1 * R * C)
+                          * es + W, 0.0)
+        self.kernels["spectral_update_lanes"] = dict(
+            ms=s_k, plain_ms=s_p, library_ms=None, bound_ms=sb, bound_by=sf,
+            max_abs_err=(sk.float() - sp.float()).abs().max().item())
         for name, k in self.kernels.items():
             print(f"{name}: {k}")
 
@@ -312,9 +505,9 @@ class Smoke:
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()                  # read just after
         syncs = engine.host_syncs - syncs0
-        ticks = sum(r.num_full + r.num_spec for r in res) // LANES
-        for name, n in launches.items():
-            self.kernels.setdefault(name, {})["launches"] = n
+        ticks = max(r.finish_tick for r in res)
+        for name in SERVE_KERNELS:
+            self.kernels.setdefault(name, {})["launches"] = launches[name]
         samples = torch.cat([r.sample for r in res])
         print(f"main path launches: {launches}")
         per_req = [{"request_id": r.request_id, "num_full": r.num_full,
@@ -328,7 +521,7 @@ class Smoke:
               f"{wall:.3f} s: {N_REQUESTS / wall:.3f} req/s, "
               f"{syncs} host syncs over {ticks} ticks, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        assert all(n > 0 for n in launches.values()), launches
+        assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
         assert tuple(samples.shape) == latent_shape(cfg, dcfg, N_REQUESTS)
         assert torch.isfinite(samples).all(), "non-finite samples"
         assert all(r.completed and r.num_full + r.num_spec == S
@@ -340,13 +533,134 @@ class Smoke:
                 f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
         print(f"lanes={LANES} and lanes=1 counters identical for the first "
               f"{LANES} requests")
+        self.serve_results = res
         self.record["serve"] = dict(
             requests=per_req, wall_s=wall, req_per_s=N_REQUESTS / wall,
             host_syncs=syncs, ticks=ticks, launches=launches,
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             sample_abs_max=samples.abs().max().item())
 
+    def _requests(self, n, policy_of=lambda i: None):
+        torch = self.torch
+        from repro_torch.serving import Request
+        return [Request(request_id=i,
+                        cond={"labels": torch.tensor(
+                            [(37 * i) % self.cfg.num_classes])},
+                        seed=100 + i, policy=policy_of(i)) for i in range(n)]
+
+    def _timed_serve(self, engine, reqs, lanes):
+        """Serve ``reqs`` with the launch counts set to 0 just before and
+        read just after; returns (results, launches, wall s, host syncs,
+        peak GiB)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        torch.cuda.synchronize()
+        syncs0 = engine.host_syncs
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = engine.serve_batched(reqs, lanes=lanes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        return (res, launches, wall, engine.host_syncs - syncs0,
+                torch.cuda.max_memory_allocated() / 2**30)
+
     # --- phase 4 -------------------------------------------------------------
+    def serve_deep(self):
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import RequestPolicy, SpeCaEngine
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                             SpeCaConfig(taylor_order=2),
+                             max_draft_depth=CHAIN_K, device=self.dev)
+        reqs = self._requests(N_REQUESTS, lambda i: RequestPolicy(
+            draft_depth=DEEP_DEPTHS[i % len(DEEP_DEPTHS)]))
+        engine.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=5)
+        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
+                                                             LANES)
+        ticks = max(r.finish_tick for r in res)
+        for name in DEEP_KERNELS:
+            # a kernel's row keeps the count of the first path that runs it
+            self.kernels.setdefault(name, {}).setdefault("launches",
+                                                         launches[name])
+        base = self.serve_results
+        dmax = max((a.sample - b.sample).abs().max().item()
+                   for a, b in zip(base, res))
+        print(f"deep main path launches: {launches}")
+        for r in res:
+            print(f"  request {r.request_id}: depth "
+                  f"{DEEP_DEPTHS[r.request_id % len(DEEP_DEPTHS)]} full "
+                  f"{r.num_full} spec {r.num_spec} drafted {r.num_drafted} "
+                  f"draft_accept_rate {r.draft_accept_rate:.3f} "
+                  f"finish_tick {r.finish_tick}")
+        print(f"served {N_REQUESTS} deep requests at lanes={LANES} in "
+              f"{wall:.3f} s: {N_REQUESTS / wall:.3f} req/s, {syncs} host "
+              f"syncs over {ticks} ticks (depth 1: "
+              f"{self.record['serve']['ticks']}), peak {peak:.2f} GiB; "
+              f"max |sample - depth-1 sample| = {dmax} (zero: "
+              f"{dmax == 0.0})")
+        assert all(launches[n] > 0 for n in DEEP_KERNELS), launches
+        for a, b in zip(base, res):
+            assert (a.accepts, a.num_full, a.num_spec) == \
+                (b.accepts, b.num_full, b.num_spec), \
+                f"request {a.request_id}: deep and depth-1 trajectories differ"
+        assert dmax <= 1e-5, f"deep samples differ from depth-1 by {dmax}"
+        assert ticks < self.record["serve"]["ticks"], "no fewer ticks"
+        solo = engine.serve_batched(reqs[:LANES], lanes=1)
+        for a, b in zip(res[:LANES], solo):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
+        print(f"deep lanes={LANES} and lanes=1 counters identical")
+        self.record["serve_deep"] = dict(
+            depths=list(DEEP_DEPTHS), wall_s=wall,
+            req_per_s=N_REQUESTS / wall, host_syncs=syncs, ticks=ticks,
+            launches=launches, peak_gib=peak, max_abs_diff_vs_depth1=dmax,
+            requests=[dict(request_id=r.request_id, num_full=r.num_full,
+                           num_spec=r.num_spec, num_drafted=r.num_drafted,
+                           finish_tick=r.finish_tick,
+                           draft_accept_rate=r.draft_accept_rate)
+                      for r in res])
+
+    # --- phase 5 -------------------------------------------------------------
+    def serve_spectral(self):
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import RequestPolicy, SpeCaEngine
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                             SpeCaConfig(taylor_order=2),
+                             forecaster="spectral", max_draft_depth=CHAIN_K,
+                             device=self.dev)
+        reqs = self._requests(LANES, lambda i: RequestPolicy(
+            draft_depth=CHAIN_K))
+        engine.serve_batched(reqs, lanes=LANES, max_ticks=5)
+        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
+                                                             LANES)
+        ticks = max(r.finish_tick for r in res)
+        for name in SPECTRAL_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault("launches",
+                                                         launches[name])
+        print(f"spectral main path launches: {launches}")
+        for r in res:
+            print(f"  request {r.request_id}: alpha {r.alpha:.3f} full "
+                  f"{r.num_full} spec {r.num_spec} drafted {r.num_drafted} "
+                  f"draft_accept_rate {r.draft_accept_rate:.3f}")
+        print(f"served {LANES} spectral depth-{CHAIN_K} requests at "
+              f"lanes={LANES} in {wall:.3f} s: {syncs} host syncs over "
+              f"{ticks} ticks, peak {peak:.2f} GiB")
+        assert all(launches[n] > 0 for n in SPECTRAL_KERNELS), launches
+        solo = engine.serve_batched(reqs, lanes=1)
+        for a, b in zip(res, solo):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
+        print(f"spectral lanes={LANES} and lanes=1 counters identical")
+        self.record["serve_spectral"] = dict(
+            wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            peak_gib=peak, alpha=[r.alpha for r in res],
+            draft_accept_rate=[r.draft_accept_rate for r in res])
+
+    # --- phase 6 -------------------------------------------------------------
     def sample(self):
         torch = self.torch
         from repro_torch.configs import SpeCaConfig
@@ -383,7 +697,22 @@ KERNEL_META = {
                             "src/repro/kernels/taylor_predict.py:215"),
     "verify_accept": ("src/repro_torch/kernels/csrc/verify_accept.cu",
                       "src/repro/kernels/verify_error.py:72"),
+    "taylor_predict_chain_lanes": ("src/repro_torch/kernels/csrc/"
+                                   "taylor_predict_chain.cu",
+                                   "src/repro/kernels/taylor_predict.py:117"),
+    "lane_rollback": ("src/repro_torch/kernels/csrc/lane_rollback.cu",
+                      "src/repro/kernels/taylor_predict.py:166"),
+    "spectral_update_lanes": ("src/repro_torch/kernels/csrc/"
+                              "spectral_update_lanes.cu",
+                              "src/repro/kernels/spectral.py:51"),
 }
+# the kernels each serving path must launch
+SERVE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
+                 "verify_accept")
+DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
+                "taylor_update_lanes", "verify_accept")
+SPECTRAL_KERNELS = ("spectral_update_lanes", "taylor_predict_chain_lanes",
+                    "lane_rollback", "verify_accept")
 
 
 def main() -> int:
@@ -412,6 +741,8 @@ def main() -> int:
     smoke.phase("kernels", smoke.check_kernels)
     smoke.phase("serve", smoke.serve)
     if "serve" not in smoke.failures:
+        smoke.phase("serve_deep", smoke.serve_deep)
+        smoke.phase("serve_spectral", smoke.serve_spectral)
         smoke.phase("speca_sample", smoke.sample)
     card = smi_line()
     rows = []
@@ -426,7 +757,8 @@ def main() -> int:
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms")})
     OUT.mkdir(exist_ok=True)
-    smoke.record.update(card=card, kernels=rows, failures=smoke.failures,
+    smoke.record.update(card=card, kernels=rows,
+                        kernel_detail=smoke.kernels, failures=smoke.failures,
                         torch=torch.__version__, cuda=torch.version.cuda)
     (OUT / "chip_smoke.json").write_text(json.dumps(smoke.record, indent=1))
     if smoke.failures:

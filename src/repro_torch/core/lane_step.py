@@ -1,13 +1,13 @@
-"""The one forecast-then-verify step (paper §3.2–3.4) over a lane batch.
+"""The forecast-then-verify step (paper §3.2–3.4) over a lane batch.
 
 Both execution paths — the sampler (``repro_torch.core.speca``, where the
 sample batch is the lane batch) and the serving engine — advance their
-state through the step built here, at depth 1 and without guidance:
+state through the step built here, unguided:
 
   1. *Draft* (runs iff ANY lane is warm and under its draft budget): the
-     fused per-lane predict kernel forecasts every lane's residual
-     increments from its own anchor, and the backbone runs with compute
-     masked to the verify layer.
+     forecaster's fused per-lane predict kernel forecasts every lane's
+     residual increments from its own anchor, and the backbone runs with
+     compute masked to the verify layer.
   2. *Verify*: each lane's relative error against its own τ_t — the fused
      verify kernel (``verify_backend="fused"``, rel-L2 only) or the
      metric-general path (``"jnp"``, named after the reference's).
@@ -17,21 +17,32 @@ state through the step built here, at depth 1 and without guidance:
      forward serves the rejected lanes and the refresh kernel updates only
      their table slices; accepted lanes advance on the speculative output.
 
-The reference decides the two "runs iff" branches on the device with
+At ``max_draft_depth=K > 1`` (:class:`ChainStep`, the reference's
+``chain_step``) steps 1–3 repeat for K chain positions per tick from one
+chain forecast, the payload advancing blindly with a snapshot after each
+position; the rollback kernel then restores every lane to the snapshot
+of its accepted prefix, and ONE closing full forward serves the lanes
+that stopped on a rejection.
+
+The reference decides the "runs iff" branches on the device with
 ``lax.cond``. Eager PyTorch decides them on the host, which costs one
-device sync per branch per tick; :attr:`LaneStep.host_syncs` counts them.
-Both branches are never computed.
+device sync per branch; :attr:`LaneStep.host_syncs` counts them (two per
+tick at depth 1, at most K+1 per chain tick). Both branches are never
+computed.
 
 State (all on the device): ``since`` [W] i32 consecutive accepted drafts,
 ``step`` [W] i32 schedule step, ``active`` [W] bool occupancy, ``tau0``
-[W] f32 per-lane base threshold, ``cond`` {k: [W, …]}, the workload
-payload (diffusion: ``x`` [W, H, W, C] f32) and the table
-(``diffs`` [m+1, L, 2, W, T, D], ``n_anchors``/``anchor_step``/``gap``
-[W]).
+[W] f32 per-lane base threshold, ``draft_k`` [W] i32 draft horizon and
+``max_step`` [W] i32 schedule length (read only by chain steps),
+``cond`` {k: [W, …]}, the workload payload (diffusion: ``x`` [W, H, W, C]
+f32) and the table (``diffs`` [m+1, L, 2, W, T, D],
+``n_anchors``/``anchor_step``/``gap`` [W]).
 
 Flags per tick ([W]): ``attempted``, ``ok``, ``accepted``, ``full``,
 ``err`` (NaN where the lane did not draft), ``tau``, and the counters
-``n_spec``/``n_drafted``/``advanced``.
+``n_spec``/``n_drafted``/``advanced``; a chain step adds
+``chain_attempted``/``chain_accepted``/``chain_err``/``chain_tau``
+[K, W] and reports chain position 0 in the depth-1 keys.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ import torch
 from repro_torch.configs import (DiffusionConfig, ModelConfig, SpeCaConfig,
                                  torch_dtype)
 from repro_torch.core import taylor
-from repro_torch.core.forecaster import TaylorForecaster
+from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.verify import relative_error, threshold_schedule
 from repro_torch.kernels import ops
 
@@ -73,13 +84,15 @@ def table_dtype(cfg: ModelConfig, scfg: SpeCaConfig) -> torch.dtype:
 
 def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
                         x: Optional[torch.Tensor] = None,
-                        active: bool = False) -> State:
+                        active: bool = False,
+                        forecaster: Any = None) -> State:
     """Fresh lane-batch state on the workload's device. ``cond_template``
     supplies per-key shapes (its leading axis is replaced by ``lanes``);
     pass ``x`` to start from a concrete latent (the sampler) instead of
-    zeros (the engine)."""
+    zeros (the engine). ``forecaster`` (a name or instance, ``None`` =
+    Taylor) lays out the table."""
     W, dev = lanes, wl.device
-    fc = TaylorForecaster()
+    fc = get_forecaster(forecaster)
     feat_shape = taylor.feature_shape_for(wl.cfg.num_layers, W,
                                           wl.num_tokens, wl.cfg.d_model)
     tstate = fc.init_state(wl.scfg.taylor_order, feat_shape, wl.table_dtype,
@@ -94,6 +107,10 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
         "active": torch.full((W,), bool(active), device=dev),
         "tau0": torch.full((W,), float(wl.scfg.tau0), dtype=torch.float32,
                            device=dev),
+        # per-lane draft horizon and schedule length (chain steps only)
+        "draft_k": torch.ones((W,), dtype=torch.int32, device=dev),
+        "max_step": torch.full((W,), wl.num_steps, dtype=torch.int32,
+                               device=dev),
         "cond": cond,
         **wl.init_payload(W, x=x),
         **tstate,
@@ -105,7 +122,8 @@ class LaneStep:
     host syncs its two data-dependent branches cost in ``host_syncs``."""
 
     def __init__(self, wl, *, lanes: int, draft_mode: str,
-                 accept_mode: str, verify_backend: str) -> None:
+                 accept_mode: str, verify_backend: str,
+                 forecaster: Any = None) -> None:
         if accept_mode not in ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
         if verify_backend not in VERIFY_BACKENDS:
@@ -113,11 +131,21 @@ class LaneStep:
         if wl.scfg.error_metric != "rel_l2":
             verify_backend = "jnp"   # the fused kernel implements eq. 4 only
         self.wl, self.W = wl, lanes
-        self.fc = TaylorForecaster()
+        self.fc = get_forecaster(forecaster)
         self.draft_mode = draft_mode
         self.accept_mode = accept_mode
         self.verify_backend = verify_backend
         self.host_syncs = 0
+
+    def _nan(self) -> torch.Tensor:
+        return torch.full((self.W,), float("nan"), dtype=torch.float32,
+                          device=self.wl.device)
+
+    def _combine(self, want, ok):
+        if self.accept_mode == "batch":
+            # parity mode: every drafting lane must pass or all reject
+            return want & torch.all(ok | ~want)
+        return want & ok
 
     def _any(self, t: torch.Tensor) -> bool:
         self.host_syncs += 1
@@ -147,8 +175,7 @@ class LaneStep:
         want = active & warm & (since < scfg.max_draft)
         # per-lane τ_t = τ0·β^((T−t)/T) at each lane's own step
         tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"], scfg.beta)
-        nan = torch.full((W,), float("nan"), dtype=torch.float32,
-                         device=wl.device)
+        nan = self._nan()
 
         if self._any(want):
             preds = fc.predict_lanes(tstate, s_eff, mode=self.draft_mode)
@@ -160,11 +187,7 @@ class LaneStep:
         else:
             out_spec = wl.zero_out(W)
             err, ok = nan, torch.zeros_like(want)
-        if self.accept_mode == "batch":
-            # parity mode: every drafting lane must pass or all reject
-            accept = want & torch.all(ok | ~want)
-        else:
-            accept = want & ok
+        accept = self._combine(want, ok)
         full = active & ~accept
 
         if self._any(full):
@@ -188,11 +211,135 @@ class LaneStep:
         return new_state, flags
 
 
+class ChainStep(LaneStep):
+    """The depth-K lane step (the reference's ``chain_step``,
+    ``repro/core/lane_step.py:607``): K draft-verify positions per tick
+    from ONE chain forecast, then one rollback and one closing full
+    forward. A lane drafts at position j under its budget
+    ``(draft_k > j) & (step < max_step)`` while it has accepted every
+    earlier position; rows advance blindly on the drafted output and the
+    rollback restores each lane to the snapshot of its accepted prefix, so
+    a lane lands bitwise on the state ``advanced`` depth-1 ticks would
+    give it.
+
+    Host syncs: one per position while some lane drafts (its branch),
+    one for the closing full forward. The first position at which no lane
+    drafts leaves every later position without a drafting lane (none is
+    alive), so the loop stops syncing there and fills those positions'
+    flags with the reference's values (attempted/accepted False, err NaN,
+    τ at the unchanged step); their blind advances are never selected by
+    the rollback and are skipped."""
+
+    def __init__(self, wl, *, lanes: int, depth: int, **kw) -> None:
+        super().__init__(wl, lanes=lanes, **kw)
+        self.K = depth
+
+    def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
+        wl, fc, W, K = self.wl, self.fc, self.W, self.K
+        scfg, vl, S = wl.scfg, wl.verify_layer, wl.num_steps
+        dyn = {k: state[k] for k in wl.dyn_keys}
+        since, s, active = state["since"], state["step"], state["active"]
+        cond = state["cond"]
+        tstate = {k: state[k] for k in fc.state_keys}
+        draft_k, max_step = state["draft_k"], state["max_step"]
+        warm = fc.warm(tstate, scfg)
+        # a lane alive at position j has accepted 0..j-1, so its step
+        # there is step₀ + j (clamped to the schedule end)
+        steps_chain = torch.clamp(
+            s[None, :] + torch.arange(K, dtype=torch.int32,
+                                      device=s.device)[:, None], max=S - 1)
+        preds_chain = None
+        alive = active
+        stop_full = torch.zeros_like(active)
+        n_acc = torch.zeros_like(s)
+        n_drafted = torch.zeros_like(s)
+        snaps = [dyn]
+        rows = {k: [] for k in ("attempted", "accepted", "err", "tau")}
+        ok0 = None
+        drafting = True
+        for j in range(K):
+            s_eff = torch.clamp(s, max=S - 1)
+            ctx = wl.step_context(state, s_eff)
+            budget = (draft_k > j) & (s < max_step)
+            want = alive & budget & warm & (since < scfg.max_draft)
+            tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"],
+                                     scfg.beta)
+            drafting = drafting and self._any(want)
+            if drafting:
+                if preds_chain is None:
+                    preds_chain = fc.predict_chain_lanes(
+                        tstate, steps_chain, mode=self.draft_mode)
+                preds = preds_chain[j]
+                out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
+                pred_vl = preds[vl][0] + preds[vl][1]
+                err, ok = self.verify(pred_vl, real_vl, tau)
+                err, ok = torch.where(want, err, self._nan()), ok & want
+            else:
+                err, ok = self._nan(), torch.zeros_like(want)
+            acc = self._combine(want, ok)
+            # a lane with budget at j that did not advance is served by
+            # the closing full; one whose budget ran out stops clean
+            stop_full = stop_full | (alive & budget & ~acc)
+            if drafting:
+                # blind advance: every row steps on the drafted output;
+                # the rollback keeps only accepted prefixes
+                dyn = wl.advance(dyn, out_spec, ctx, s_eff)
+                snaps.append(dyn)
+            since = torch.where(acc, since + 1, since)
+            s = s + acc.to(torch.int32)
+            n_acc = n_acc + acc.to(torch.int32)
+            n_drafted = n_drafted + want.to(torch.int32)
+            alive = acc
+            if j == 0:
+                ok0 = ok
+            for k, v in (("attempted", want), ("accepted", acc),
+                         ("err", err), ("tau", tau)):
+                rows[k].append(v)
+        # exact-copy restore to each lane's accepted-prefix snapshot
+        # (n_acc never exceeds the drafted positions, so the snapshots
+        # taken are all it can select)
+        chain = {k: torch.stack([sn[k] for sn in snaps])
+                 for k in wl.dyn_keys}
+        dyn = wl.rollback(chain, n_acc)
+        # ONE closing full forward serves every stopped lane at its
+        # rolled-back step and refreshes only those lanes' table slices
+        s_eff = torch.clamp(s, max=S - 1)
+        if self._any(stop_full):
+            ctx = wl.step_context(state, s_eff)
+            out_full, branches = wl.full_forward(dyn, cond, ctx)
+            tstate = fc.update_lanes(tstate, branches, s_eff, stop_full)
+            dyn = wl.select_dyn(stop_full,
+                                wl.advance(dyn, out_full, ctx, s_eff), dyn)
+        since = torch.where(stop_full, torch.zeros_like(since), since)
+        s = s + stop_full.to(torch.int32)
+        new_state = dict(state)
+        new_state.update(since=since, step=s, **dyn, **tstate)
+        advanced = n_acc + stop_full.to(torch.int32)
+        flags = {"attempted": rows["attempted"][0], "ok": ok0,
+                 "accepted": rows["accepted"][0], "full": stop_full,
+                 "err": rows["err"][0], "tau": rows["tau"][0],
+                 "n_spec": n_acc, "n_drafted": n_drafted,
+                 "advanced": advanced,
+                 **{f"chain_{k}": torch.stack(v) for k, v in rows.items()}}
+        return new_state, flags
+
+
 def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                         accept_mode: str = "per_sample",
-                        verify_backend: str = "jnp") -> LaneStep:
-    """Build the depth-1, unguided lane step (Taylor forecaster) for a
-    ``Workload``; ``draft_mode`` picks the weights of
-    ``taylor.prediction_weights``."""
-    return LaneStep(wl, lanes=lanes, draft_mode=draft_mode,
-                    accept_mode=accept_mode, verify_backend=verify_backend)
+                        verify_backend: str = "jnp",
+                        max_draft_depth: int = 1,
+                        forecaster: Any = None) -> LaneStep:
+    """Build the unguided lane step for a ``Workload``: the depth-1
+    :class:`LaneStep` at ``max_draft_depth=1``, else a :class:`ChainStep`
+    of K = ``max_draft_depth`` positions (each lane's horizon is its
+    ``draft_k`` state entry). ``draft_mode`` picks the Taylor weights of
+    ``taylor.prediction_weights``; ``forecaster`` is a name or
+    ``Forecaster`` instance (``None`` = Taylor)."""
+    if max_draft_depth < 1:
+        raise ValueError(f"max_draft_depth must be >= 1, "
+                         f"got {max_draft_depth}")
+    kw = dict(lanes=lanes, draft_mode=draft_mode, accept_mode=accept_mode,
+              verify_backend=verify_backend, forecaster=forecaster)
+    if max_draft_depth == 1:
+        return LaneStep(wl, **kw)
+    return ChainStep(wl, depth=int(max_draft_depth), **kw)

@@ -46,12 +46,18 @@ def update_lanes(state: State, feats: torch.Tensor, step: torch.Tensor,
     has the (L, 2, B, T, D) feature layout; ``step`` is a scalar or
     per-lane [B] step index."""
     diffs = ops.taylor_update_lanes(state["diffs"], feats, mask)
+    return {"diffs": diffs, **update_lanes_meta(state, step, mask)}
+
+
+def update_lanes_meta(state: State, step: torch.Tensor,
+                      mask: torch.Tensor) -> State:
+    """The anchor metadata of a masked refresh (``n_anchors``,
+    ``anchor_step``, ``gap``), shared by every forecaster."""
     step = torch.broadcast_to(step.to(torch.int32), mask.shape)
     anchor = state["anchor_step"]
     gap = torch.where(anchor >= 0, (step - anchor).to(torch.float32),
                       torch.ones_like(state["gap"]))
     return {
-        "diffs": diffs,
         "n_anchors": torch.where(mask, state["n_anchors"] + 1,
                                  state["n_anchors"]),
         "anchor_step": torch.where(mask, step, anchor),
@@ -132,6 +138,30 @@ def predict_lanes(state: State, step: torch.Tensor,
     w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode)
     return ops.taylor_predict_lanes(state["diffs"],
                                     w.to(torch.float32).contiguous())
+
+
+def predict_chain_lanes(state: State, steps: torch.Tensor,
+                        mode: str = "taylor") -> torch.Tensor:
+    """Per-lane forecast of a whole drafted chain: ``steps`` [K, B] (chain
+    position k of lane b extrapolates to step ``steps[k, b]``) ->
+    [K, ...feat] from one read of the table; position k is bitwise
+    :func:`predict_lanes` called with ``steps[k]``."""
+    d = (steps.to(torch.int32) - state["anchor_step"]).to(torch.float32)
+    order = state["diffs"].shape[0] - 1
+    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode)
+    return ops.taylor_predict_chain_lanes(state["diffs"],
+                                          w.to(torch.float32).contiguous())
+
+
+def lane_rollback(chain: torch.Tensor, idx: torch.Tensor, *,
+                  lane_axis: int = 2) -> torch.Tensor:
+    """Per-lane snapshot restore: ``chain`` [K+1, ...feat] stacks the
+    snapshots before and after each drafted chain position, ``idx`` [B]
+    (0..K) is each lane's accepted-prefix length -> chain[idx[lane]] per
+    lane, exact copies. ``lane_axis`` is the lane axis of the feature
+    layout."""
+    return ops.lane_rollback(chain, idx.to(torch.int32).contiguous(),
+                             lane_axis=lane_axis)
 
 
 def feature_shape_for(num_layers: int, batch: int, tokens: int,

@@ -5,7 +5,8 @@ an opaque dynamic payload plus a verify-layer feature pair; what a model
 output is, how the payload advances on it and how a lane is filled and
 harvested lives behind the ``Workload`` adapter. The port ships the
 diffusion adapter: payload = the latent ``x`` (lane axis 0), advance =
-the DDIM (or rectified-flow) update at each lane's own step.
+the DDIM (or rectified-flow) update at each lane's own step; rollback =
+the exact-copy restore of a draft-K chain's snapshots.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
+from repro_torch.core import taylor
 from repro_torch.core.complexity import forward_flops, verify_flops
 from repro_torch.core.lane_step import num_tokens, table_dtype, verify_layer
 from repro_torch.device import DeviceLike, resolve_device
@@ -41,12 +43,19 @@ class Workload:
     ``dyn_keys`` / ``dyn_axes`` (payload keys and their lane axes),
     ``full_flops`` / ``verify_flops``. Step hooks: ``t_frac``,
     ``step_context``, ``spec_forward``, ``full_forward``, ``zero_out``,
-    ``select_out``, ``advance``. Host hooks: ``init_payload``,
+    ``select_out``, ``advance``, ``rollback``. Host hooks: ``init_payload``,
     ``fill_payload``, ``emit``.
     """
 
     tag: str = "?"
     dyn_axes: Dict[str, int] = {}
+
+    def rollback(self, chain: Dict[str, torch.Tensor], n_acc: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """Restore every payload leaf to snapshot ``n_acc[lane]`` through
+        the rollback kernel, which copies bytes and so takes any dtype."""
+        return {k: taylor.lane_rollback(v, n_acc, lane_axis=self.dyn_axes[k])
+                for k, v in chain.items()}
 
     def select_dyn(self, mask, new, cur):
         return {k: _axis_where(mask, self.dyn_axes[k], new[k], v)

@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("taylor_predict_lanes", "taylor_update_lanes", "verify_accept")
+SOURCES = ("taylor_predict_lanes", "taylor_update_lanes", "verify_accept",
+           "taylor_predict_chain", "lane_rollback", "spectral_update_lanes")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -37,6 +38,14 @@ SIGNATURES: Dict[str, Sequence] = {
     # eps, vec, stream, device
     "verify_accept": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F,
                       _I, _P, _I),
+    # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device
+    "taylor_predict_chain": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P,
+                             _I),
+    # chain, idx, out, K, R, row_bytes, lanes, stream, device
+    "lane_rollback": (_P, _P, _P, _I, _LL, _LL, _I, _P, _I),
+    # old, feats, mask, out, dtype, m1, R, C, lanes, vec, stream, device
+    "spectral_update_lanes": (_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I,
+                              _P, _I),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

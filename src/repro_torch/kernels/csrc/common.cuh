@@ -60,6 +60,20 @@ struct Vec {
   }
 };
 
+// The draft's per-element sum Σ_i w[i]·x(i), accumulated in f32 as one
+// FMA chain in the order i = 0..m1-1: acc = w0·x0, then acc = fma(wi, xi,
+// acc). Every predict kernel evaluates its elements through this one
+// function, so chain position k is bitwise the depth-1 predict called
+// with position k's weights. w is a register array of kMax entries.
+template <int kMax, class X>
+__device__ __forceinline__ float fma_chain(const float* w, int m1, X x) {
+  float acc = w[0] * x(0);
+#pragma unroll
+  for (int i = 1; i < kMax; ++i)
+    if (i < m1) acc = fmaf(w[i], x(i), acc);
+  return acc;
+}
+
 inline int prepare(int device) {
   return static_cast<int>(cudaSetDevice(device));
 }

@@ -49,23 +49,16 @@ predict_lanes_kernel(const typename Tr::storage* __restrict__ diffs,
       if (i < m1) d[i].load(src + i * plane + c);
     V o;
 #pragma unroll
-    for (int k = 0; k < V::N; ++k) {
-      float acc = wl[0] * Tr::load(d[0].s[k]);
-#pragma unroll
-      for (int i = 1; i < kMaxOrders; ++i)
-        if (i < m1) acc = fmaf(wl[i], Tr::load(d[i].s[k]), acc);
-      o.s[k] = Tr::store(acc);
-    }
+    for (int k = 0; k < V::N; ++k)
+      o.s[k] = Tr::store(rt::fma_chain<kMaxOrders>(
+          wl, m1, [&](int i) { return Tr::load(d[i].s[k]); }));
     o.store(dst + c);
   } else {
     const int64_t c =
         static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (c >= C) return;
-    float acc = wl[0] * Tr::load(src[c]);
-#pragma unroll
-    for (int i = 1; i < kMaxOrders; ++i)
-      if (i < m1) acc = fmaf(wl[i], Tr::load(src[i * plane + c]), acc);
-    dst[c] = Tr::store(acc);
+    dst[c] = Tr::store(rt::fma_chain<kMaxOrders>(
+        wl, m1, [&](int i) { return Tr::load(src[i * plane + c]); }));
   }
 }
 

@@ -1,4 +1,4 @@
-"""Wrappers around the three Hopper kernels of the serving path.
+"""Wrappers around the Hopper kernels of the serving path.
 
 Each wrapper checks its arguments, runs the plain PyTorch version
 (``ref``) when the tensors lie on the CPU, and otherwise launches its
@@ -23,10 +23,14 @@ from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "taylor_update_lanes": 0,
-                            "verify_accept": 0}
+                            "verify_accept": 0,
+                            "taylor_predict_chain_lanes": 0,
+                            "lane_rollback": 0,
+                            "spectral_update_lanes": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
+_MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
 _MAX_ROWS = 65535        # gridDim.y
 _VERIFY_CHUNK = 8192     # elements per pass-1 block of verify_accept
 
@@ -198,3 +202,118 @@ def verify_accept(pred: torch.Tensor, ref_: torch.Tensor,
     build.check("verify_accept", lib, rc)
     LAUNCHES["verify_accept"] += 1
     return err, accept
+
+
+def taylor_predict_chain_lanes(diffs: torch.Tensor, weights: torch.Tensor,
+                               *, lane_axis: int = 2) -> torch.Tensor:
+    """Per-lane fused Taylor chain evaluation (draft-K): diffs [m+1,
+    ...feat], weights [m+1, K, B] f32 -> [K, ...feat] from one read of
+    the table; position k is bitwise :func:`taylor_predict_lanes` called
+    with ``weights[:, k]``."""
+    m1, feat = diffs.shape[0], tuple(diffs.shape[1:])
+    G, B, C = _lane_fold(feat, lane_axis)
+    if weights.dim() != 3 or weights.shape[0] != m1 \
+            or weights.shape[2] != B:
+        raise ValueError(f"weights shape {tuple(weights.shape)} != "
+                         f"{(m1, 'K', B)}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32, got {weights.dtype}")
+    K = weights.shape[1]
+    if _on_cpu(diffs, weights):
+        return ref.taylor_predict_chain_lanes_ref(diffs, weights,
+                                                  lane_axis=lane_axis)
+    code = _kernel_dtype(diffs, "the table")
+    _contiguous("diffs and weights", diffs, weights)
+    if not 1 <= m1 <= _MAX_ORDERS:
+        raise ValueError(f"the kernel takes 1..{_MAX_ORDERS} orders, got {m1}")
+    if not 1 <= m1 * K <= _MAX_CHAIN_WEIGHTS:
+        raise ValueError(f"(m+1)·K = {m1 * K} weights exceed the kernel's "
+                         f"{_MAX_CHAIN_WEIGHTS}")
+    R = G * B
+    if R > _MAX_ROWS:
+        raise ValueError(f"{R} table rows exceed the kernel's {_MAX_ROWS}")
+    out = torch.empty((K,) + feat, dtype=diffs.dtype, device=diffs.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library("taylor_predict_chain")
+    stream, dev = _stream(diffs)
+    rc = lib.taylor_predict_chain(
+        diffs.data_ptr(), weights.data_ptr(), out.data_ptr(), code, m1, K,
+        R, C, B, _vec_ok(C, diffs.element_size(), diffs, out), stream, dev)
+    build.check("taylor_predict_chain", lib, rc)
+    LAUNCHES["taylor_predict_chain_lanes"] += 1
+    return out
+
+
+def lane_rollback(chain: torch.Tensor, idx: torch.Tensor, *,
+                  lane_axis: int = 2) -> torch.Tensor:
+    """Per-lane snapshot restore (draft-K rollback): chain [K+1, ...feat]
+    of any dtype, idx [B] int32 -> [...feat] with each lane's rows copied
+    from ``chain[clamp(idx[lane], 0, K)]``, bit for bit."""
+    K1, feat = chain.shape[0], tuple(chain.shape[1:])
+    G, B, C = _lane_fold(feat, lane_axis)
+    if tuple(idx.shape) != (B,) or idx.dtype != torch.int32:
+        raise ValueError(f"idx must be a [{B}] int32 tensor")
+    if K1 < 1:
+        raise ValueError("the chain needs at least one snapshot")
+    if _on_cpu(chain, idx):
+        return ref.lane_rollback_ref(chain, idx, lane_axis=lane_axis)
+    _contiguous("chain and idx", chain, idx)
+    R = G * B
+    if R > _MAX_ROWS:
+        raise ValueError(f"{R} rows exceed the kernel's {_MAX_ROWS}")
+    out = torch.empty(feat, dtype=chain.dtype, device=chain.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library("lane_rollback")
+    stream, dev = _stream(chain)
+    rc = lib.lane_rollback(chain.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                           K1 - 1, R, C * chain.element_size(), B, stream,
+                           dev)
+    build.check("lane_rollback", lib, rc)
+    LAUNCHES["lane_rollback"] += 1
+    return out
+
+
+def spectral_update_lanes(old_ring: torch.Tensor, feats: torch.Tensor,
+                          mask: torch.Tensor, *,
+                          lane_axis: int = 2) -> torch.Tensor:
+    """Masked per-lane ring shift of the spectral raw-anchor table:
+    old_ring [m+1, ...feat], feats [...feat], mask [B] bool -> new ring
+    with row 0 = feats and row i = old row i−1 for lanes in the mask;
+    the other lanes keep their rows bit for bit."""
+    m1, feat = old_ring.shape[0], tuple(old_ring.shape[1:])
+    G, B, C = _lane_fold(feat, lane_axis)
+    if tuple(feats.shape) != feat:
+        raise ValueError(f"feats shape {tuple(feats.shape)} != {feat}")
+    if tuple(mask.shape) != (B,) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be a [{B}] bool tensor")
+    if _on_cpu(old_ring, feats, mask):
+        return ref.spectral_update_lanes_ref(old_ring, feats, mask,
+                                             lane_axis=lane_axis)
+    code = _kernel_dtype(old_ring, "the ring")
+    feats = feats.to(old_ring.dtype).contiguous()
+    _contiguous("old_ring and mask", old_ring, mask)
+    R = G * B
+    if R > _MAX_ROWS:
+        raise ValueError(f"{R} table rows exceed the kernel's {_MAX_ROWS}")
+    out = torch.empty_like(old_ring)
+    if out.numel() == 0:
+        return out
+    lib = build.library("spectral_update_lanes")
+    stream, dev = _stream(old_ring)
+    rc = lib.spectral_update_lanes(
+        old_ring.data_ptr(), feats.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), code, m1, R, C, B,
+        _vec_ok(C, old_ring.element_size(), old_ring, feats, out),
+        stream, dev)
+    build.check("spectral_update_lanes", lib, rc)
+    LAUNCHES["spectral_update_lanes"] += 1
+    return out
+
+
+# The spectral prediction is the same per-lane contraction Σ_j w_j·row_j
+# as the Taylor predict — only the weight columns differ — so it runs the
+# same kernels under the reference's names (repro.kernels.ops).
+spectral_predict_lanes = taylor_predict_lanes
+spectral_predict_chain_lanes = taylor_predict_chain_lanes

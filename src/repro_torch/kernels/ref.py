@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels.
+"""Plain PyTorch versions of the kernels.
 
 The wrappers in ``ops`` use these for tensors that lie on the CPU; the
 chip check compares each kernel with its plain version on the card. Each
@@ -34,6 +34,30 @@ def taylor_predict_lanes_ref(diffs: torch.Tensor, weights: torch.Tensor, *,
     return acc.to(diffs.dtype)
 
 
+def taylor_predict_chain_lanes_ref(diffs: torch.Tensor,
+                                   weights: torch.Tensor, *,
+                                   lane_axis: int = 2) -> torch.Tensor:
+    """diffs [m+1, ...feat], weights [m+1, K, B] f32 -> [K, ...feat];
+    position k is :func:`taylor_predict_lanes_ref` with weights[:, k]."""
+    return torch.stack([
+        taylor_predict_lanes_ref(diffs, weights[:, k], lane_axis=lane_axis)
+        for k in range(weights.shape[1])])
+
+
+def lane_rollback_ref(chain: torch.Tensor, idx: torch.Tensor, *,
+                      lane_axis: int = 0) -> torch.Tensor:
+    """chain [K+1, ...feat], idx [B] integer -> [...feat] with each lane's
+    rows from chain[idx[lane]]: a where-chain over the snapshot axis, so
+    an index below 0 selects snapshot 0 and one above K snapshot K. Exact
+    copies."""
+    sel = idx.to(torch.int32).reshape(
+        _lane_shape(chain.dim() - 1, lane_axis, idx.shape[0]))
+    out = chain[0]
+    for k in range(1, chain.shape[0]):
+        out = torch.where(sel >= k, chain[k], out)
+    return out
+
+
 def taylor_update_lanes_ref(old_diffs: torch.Tensor, feats: torch.Tensor,
                             mask: torch.Tensor, *,
                             lane_axis: int = 2) -> torch.Tensor:
@@ -46,6 +70,17 @@ def taylor_update_lanes_ref(old_diffs: torch.Tensor, feats: torch.Tensor,
     new = torch.stack(rows)
     mshape = _lane_shape(old_diffs.dim(), lane_axis + 1, mask.shape[0])
     return torch.where(mask.to(torch.bool).reshape(mshape), new, old_diffs)
+
+
+def spectral_update_lanes_ref(old_ring: torch.Tensor, feats: torch.Tensor,
+                              mask: torch.Tensor, *,
+                              lane_axis: int = 2) -> torch.Tensor:
+    """Masked per-lane ring shift: lanes in ``mask`` [B] get row 0 = feats
+    (in the ring dtype) and row i = old row i−1; the other lanes keep
+    their rows. Exact copies."""
+    new = torch.cat([feats.to(old_ring.dtype)[None], old_ring[:-1]], dim=0)
+    mshape = _lane_shape(old_ring.dim(), lane_axis + 1, mask.shape[0])
+    return torch.where(mask.to(torch.bool).reshape(mshape), new, old_ring)
 
 
 def verify_accept_ref(pred: torch.Tensor, ref: torch.Tensor,

@@ -14,15 +14,19 @@ scheduler tick:
   * when a lane finishes, the FIFO queue refills it immediately
     (continuous batching).
 
-The port serves unguided diffusion requests at depth 1 through
-``serve_batched`` / ``serve`` / ``run_request``. The reference's
-lifecycle API, guided pairs, deep drafting, other schedulers, the
-controller, observability and meshes are not ported yet.
+The port serves unguided diffusion requests through ``serve_batched`` /
+``serve`` / ``run_request``, at depth 1 or in draft-K chains
+(``max_draft_depth`` with ``RequestPolicy.draft_depth``), with the Taylor
+or the spectral forecaster. The reference's lifecycle API, guided pairs,
+other schedulers, the controller, observability and meshes are not
+ported yet.
 
-Host/device discipline: lane completion is host-predictable (an active
-lane advances one step per tick), so per-tick flags stay on the device
-until a request completes. The lane step itself syncs twice per tick to
-decide its two branches (``SpeCaEngine.host_syncs``).
+Host/device discipline: while every in-flight request is depth-1, lane
+completion is host-predictable (an active lane advances one step per
+tick), so per-tick flags stay on the device until a request completes.
+With a deep request in flight a lane moves 0..K steps per tick, so the
+tick's ``advanced`` counters are fetched. The lane step itself syncs to
+decide its branches. ``SpeCaEngine.host_syncs`` counts both.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
 from repro_torch.core import lane_step as LS
+from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.workload import DiffusionWorkload, NoiseFn
 from repro_torch.device import DeviceLike
 from repro_torch.obs import MonotonicClock, Timings
@@ -75,6 +80,14 @@ class Result:
         """Acceptance rate: fraction of steps served speculatively."""
         return self.num_spec / max(self.num_full + self.num_spec, 1)
 
+    @property
+    def draft_accept_rate(self) -> float:
+        """Accepted drafted steps per drafted step, ``num_spec /
+        num_drafted``: a depth-K chain counts every position it drafted,
+        so depth-1 and depth-K runs compare directly. 0.0 when the
+        request never drafted."""
+        return self.num_spec / max(self.num_drafted, 1)
+
 
 @dataclasses.dataclass
 class QueueItem:
@@ -96,13 +109,15 @@ class _Entry:
     start_tick: int
     t0: float
     done: int = 0       # host-tracked denoising step counter
+    draft_k: int = 1    # the request's draft horizon (policy.draft_depth)
     first_tick_s: Optional[float] = None
 
 
 class _Session:
     """One serving session: a fixed-width lane batch, its lane step and
-    the host-side slot bookkeeping. ``host_syncs`` counts the device syncs
-    of this session's ticks."""
+    the host-side slot bookkeeping. Each tick adds its device syncs to
+    the engine's ``host_syncs`` as they happen: the lane step's branches
+    and the ``advanced`` fetch while a deep request is in flight."""
 
     def __init__(self, engine: "SpeCaEngine", width: int) -> None:
         self.e = engine
@@ -112,7 +127,6 @@ class _Session:
         self.state: Optional[Dict[str, Any]] = None
         self.lane_entry: List[Optional[_Entry]] = [None] * width
         self.tick = 0
-        self.host_syncs = 0
         self._flag_log: List[Optional[Dict[str, torch.Tensor]]] = []
         self._flag_np: Dict[int, Dict[str, np.ndarray]] = {}
 
@@ -129,7 +143,8 @@ class _Session:
         """Admit a request into the first free lane."""
         lane = self.lane_entry.index(None)
         entry = _Entry(item=item, lane=lane, start_tick=self.tick,
-                       t0=self.e.clock.now())
+                       t0=self.e.clock.now(),
+                       draft_k=int(item.policy.draft_depth or 1))
         self.lane_entry[lane] = entry
         self._fill(entry)
 
@@ -139,8 +154,11 @@ class _Session:
         wl = self.wl
         req, pol = entry.item.request, entry.item.policy
         if self.state is None:
-            self.state = LS.init_workload_state(wl, self.W, req.cond)
+            self.state = LS.init_workload_state(
+                wl, self.W, req.cond, forecaster=self.e.forecaster)
         lane, st = entry.lane, self.state
+        st["draft_k"][lane] = entry.draft_k
+        st["max_step"][lane] = entry.item.steps
         st["diffs"][:, :, :, lane] = 0
         st["n_anchors"][lane] = 0
         st["anchor_step"][lane] = -1
@@ -156,18 +174,25 @@ class _Session:
 
     def advance(self) -> List[Tuple[_Entry, Result]]:
         """One scheduler tick: run the lane step, then complete every
-        entry whose schedule finished. Returns the completions."""
+        entry whose schedule finished. With a deep entry in flight a lane
+        moves 0..K steps per tick, so the tick's ``advanced`` counters are
+        fetched (one host sync). Returns the completions."""
         now = self.e.clock.now()
         before = self.step_fn.host_syncs
         self.state, flags = self.step_fn(self.state)
-        self.host_syncs += self.step_fn.host_syncs - before
+        self.e._host_syncs += self.step_fn.host_syncs - before
         self._flag_log.append(flags)
         self.tick += 1
+        adv = None
+        if any(e.draft_k > 1 for e in self.entries()):
+            adv = flags["advanced"].cpu().numpy()
+            self.e._host_syncs += 1
         completed: List[Tuple[_Entry, Result]] = []
         for entry in self.entries():
             if entry.first_tick_s is None:
                 entry.first_tick_s = now
-            entry.done += 1       # depth 1: one step per tick
+            # depth-1 entries advance exactly one step per tick
+            entry.done += 1 if adv is None else int(adv[entry.lane])
             if entry.done < entry.item.steps:
                 continue
             completed.append((entry, self.harvest(entry, completed=True)))
@@ -248,6 +273,10 @@ class SpeCaEngine:
     forecast weights (``taylor.prediction_weights``). ``device``: where
     the lane state lives — ``params`` must already be there.
     ``noise_fn(seed)`` overrides the per-request initial noise.
+    max_draft_depth: the chain length K of the lane step — requests may
+    ask for ``RequestPolicy.draft_depth`` 1..K; the default 1 builds the
+    depth-1 step. forecaster: ``None``/``"taylor"``, ``"spectral"`` or a
+    ``Forecaster`` instance, fixed per engine.
     """
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DiffusionConfig,
@@ -255,9 +284,13 @@ class SpeCaEngine:
                  accept_mode: str = "per_sample",
                  verify_backend: str = "fused",
                  noise_fn: Optional[NoiseFn] = None,
+                 max_draft_depth: int = 1, forecaster: Any = None,
                  device: DeviceLike = "cuda"):
         if accept_mode not in LS.ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
+        if max_draft_depth < 1:
+            raise ValueError(f"max_draft_depth must be >= 1, "
+                             f"got {max_draft_depth}")
         if verify_backend not in LS.VERIFY_BACKENDS:
             raise ValueError(f"unknown verify_backend {verify_backend!r}")
         self.workload = DiffusionWorkload(cfg, params, dcfg, scfg,
@@ -265,14 +298,32 @@ class SpeCaEngine:
         self.draft_mode = draft_mode
         self.accept_mode = accept_mode
         self.verify_backend = verify_backend
+        self.max_draft_depth = int(max_draft_depth)
+        # resolved now, so a bad name fails at construction
+        self.forecaster = get_forecaster(forecaster)
         self.clock = MonotonicClock()
         self._lane_fns: Dict[int, LS.LaneStep] = {}
+        self._host_syncs = 0
 
     @property
     def host_syncs(self) -> int:
-        """Device syncs the lane steps of this engine have made so far
-        (two per tick: the draft and the refresh branch)."""
-        return sum(fn.host_syncs for fn in self._lane_fns.values())
+        """Device syncs this engine's sessions have made so far: the lane
+        step's branches (two per depth-1 tick, up to K+1 per chain tick)
+        and one ``advanced`` fetch per tick with a deep request in
+        flight."""
+        return self._host_syncs
+
+    def resolve_policy(self, req: Request) -> RequestPolicy:
+        """The request's policy (or the default), validated against this
+        engine."""
+        pol = req.policy or RequestPolicy()
+        dk = pol.draft_depth
+        if dk is not None and not 1 <= int(dk) <= self.max_draft_depth:
+            raise ValueError(
+                f"draft_depth={dk} outside this engine's compiled chain "
+                f"(1..max_draft_depth={self.max_draft_depth}); construct "
+                "SpeCaEngine(max_draft_depth=K) to serve deeper drafts")
+        return pol
 
     def _lane_step(self, W: int) -> LS.LaneStep:
         """The W-lane step (built once per width)."""
@@ -280,7 +331,9 @@ class SpeCaEngine:
             self._lane_fns[W] = LS.build_workload_step(
                 self.workload, lanes=W, draft_mode=self.draft_mode,
                 accept_mode=self.accept_mode,
-                verify_backend=self.verify_backend)
+                verify_backend=self.verify_backend,
+                max_draft_depth=self.max_draft_depth,
+                forecaster=self.forecaster)
         return self._lane_fns[W]
 
     def serve_batched(self, requests: List[Request], *, lanes: int = 4,
@@ -297,11 +350,11 @@ class SpeCaEngine:
         if not requests:
             return []
         S = self.workload.num_steps
+        pols = [self.resolve_policy(r) for r in requests]
         queue = collections.deque(
-            QueueItem(seq=i, request=r, policy=r.policy or RequestPolicy(),
-                      steps=(r.policy or RequestPolicy()).steps(S),
+            QueueItem(seq=i, request=r, policy=p, steps=p.steps(S),
                       submit_s=self.clock.now())
-            for i, r in enumerate(requests))
+            for i, (r, p) in enumerate(zip(requests, pols)))
         sess = _Session(self, min(max(lanes, 1), len(requests)))
         results: Dict[int, Result] = {}
         while queue or sess.busy():

@@ -10,7 +10,9 @@ machine without them:
 Tolerances against the plain PyTorch versions on the same card: the
 refresh bitwise; the predict within one bf16 ulp (rtol 2^-8) of the plain
 f32 sum, in f32 to FMA rounding (1e-6); the verify error to rtol 1e-5,
-accept bits equal wherever |e − τ| > 1e-5.
+accept bits equal wherever |e − τ| > 1e-5; the chain predict like the
+predict and each position bitwise the depth-1 kernel; the rollback and
+the ring shift bitwise.
 """
 import numpy as np
 import pytest
@@ -67,7 +69,67 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"taylor_predict_lanes": 1,
                                    "taylor_update_lanes": 1,
-                                   "verify_accept": 1}
+                                   "verify_accept": 1,
+                                   "taylor_predict_chain_lanes": 0,
+                                   "lane_rollback": 0,
+                                   "spectral_update_lanes": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 4])
+def test_chain_predict_matches_plain_and_depth1_kernel(cuda, shape, dtype,
+                                                       K):
+    d, _, _, _ = _inputs(shape, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w = torch.rand((shape[0], K, shape[3]), generator=g, device=cuda) + 0.1
+    w[1:, :, 0] = 0.0
+    ops.reset_launch_counts()
+    pk = ops.taylor_predict_chain_lanes(d, w)
+    p32 = ref.taylor_predict_chain_lanes_ref(d.float(), w)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(pk.float(), p32, rtol=tol, atol=1e-6)
+    for k in range(K):
+        assert torch.equal(pk[k], ops.taylor_predict_lanes(
+            d, w[:, k].contiguous())), k
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["taylor_predict_chain_lanes"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_rollback_bitwise_on_card(cuda, shape, dtype):
+    K = 4
+    g = torch.Generator(device=cuda).manual_seed(3)
+    chain = (torch.randn((K + 1,) + shape[1:], generator=g, device=cuda)
+             * 100).to(dtype)
+    W = shape[3]
+    idx = (torch.arange(W, device=cuda, dtype=torch.int32) * 3) % (K + 1)
+    idx[0] = -1                         # clamps to snapshot 0
+    out = ops.lane_rollback(chain, idx)
+    assert torch.equal(out, ref.lane_rollback_ref(chain, idx, lane_axis=2))
+    for lane in range(W):
+        k = max(0, min(int(idx[lane]), K))
+        assert torch.equal(out[:, :, lane], chain[k][:, :, lane])
+    # the serving layout: a latent chain with the lane axis first
+    x = torch.randn((K + 1, W, 8, 8, 4), generator=g, device=cuda)
+    assert torch.equal(ops.lane_rollback(x, idx, lane_axis=0),
+                       ref.lane_rollback_ref(x, idx, lane_axis=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["all", "none", "mixed"])
+def test_ring_shift_bitwise_on_card(cuda, shape, dtype, mask_kind):
+    d, f, _, mixed = _inputs(shape, dtype, cuda)
+    mask = {"all": torch.ones_like(mixed), "none": torch.zeros_like(mixed),
+            "mixed": mixed}[mask_kind]
+    out = ops.spectral_update_lanes(d, f, mask)
+    assert torch.equal(out, ref.spectral_update_lanes_ref(d, f, mask))
 
 
 @pytest.mark.cuda
@@ -93,14 +155,43 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError):
         ops.taylor_predict_lanes(d.float().transpose(1, 2),
                                  torch.ones((3, 2), device=cuda))
+    with pytest.raises(TypeError):
+        ops.taylor_predict_chain_lanes(d, torch.ones((3, 2, 2), device=cuda))
+    with pytest.raises(TypeError):
+        ops.spectral_update_lanes(d, d[0], torch.ones(2, dtype=torch.bool,
+                                                      device=cuda))
+    with pytest.raises(ValueError):
+        ops.lane_rollback(d.float().transpose(1, 2),
+                          torch.zeros(2, dtype=torch.int32, device=cuda))
+    # a CUDA tensor never reaches a plain version: with the plain
+    # versions replaced by a trap, every wrapper still computes
+    calls = []
+    saved = {n: getattr(ref, n) for n in dir(ref) if n.endswith("_ref")}
+    try:
+        for n in saved:
+            setattr(ref, n, lambda *a, _n=n, **k: calls.append(_n))
+        t = torch.randn((3, 2, 2, 2, 4, 8), device=cuda)
+        mask = torch.tensor([True, False], device=cuda)
+        idx = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+        outs = [ops.taylor_predict_lanes(t, torch.ones((3, 2), device=cuda)),
+                ops.taylor_update_lanes(t, t[0], mask),
+                ops.verify_accept(t[0, 0, 0], t[0, 0, 1],
+                                  torch.ones(2, device=cuda))[0],
+                ops.taylor_predict_chain_lanes(
+                    t, torch.ones((3, 4, 2), device=cuda)),
+                ops.lane_rollback(t, idx),
+                ops.spectral_update_lanes(t, t[0], mask)]
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    torch.cuda.synchronize()
+    assert calls == [] and all(o.is_cuda for o in outs)
 
 
-@pytest.mark.cuda
-def test_engine_lane_width_keeps_trajectories_on_card(cuda):
-    """A small f32 DiT served at lanes 1 and 3: identical per-request
-    counters (the engine's trajectory-exactness on the card)."""
+def _small_dit(cuda):
+    """A small f32 DiT with seeded random weights whose features move
+    smoothly from step to step (see chip_smoke)."""
     from repro_torch.layers.model import init_params
-    from repro_torch.serving import Request, SpeCaEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = PC.ModelConfig(name="t", num_layers=2, d_model=64, num_heads=4,
                          d_ff=128, num_classes=10, dtype="float32")
@@ -115,13 +206,24 @@ def test_engine_lane_width_keeps_trajectories_on_card(cuda):
     freq = torch.exp(-np.log(1e4) * torch.arange(half, device=cuda) / half)
     keep = (50.0 * freq <= 0.2).float()
     params["embed"]["time"]["w1"] *= torch.cat([keep, keep])[:, None]
-    dcfg = PC.DiffusionConfig(num_inference_steps=20, latent_size=8)
+    return cfg, params, PC.DiffusionConfig(num_inference_steps=20,
+                                           latent_size=8)
+
+
+@pytest.mark.cuda
+def test_engine_lane_width_keeps_trajectories_on_card(cuda):
+    """A small f32 DiT served at lanes 1 and 3: identical per-request
+    counters (the engine's trajectory-exactness on the card)."""
+    from repro_torch.serving import Request, SpeCaEngine
+    cfg, params, dcfg = _small_dit(cuda)
     engine = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), device=cuda)
     reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
                     seed=i) for i in range(3)]
     ops.reset_launch_counts()
     r3 = engine.serve_batched(reqs, lanes=3)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    n = ops.launch_counts()
+    assert all(n[k] > 0 for k in ("taylor_predict_lanes",
+                                  "taylor_update_lanes", "verify_accept"))
     r1 = engine.serve_batched(reqs, lanes=1)
     for a, b in zip(r1, r3):
         assert (a.num_full, a.num_spec, a.accepts) == \
@@ -130,3 +232,35 @@ def test_engine_lane_width_keeps_trajectories_on_card(cuda):
                                    atol=1e-4)
     # two branch syncs per tick: 20 ticks at lanes=3, 3 × 20 at lanes=1
     assert engine.host_syncs == 2 * 20 + 2 * 20 * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forecaster", ["taylor", "spectral"])
+def test_deep_engine_keeps_trajectories_on_card(cuda, forecaster):
+    """Depth-3 requests on the card: the depth-1 engine's accept
+    trajectories in fewer ticks, through the chain and rollback kernels
+    (and the ring shift for the spectral forecaster)."""
+    from repro_torch.serving import Request, RequestPolicy, SpeCaEngine
+    cfg, params, dcfg = _small_dit(cuda)
+    scfg = PC.SpeCaConfig()
+    reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i) for i in range(3)]
+    deep = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i, policy=RequestPolicy(draft_depth=3))
+            for i in range(3)]
+    ref1 = SpeCaEngine(cfg, params, dcfg, scfg, forecaster=forecaster,
+                       device=cuda).serve_batched(reqs, lanes=3)
+    ops.reset_launch_counts()
+    got = SpeCaEngine(cfg, params, dcfg, scfg, forecaster=forecaster,
+                      max_draft_depth=3, device=cuda).serve_batched(
+        deep, lanes=3)
+    n = ops.launch_counts()
+    assert n["taylor_predict_chain_lanes"] > 0 and n["lane_rollback"] > 0
+    assert (n["spectral_update_lanes"] > 0) == (forecaster == "spectral")
+    for a, b in zip(ref1, got):
+        assert (a.accepts, a.num_full, a.num_spec) == \
+            (b.accepts, b.num_full, b.num_spec)
+        torch.testing.assert_close(a.sample, b.sample, rtol=1e-5,
+                                   atol=1e-5)
+    assert sum(r.finish_tick for r in got) < sum(r.finish_tick
+                                                 for r in ref1)

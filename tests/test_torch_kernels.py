@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package's Pallas kernels.
+"""The port's kernels against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its plain PyTorch version; the Pallas
 kernels run as the reference's own tests run them (interpret mode). The
@@ -6,7 +6,10 @@ same numpy inputs go through both. Tolerances: the predict to FMA
 rounding in f32 (rtol=atol=1e-6; the Pallas kernel and the plain version
 may fuse the multiply-add differently) and to one bf16 ulp for bf16
 tables; the refresh bitwise; the verify error to rtol=1e-5 (f32 sums in
-another order) with identical accept bits. ``tests/test_torch_cuda.py``
+another order) with identical accept bits. The chain predict like the
+predict, and each of its positions bitwise the port's own predict; the
+rollback and the ring shift bitwise; the spectral weights to rtol 1e-6
+(PyTorch's cos and pow are not XLA's). ``tests/test_torch_cuda.py``
 holds the CUDA kernels against the plain versions on a card.
 """
 import jax.numpy as jnp
@@ -14,7 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import forecaster as jfc
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import forecaster as pfc
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
@@ -115,18 +121,26 @@ def test_verify_nan_never_accepts():
 def test_cpu_path_does_not_count_launches():
     ops.reset_launch_counts()
     d = torch.zeros(3, 2, 2, 2, 4, 8)
+    mask = torch.tensor([True, False])
     ops.taylor_predict_lanes(d, torch.ones(3, 2))
-    ops.taylor_update_lanes(d, torch.zeros(2, 2, 2, 4, 8),
-                            torch.tensor([True, False]))
+    ops.taylor_update_lanes(d, torch.zeros(2, 2, 2, 4, 8), mask)
     ops.verify_accept(torch.ones(2, 8), torch.ones(2, 8), torch.ones(2))
+    ops.taylor_predict_chain_lanes(d, torch.ones(3, 4, 2))
+    ops.lane_rollback(d, torch.tensor([0, 2], dtype=torch.int32))
+    ops.spectral_update_lanes(d, torch.zeros(2, 2, 2, 4, 8), mask)
     assert ops.launch_counts() == {"taylor_predict_lanes": 0,
                                    "taylor_update_lanes": 0,
-                                   "verify_accept": 0}
+                                   "verify_accept": 0,
+                                   "taylor_predict_chain_lanes": 0,
+                                   "lane_rollback": 0,
+                                   "spectral_update_lanes": 0}
 
 
 @pytest.mark.parametrize("case", ["weights_shape", "weights_dtype",
                                   "mask_dtype", "feats_shape", "tau_shape",
-                                  "devices"])
+                                  "devices", "chain_weights_shape",
+                                  "rollback_idx_dtype", "rollback_idx_shape",
+                                  "ring_mask_dtype"])
 def test_wrappers_reject_bad_arguments(case):
     d = torch.zeros(3, 2, 2, 2, 4, 8)
     f = torch.zeros(2, 2, 2, 4, 8)
@@ -143,5 +157,143 @@ def test_wrappers_reject_bad_arguments(case):
         elif case == "tau_shape":
             ops.verify_accept(torch.ones(2, 8), torch.ones(2, 8),
                               torch.ones(3))
+        elif case == "chain_weights_shape":
+            ops.taylor_predict_chain_lanes(d, torch.ones(3, 2))
+        elif case == "rollback_idx_dtype":
+            ops.lane_rollback(d, torch.tensor([0, 1]))
+        elif case == "rollback_idx_shape":
+            ops.lane_rollback(d, torch.zeros(3, dtype=torch.int32))
+        elif case == "ring_mask_dtype":
+            ops.spectral_update_lanes(d, f, torch.tensor([1, 0]))
         else:
             ops.taylor_predict_lanes(d, torch.ones(3, 2, device="meta"))
+
+
+def _chain_weights(m1, K, lanes, seed):
+    """[m+1, K, lanes] chain weights with the cold lanes of ``_weights``."""
+    return np.stack([_weights(m1, lanes, seed + k) for k in range(K)],
+                    axis=1)
+
+
+@pytest.mark.parametrize("shape", TABLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 3])
+def test_chain_predict_plain_matches_pallas(shape, dtype, K):
+    d = _table(shape, 5)
+    w = _chain_weights(shape[0], K, shape[3], 6)
+    dj, dt = _both(d, dtype)
+    pj = jops.taylor_predict_chain_lanes(dj, jnp.asarray(w), lane_axis=2)
+    pt = ops.taylor_predict_chain_lanes(dt, torch.from_numpy(w),
+                                        lane_axis=2)
+    assert pt.dtype == dtype and tuple(pt.shape) == (K,) + shape[1:]
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    np.testing.assert_allclose(_np(pt), _np(pj), rtol=tol, atol=tol)
+    # position k is bitwise the port's predict with weights[:, k]
+    for k in range(K):
+        pk = ops.taylor_predict_lanes(dt, torch.from_numpy(w[:, k].copy()))
+        assert torch.equal(pt[k], pk), k
+
+
+@pytest.mark.parametrize("shape", TABLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rollback_plain_bitwise_matches_pallas(shape, dtype):
+    K = 3
+    chain = _table((K + 1,) + shape[1:], 7)
+    idx = (np.arange(shape[3]) * 2) % (K + 1)           # covers 0..K
+    cj, ct = _both(chain, dtype)
+    oj = jops.lane_rollback(cj, jnp.asarray(idx), lane_axis=2)
+    ot = ops.lane_rollback(ct, torch.from_numpy(idx.astype(np.int32)),
+                           lane_axis=2)
+    np.testing.assert_array_equal(_np(ot), _np(oj))
+    for lane, k in enumerate(idx):
+        assert torch.equal(ot[:, :, lane], ct[k][:, :, lane])
+
+
+def test_rollback_plain_int_leaves_and_clamp():
+    """int32 leaves restore bitwise against the reference's oracle (the
+    reference sends them through a gather, whose result is the same), and
+    an index outside 0..K selects snapshot 0 or K as the where-chain
+    does."""
+    rng = np.random.default_rng(8)
+    chain = rng.integers(-1000, 1000, size=(4, 5, 3, 6)).astype(np.int32)
+    idx = np.array([0, 3, 1, 2, 3], np.int32)
+    oj = jref.lane_rollback_ref(jnp.asarray(chain), jnp.asarray(idx),
+                                lane_axis=0)
+    ot = ops.lane_rollback(torch.from_numpy(chain), torch.from_numpy(idx),
+                           lane_axis=0)
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    wild = torch.tensor([-2, 9, 1, 7, -1], dtype=torch.int32)
+    out = ops.lane_rollback(torch.from_numpy(chain), wild, lane_axis=0)
+    for lane, k in enumerate([0, 3, 1, 3, 0]):
+        assert torch.equal(out[lane], torch.from_numpy(chain[k, lane]))
+
+
+def test_workload_rollback_int_and_float_leaves():
+    """``Workload.rollback`` restores a float leaf and an integer leaf (lane
+    axis 1) through the rollback wrapper, bitwise against the reference's
+    kernel oracle and its integer gather
+    (``repro.core.workload._gather_rollback``)."""
+    from repro.core.workload import _gather_rollback
+    from repro_torch.core.workload import Workload
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(4, 3, 5)).astype(np.float32)
+    tok = rng.integers(0, 50, size=(4, 2, 3, 6)).astype(np.int32)
+    n_acc = np.array([0, 3, 2], np.int32)
+    wl = Workload()
+    wl.dyn_axes = {"x": 0, "tok": 1}
+    out = wl.rollback({"x": torch.from_numpy(x), "tok": torch.from_numpy(tok)},
+                      torch.from_numpy(n_acc))
+    np.testing.assert_array_equal(
+        out["x"].numpy(), np.asarray(jref.lane_rollback_ref(
+            jnp.asarray(x), jnp.asarray(n_acc), lane_axis=0)))
+    assert out["tok"].dtype == torch.int32
+    np.testing.assert_array_equal(
+        out["tok"].numpy(), np.asarray(_gather_rollback(
+            jnp.asarray(tok), jnp.asarray(n_acc), 1)))
+
+
+@pytest.mark.parametrize("shape", TABLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["all", "none", "mixed"])
+def test_ring_shift_plain_bitwise_matches_pallas(shape, dtype, mask_kind):
+    old = _table(shape, 9)
+    feats = _table(shape[1:], 10) * 3.0
+    lanes = shape[3]
+    mask = {"all": np.ones(lanes, bool), "none": np.zeros(lanes, bool),
+            "mixed": np.arange(lanes) % 2 == 1}[mask_kind]
+    oj, ot = _both(old, dtype)
+    fj, ft = _both(feats, dtype)
+    nj = jops.spectral_update_lanes(oj, fj, jnp.asarray(mask), lane_axis=2)
+    nt = ops.spectral_update_lanes(ot, ft, torch.from_numpy(mask),
+                                   lane_axis=2)
+    np.testing.assert_array_equal(_np(nt), _np(nj))
+    on = _np(ot)
+    for lane in range(lanes):
+        got = _np(nt)[:, :, :, lane]
+        if mask[lane]:
+            np.testing.assert_array_equal(got[0], _np(ft)[:, :, lane])
+            np.testing.assert_array_equal(got[1:], on[:-1, :, :, lane])
+        else:
+            np.testing.assert_array_equal(got, on[:, :, :, lane])
+
+
+@pytest.mark.parametrize("kind", ["scalar", "lanes", "chain"])
+def test_spectral_weights_match_reference(kind):
+    rng = np.random.default_rng(11)
+    B, K, order = 4, 3, 2
+    shape = {"scalar": (), "lanes": (B,), "chain": (K, B)}[kind]
+    d = rng.integers(0, 7, size=shape).astype(np.float32)
+    gap = (rng.integers(1, 4, size=shape[-1:]) if shape else
+           np.array(2)).astype(np.float32)
+    n = (np.array([0, 1, 2, 3]) if shape else np.array(3)).astype(np.int32)
+    wj = jfc.spectral_weights(order, jnp.asarray(d), jnp.asarray(gap),
+                              jnp.asarray(n))
+    wt = pfc.spectral_weights(order, torch.from_numpy(d),
+                              torch.from_numpy(gap), torch.from_numpy(n))
+    assert tuple(wt.shape) == (order + 1,) + shape
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-6,
+                               atol=1e-7)
+    # τ = 0 reproduces the newest anchor exactly
+    w0 = pfc.spectral_weights(order, torch.zeros(()), torch.ones(()),
+                              torch.tensor(3))
+    assert w0.tolist() == pytest.approx([1.0, 0.0, 0.0], abs=1e-7)

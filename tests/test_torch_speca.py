@@ -9,6 +9,12 @@ trajectories. Held: the DiT forward and its branch increments within
 trajectories identical; latents within rtol=atol=1e-5; verification
 errors within rtol=1e-4; the NaN "did not draft" sentinel as in
 ``tests/test_lane_step.py``.
+
+Draft-K chains and the spectral forecaster: the port's own analogues of
+``tests/test_draft_k.py`` (the rollback invariant bitwise against the
+port's depth-1 step, per-lane depths, frozen lanes, the ``max_step`` cap,
+serving), one chain tick and ``serve_batched`` against the reference
+under the same bars.
 """
 import dataclasses
 
@@ -19,16 +25,21 @@ import pytest
 import torch
 
 from repro.configs import SpeCaConfig as JSpeCaConfig
+from repro.core import lane_step as JLS
 from repro.core.speca import speca_sample as jspeca_sample
 from repro.diffusion.pipeline import latent_shape
 from repro.layers import model as JM
 from repro.serving import Request as JRequest
+from repro.serving import RequestPolicy as JRequestPolicy
 from repro.serving import SpeCaEngine as JEngine
 from repro_torch import configs as PC
 from repro_torch.convert import params_from_jax
+from repro_torch.core import lane_step as PLS
 from repro_torch.core.speca import speca_sample
+from repro_torch.core.workload import DiffusionWorkload
 from repro_torch.layers import model as PM
-from repro_torch.serving import Request, SpeCaEngine, allocation_report
+from repro_torch.serving import (Request, RequestPolicy, SpeCaEngine,
+                                 allocation_report)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -210,3 +221,293 @@ def test_tick_budget_drains_and_drops(both, engines):
     assert res[0].num_full + res[0].num_spec == S // 2
     assert res[2].sample is None and res[2].accepts == []
     assert allocation_report(res, 1.0) == {"n_requests": 0, "n_dropped": 3}
+
+
+# ---------------------------------------------------------------------------
+# Draft-K chains: the port's own analogues of tests/test_draft_k.py
+# ---------------------------------------------------------------------------
+
+W, ORDER, K = 4, 2, 3
+
+
+@pytest.fixture(scope="module")
+def chain_steps(both):
+    """(workload, depth-1 step, depth-K chain step) of the port over the
+    trained backbone."""
+    _, (pcfg, pdcfg, tp) = both
+    scfg = PC.SpeCaConfig(taylor_order=ORDER, max_draft=6, tau0=0.5,
+                          beta=0.9)
+    wl = DiffusionWorkload(pcfg, tp, pdcfg, scfg, device="cpu")
+    return (wl, PLS.build_workload_step(wl, lanes=W),
+            PLS.build_workload_step(wl, lanes=W, max_draft_depth=K))
+
+
+def _warm(wl, legacy, seed, tau0, draft_k):
+    """A mid-schedule state whose tables hold real backbone features:
+    random latents, then depth-1 ticks from cold (cold lanes refresh)."""
+    rng = np.random.default_rng(seed)
+    st = PLS.init_workload_state(wl, W, {"labels": torch.tensor([0])},
+                                 active=True)
+    st["x"] = torch.from_numpy(rng.normal(size=tuple(st["x"].shape))
+                               .astype(np.float32))
+    st["cond"] = {"labels": torch.tensor(
+        [(seed + i) % wl.cfg.num_classes for i in range(W)])}
+    st["tau0"] = torch.tensor(tau0, dtype=torch.float32)
+    st["draft_k"] = torch.tensor(draft_k, dtype=torch.int32)
+    for _ in range(ORDER + 2):
+        st, _ = legacy(st)
+    assert bool((st["n_anchors"] > ORDER).all())
+    return st
+
+
+def _legacy_states(legacy, st):
+    """The state after 0..K depth-1 ticks."""
+    out = [st]
+    for _ in range(K):
+        st, _ = legacy(st)
+        out.append(st)
+    return out
+
+
+def _assert_lane_equal(a, b, lane):
+    for k in ("since", "step", "n_anchors", "anchor_step", "gap"):
+        assert torch.equal(a[k][lane], b[k][lane]), (lane, k)
+    assert torch.equal(a["x"][lane], b["x"][lane]), lane
+    assert torch.equal(a["diffs"][:, :, :, lane],
+                       b["diffs"][:, :, :, lane]), lane
+
+
+def test_chain_rollback_restores_accepted_prefix_state(chain_steps):
+    """The rollback invariant: after one depth-3 chain tick each lane's
+    state is bitwise that lane's state after ``advanced[lane]`` depth-1
+    ticks — accept-all, mid-chain rejection and reject-at-0 lanes."""
+    wl, legacy, chain = chain_steps
+    st = _warm(wl, legacy, 0, [1e12, 0.5, 1e-9, 0.3], [K] * W)
+    syncs = chain.host_syncs
+    new, flags = chain(st)
+    assert chain.host_syncs - syncs <= K + 1
+    adv = flags["advanced"]
+    assert int(adv.min()) >= 1 and int(adv.max()) <= K
+    assert bool(flags["full"].any()) and bool((flags["n_spec"] > 0).any())
+    states = _legacy_states(legacy, st)
+    for lane in range(W):
+        _assert_lane_equal(new, states[int(adv[lane])], lane)
+    assert tuple(flags["chain_err"].shape) == (K, W)
+    # the counters are the chain flags summed
+    assert torch.equal(flags["n_spec"],
+                       flags["chain_accepted"].sum(0).to(torch.int32))
+    assert torch.equal(flags["n_drafted"],
+                       flags["chain_attempted"].sum(0).to(torch.int32))
+
+
+def test_chain_mixed_per_lane_depths(chain_steps):
+    """draft_k = [1, 2, 3, 1] in one batch: budgets hold, every lane sits
+    bitwise on its own depth-1 trajectory, and lanes that advanced alike
+    under a uniform depth agree with it."""
+    wl, legacy, chain = chain_steps
+    mixed = [1, 2, 3, 1]
+    st = _warm(wl, legacy, 3, [0.6, 0.4, 0.5, 0.3], mixed)
+    new, flags = chain(st)
+    assert bool((flags["advanced"] <= torch.tensor(mixed)).all())
+    assert bool((flags["n_drafted"] <= torch.tensor(mixed)).all())
+    states = _legacy_states(legacy, st)
+    for lane in range(W):
+        _assert_lane_equal(new, states[int(flags["advanced"][lane])], lane)
+    st_u = dict(st, draft_k=torch.full((W,), K, dtype=torch.int32))
+    new_u, flags_u = chain(st_u)
+    same = flags_u["advanced"] == flags["advanced"]
+    assert bool(same.any())
+    for lane in torch.nonzero(same).flatten().tolist():
+        assert torch.equal(new["x"][lane], new_u["x"][lane]), lane
+
+
+def test_chain_finished_lanes_frozen(chain_steps):
+    wl, legacy, chain = chain_steps
+    st = _warm(wl, legacy, 5, [0.5] * W, [K] * W)
+    st["active"] = torch.tensor([True, False, True, False])
+    new, flags = chain(st)
+    idle = ~st["active"]
+    assert torch.equal(new["x"][idle], st["x"][idle])
+    assert torch.equal(new["diffs"][:, :, :, idle],
+                       st["diffs"][:, :, :, idle])
+    for k in ("since", "step", "n_anchors", "anchor_step"):
+        assert torch.equal(new[k][idle], st[k][idle]), k
+    assert int(flags["advanced"][idle].abs().sum()) == 0
+    assert int(flags["n_drafted"][idle].abs().sum()) == 0
+    assert not bool(flags["full"][idle].any())
+
+
+def test_chain_max_step_caps_the_chain(chain_steps):
+    wl, legacy, chain = chain_steps
+    st = _warm(wl, legacy, 1, [1e12] * W, [K] * W)
+    cap = st["step"] + torch.tensor([1, 2, 3, 0], dtype=torch.int32)
+    st["max_step"] = cap
+    new, flags = chain(st)
+    assert bool((new["step"] <= cap).all())
+    assert flags["advanced"].tolist() == [1, 2, 3, 0]
+    # a lane drafts exactly up to its cap; the positions past it carry
+    # the reference's values (not attempted, err NaN)
+    att = flags["chain_attempted"]
+    assert att.sum(0).tolist() == [1, 2, 3, 0]
+    assert bool(torch.isnan(flags["chain_err"][~att]).all())
+    assert not bool(flags["full"].any())
+
+
+def _port_reqs(n, policy=None):
+    return [Request(request_id=i, cond={"labels": torch.tensor([i + 1])},
+                    seed=20 + i, policy=policy) for i in range(n)]
+
+
+def test_depth1_policy_on_deep_engine_bitwise(both, engines):
+    """A max_draft_depth=3 engine serving draft_depth=1 requests returns
+    the depth-1 engine's Results bit for bit."""
+    (_, _, _), (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    ref = pe.serve_batched(_port_reqs(5), lanes=W)
+    deep = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                       noise_fn=pe.workload.noise_fn, max_draft_depth=3,
+                       device="cpu")
+    got = deep.serve_batched(_port_reqs(5, RequestPolicy(draft_depth=1)),
+                             lanes=W)
+    for a, b in zip(ref, got):
+        assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
+                a.flops) == (b.accepts, b.num_full, b.num_spec,
+                             b.num_drafted, b.flops)
+        assert torch.equal(a.sample, b.sample)
+    assert sum(sum(r.accepts) for r in ref) > 0
+    assert sum(r.num_full for r in ref) > 0
+
+
+def test_depth3_same_trajectories_fewer_ticks(both, engines):
+    (_, _, _), (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    ref = pe.serve_batched(_port_reqs(5), lanes=W)
+    deep = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                       noise_fn=pe.workload.noise_fn, max_draft_depth=3,
+                       device="cpu")
+    got = deep.serve_batched(_port_reqs(5, RequestPolicy(draft_depth=3)),
+                             lanes=W)
+    for a, b in zip(ref, got):
+        assert a.accepts == b.accepts
+        assert torch.equal(a.sample, b.sample)
+        assert (a.num_full, a.num_spec) == (b.num_full, b.num_spec)
+        assert b.num_drafted >= b.num_spec
+        assert 0.0 <= b.draft_accept_rate <= 1.0
+    assert sum(r.finish_tick for r in got) < sum(r.finish_tick
+                                                 for r in ref)
+
+
+def test_draft_depth_beyond_engine_raises(both):
+    _, (pcfg, pdcfg, tp) = both
+    eng = SpeCaEngine(pcfg, tp, pdcfg, PC.SpeCaConfig(taylor_order=ORDER),
+                      max_draft_depth=2, device="cpu")
+    req = Request(request_id=0, cond={"labels": torch.tensor([0])},
+                  policy=RequestPolicy(draft_depth=3))
+    with pytest.raises(ValueError, match="max_draft_depth"):
+        eng.resolve_policy(req)
+    with pytest.raises(ValueError, match="max_draft_depth"):
+        eng.serve_batched([req])
+    with pytest.raises(ValueError, match="max_draft_depth"):
+        SpeCaEngine(pcfg, tp, pdcfg, PC.SpeCaConfig(), max_draft_depth=0,
+                    device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Draft-K and the spectral forecaster against the reference
+# ---------------------------------------------------------------------------
+
+def _to_port_state(jstate):
+    out = {}
+    for k, v in jstate.items():
+        if k == "cond":
+            out[k] = {ck: torch.from_numpy(np.array(cv))
+                      for ck, cv in v.items()}
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
+
+
+def test_chain_tick_matches_reference(both, chain_steps):
+    """One K=3 chain tick from the same warmed state in both packages:
+    identical counters and chain decisions, latents within 1e-5, chain
+    errors within rtol 1e-4 where drafted."""
+    (cfg, dcfg, params), _ = both
+    _, _, chain = chain_steps
+    jscfg = JSpeCaConfig(taylor_order=ORDER, max_draft=6, tau0=0.5,
+                         beta=0.9)
+    legacy = jax.jit(JLS.build_lane_step(cfg, params, dcfg, jscfg, lanes=W))
+    jchain = jax.jit(JLS.build_lane_step(cfg, params, dcfg, jscfg, lanes=W,
+                                         max_draft_depth=K))
+    rng = np.random.default_rng(2)
+    js = JLS.init_lane_state(cfg, dcfg, jscfg, W,
+                             {"labels": jnp.asarray([0])}, active=True)
+    js["x"] = jnp.asarray(rng.normal(size=js["x"].shape), jnp.float32)
+    js["cond"] = {"labels": jnp.asarray([1, 2, 3, 4])}
+    js["tau0"] = jnp.asarray([1e12, 0.5, 1e-9, 0.3], jnp.float32)
+    js["draft_k"] = jnp.asarray([3, 3, 2, 3], jnp.int32)
+    for _ in range(ORDER + 2):
+        js, _ = legacy(js)
+    jnew, jf = jax.tree_util.tree_map(np.asarray, jchain(js))
+    pnew, pf = chain(_to_port_state(js))
+    for k in ("n_spec", "n_drafted", "advanced", "full", "chain_accepted",
+              "chain_attempted"):
+        np.testing.assert_array_equal(pf[k].numpy(), jf[k], k)
+    np.testing.assert_allclose(pnew["x"].numpy(), jnew["x"], **TOL)
+    for k in ("step", "since", "n_anchors", "anchor_step"):
+        np.testing.assert_array_equal(pnew[k].numpy(), jnew[k], k)
+    np.testing.assert_allclose(pf["chain_tau"].numpy(), jf["chain_tau"],
+                               rtol=1e-6)
+    ej, ep = jf["chain_err"], pf["chain_err"].numpy()
+    np.testing.assert_array_equal(np.isnan(ep), np.isnan(ej))
+    drafted = np.isfinite(ej)
+    np.testing.assert_allclose(ep[drafted], ej[drafted], rtol=1e-4)
+    # non-vacuous: some lane accepted part of the chain and some stopped
+    assert jf["n_spec"].sum() > 0 and jf["full"].any()
+
+
+SERVE_CASES = [("taylor", 3, "mixed"), ("spectral", 1, 1),
+               ("spectral", 3, 3)]
+
+
+@pytest.fixture(scope="module")
+def deep_engines(both, engines):
+    """(reference engine, port engine) per (forecaster, max_draft_depth)."""
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    jscfg, pscfg = _scfgs(tau0=0.4, max_draft=8)
+    _, pe = engines
+    out = {}
+    for fc, kmax, _ in SERVE_CASES:
+        out[fc, kmax] = (
+            JEngine(cfg, params, dcfg, jscfg, max_draft_depth=kmax,
+                    forecaster=fc),
+            SpeCaEngine(pcfg, tp, pdcfg, pscfg,
+                        noise_fn=pe.workload.noise_fn, max_draft_depth=kmax,
+                        forecaster=fc, device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("fc, kmax, depth", SERVE_CASES)
+def test_deep_and_spectral_serve_match_reference(deep_engines, fc, kmax,
+                                                 depth, lanes):
+    je, pe = deep_engines[fc, kmax]
+    depths = [1, 2, 3] if depth == "mixed" else [depth] * 3
+    jreqs = [JRequest(request_id=i, cond={"labels": jnp.asarray([i + 1])},
+                      seed=10 + i,
+                      policy=JRequestPolicy(draft_depth=depths[i]))
+             for i in range(3)]
+    preqs = [Request(request_id=i, cond={"labels": torch.tensor([i + 1])},
+                     seed=10 + i, policy=RequestPolicy(draft_depth=depths[i]))
+             for i in range(3)]
+    jres = je.serve_batched(jreqs, lanes=lanes)
+    pres = pe.serve_batched(preqs, lanes=lanes)
+    for a, b in zip(jres, pres):
+        assert b.accepts == a.accepts, a.request_id
+        assert (b.num_full, b.num_spec, b.num_drafted, b.finish_tick) == \
+            (a.num_full, a.num_spec, a.num_drafted, a.finish_tick)
+        assert b.draft_accept_rate == a.draft_accept_rate
+        assert b.completed and b.flops == a.flops
+        np.testing.assert_allclose(b.sample.numpy(), np.asarray(a.sample),
+                                   **TOL)
+    assert sum(r.num_spec for r in pres) > 0
+    assert sum(r.num_full for r in pres) > 0

@@ -4,18 +4,23 @@
 Serves the chip check's workload — DiT-XL/2 at full width with the same
 seeded random weights, 8 requests at lanes=4, 50 DDIM steps, fused
 verify — under ``torch.profiler`` and reports the device time by kernel
-group (the three hand-written kernels, cuBLAS matrix products,
-attention, everything else), the device's busy and idle share of the
-served window, and the host syncs per tick. For orientation it also times
-the reference sampler (a full forward every step, ``sample_full``) on 4
+group (the hand-written kernels, cuBLAS matrix products, attention,
+everything else), the device's busy and idle share of the served
+window, and the host syncs per tick. For orientation it also times the
+reference sampler (a full forward every step, ``sample_full``) on 4
 requests at batch 4, the same work without speculation.
 
+``--max-draft-depth K --depths 1,2,4,4`` serves the requests in draft-K
+chains (request i at depth ``depths[i % len(depths)]``), the chip check's
+deep phase.
+
 Run from the repository root on the card:
-    python3 tools/profile_torch_serve.py
-Writes ``chiprun_out/profile_torch_serve.json`` and prints it.
+    python3 tools/profile_torch_serve.py [--max-draft-depth 4 --depths 1,2,4,4]
+Writes ``chiprun_out/profile_torch_serve[_<tag>].json`` and prints it.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -29,6 +34,9 @@ GROUPS = (("taylor_predict_lanes", ("predict_lanes_kernel",)),
           ("taylor_update_lanes", ("update_lanes_kernel",)),
           ("verify_accept", ("verify_partials_kernel",
                              "verify_finish_kernel")),
+          ("taylor_predict_chain_lanes", ("predict_chain_kernel",)),
+          ("lane_rollback", ("rollback_kernel",)),
+          ("spectral_update_lanes", ("ring_update_kernel",)),
           ("attention", ("fmha", "attention", "flash", "efficient")),
           ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "cublas",
                       "nvjet")))
@@ -58,6 +66,12 @@ def busy_us(intervals):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--max-draft-depth", type=int, default=1)
+    ap.add_argument("--depths", default="1",
+                    help="comma-separated draft_depth by request")
+    args = ap.parse_args()
+    depths = [int(d) for d in args.depths.split(",")]
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -65,7 +79,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.configs import DIT_XL2, DiffusionConfig, SpeCaConfig
     from repro_torch.diffusion.pipeline import sample_full
-    from repro_torch.serving import Request, SpeCaEngine
+    from repro_torch.serving import Request, RequestPolicy, SpeCaEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
@@ -74,9 +88,12 @@ def main() -> int:
     smoke = chip_smoke.Smoke(torch, dev, DIT_XL2, dcfg)
     params = smoke._model()
     engine = SpeCaEngine(DIT_XL2, params, dcfg, SpeCaConfig(taylor_order=2),
+                         max_draft_depth=args.max_draft_depth,
                          device=dev)
     reqs = [Request(request_id=i, cond={"labels": torch.tensor([37 * i])},
-                    seed=100 + i) for i in range(8)]
+                    seed=100 + i,
+                    policy=RequestPolicy(draft_depth=depths[i % len(depths)]))
+            for i in range(8)]
     engine.serve_batched(reqs[:4], lanes=4, max_ticks=5)       # warm-up
     torch.cuda.synchronize()
 
@@ -94,7 +111,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     syncs = engine.host_syncs - syncs0
-    ticks = sum(r.num_full + r.num_spec for r in res) // 4
+    ticks = max(r.finish_tick for r in res)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_group, by_name = {}, {}
@@ -121,6 +138,7 @@ def main() -> int:
 
     report = {
         "card": chip_smoke.smi_line(),
+        "max_draft_depth": args.max_draft_depth, "depths": depths,
         "serve_wall_s": wall_plain,
         "serve_req_per_s": len(reqs) / wall_plain,
         "profiled_wall_s": wall_prof,
@@ -141,8 +159,9 @@ def main() -> int:
             by_name.items(), key=lambda kv: -kv[1])[:15]},
         "sample_full_batch4_wall_s": wall_full4,
     }
-    (OUT / "profile_torch_serve.json").write_text(json.dumps(report,
-                                                             indent=1))
+    tag = "" if args.max_draft_depth == 1 else f"_k{args.max_draft_depth}"
+    (OUT / f"profile_torch_serve{tag}.json").write_text(
+        json.dumps(report, indent=1))
     for k, v in report.items():
         if isinstance(v, dict):
             print(f"{k}:")
