@@ -6,9 +6,9 @@ CUDA toolkit:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
 
-1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, started together) and print the card's name and
-   power limit.
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
+   sources, ten kernel rows; one nvcc per source, started together) and
+   print what ptxas reports.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes (W=4 lanes, table [3, 224, 294912] bf16, a chain
    of K=4 positions, latent snapshots [5, 4, 32, 32, 4] f32), in f32 and
@@ -24,6 +24,27 @@ Phases (any failure ends the run with a non-zero exit):
    beside its plain version, one PyTorch library call where one computes
    the same function, and its bound (bytes over 3.35 TB/s, f32
    operations over 67 TFLOP/s — the H100 SXM data sheet at 700 W).
+   The reference's scalar-anchor kernel surface runs here too, with the
+   launch counts set to 0 just before and read just after: the table
+   [3, 28, 2, 4, 256, 1152] bf16 as one whole-batch anchor with seeded
+   weights, distinct and not powers of two, through
+   ``ops.taylor_predict`` (within one bf16 ulp of its plain f32 sum and
+   bitwise the lane predict with the weight column broadcast) and
+   ``ops.taylor_update`` (bitwise), and the verify planes [4, 294912]
+   through the τ-less ``ops.verify_sums`` and ``ops.verify_error`` (rtol
+   1e-5); each is also checked at the other shapes above.
+2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
+   (32 query heads on 16 KV heads, head dim 128, S = 4096, bf16) with a
+   local window of 1024 and globally, and ``ops.flash_attention(causal=
+   False)`` at DiT-XL/2's (4 lanes, 256 tokens, 16 heads of 72), launch
+   counts set to 0 just before and read just after; each output held
+   against the plain f32 attention (bf16 within one bf16 ulp: rtol 2^-8,
+   atol 1e-5; the same inputs in f32 through the kernel within rtol =
+   atol = 2e-5) and against the port's own mask path or SDPA core, and
+   timed beside ``scaled_dot_product_attention`` on the same inputs. Its
+   bound takes the dense bf16 tensor cores' 989.4 TFLOP/s, the rate of
+   its bf16 operands; the f32 CUDA-core figure this kernel's arithmetic
+   could reach at best is kept beside it.
 3. Serve DiT-XL/2 at full width (28 layers, d 1152, bf16, 32×32×4
    latents, 50 DDIM steps) through ``SpeCaEngine.serve_batched``: 8
    requests at lanes=4, taylor_order=2, per-sample accept, fused verify.
@@ -74,6 +95,14 @@ LANES = 4
 N_REQUESTS = 8
 CHAIN_K = 4                       # the deep phases' max_draft_depth
 DEEP_DEPTHS = (1, 2, 4, 4)        # draft_depth of request i: [i % 4]
+BF16_TC_FLOPS = 989.4e12          # H100 SXM, dense bf16 tensor cores
+# gemma3-27b's attention as the reference configures it
+# (src/repro/configs/gemma3_27b.py: 32 query heads, 16 KV heads, head dim
+# 128, a sliding window of 1024 on local layers, every 6th layer global);
+# the port has no LM configuration yet
+GEMMA3_HEADS, GEMMA3_KV_HEADS, GEMMA3_HEAD_DIM = 32, 16, 128
+GEMMA3_WINDOW = 1024
+ATTN_SEQ = 4096
 
 
 def smi_line() -> str:
@@ -99,10 +128,10 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, names, iters: int = 100):
-    """Device time per call of ``fn``: the summed durations of the CUDA
-    kernels whose names contain one of ``names``, from torch.profiler
-    over ``iters`` calls (no host cost between launches)."""
+def device_spans(torch, fn, iters: int = 1):
+    """Device time per call of ``fn`` of each CUDA kernel it runs, in µs,
+    by name: the summed spans from torch.profiler over ``iters`` calls
+    after one warm call (no host cost between launches)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -110,16 +139,25 @@ def device_ms(torch, fn, names, iters: int = 100):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.time_range.end - e.time_range.start
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and any(n in e.name for n in names))
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans[e.name] = spans.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / iters
+    return spans
+
+
+def device_ms(torch, fn, names, iters: int = 100):
+    """Device time per call of ``fn``: the summed spans of the CUDA kernels
+    whose names contain one of ``names``."""
+    total_us = sum(us for name, us in device_spans(torch, fn, iters).items()
+                   if any(n in name for n in names))
     assert total_us > 0, f"the profiler saw no kernel named {names}"
-    return total_us / iters / 1e3
+    return total_us / 1e3
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -237,6 +275,8 @@ class Smoke:
                    .max().item(),
                    "verify_max_abs_err": (ek - ep).abs().max().item()}
             row.update(self._check_chain_kernels(shape, dtype))
+            if shape != main:        # the serving table's: driven below
+                row.update(self._check_scalar_kernels(shape, dtype))
             checks.append(row)
             print(f"kernels == plain at {shape} {dtype}: {row}")
         # the serving rollback: latent snapshots, lane axis first
@@ -250,6 +290,9 @@ class Smoke:
         self.record["kernel_checks"] = checks
         self._time_main(main, torch.bfloat16)
         self._time_chain_kernels(main, torch.bfloat16)
+        self._drive_and_time_scalar(main, torch.bfloat16)
+        for name, k in self.kernels.items():
+            print(f"{name}: {k}")
 
     def _latent_chain(self, dtype):
         """CHAIN_K+1 latent snapshots [K+1, W, 32, 32, 4] of the serve."""
@@ -441,8 +484,253 @@ class Smoke:
         self.kernels["spectral_update_lanes"] = dict(
             ms=s_k, plain_ms=s_p, library_ms=None, bound_ms=sb, bound_by=sf,
             max_abs_err=(sk.float() - sp.float()).abs().max().item())
-        for name, k in self.kernels.items():
-            print(f"{name}: {k}")
+
+    def _scalar_weights(self, m1):
+        """Whole-batch weights [m+1] f32, seeded, distinct and not powers of
+        two, so that a swapped plane or weight and an inexact product show."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(12)
+        return torch.rand(m1, generator=g, device=self.dev) * 3.0 - 1.0
+
+    def _scalar_surface(self, shape, dtype, seed):
+        """Inputs of the scalar-anchor surface: a table as one whole-batch
+        anchor, its features, weights and verify planes."""
+        diffs, feats, _, _ = self._inputs(shape, dtype, seed)
+        return (diffs, feats, self._scalar_weights(shape[0]),
+                *self._verify_planes(shape, dtype))
+
+    def _hold_scalar(self, shape, diffs, feats, w, pred, real, pk, uk, sk,
+                     ek):
+        """Hold the scalar-anchor predict and refresh over the whole table
+        and the τ-less verify sums and error (``pk``, ``uk``, ``sk``,
+        ``ek``) against their plain versions; the predict also bitwise the
+        lane kernel with the weights broadcast. Returns the max
+        |kernel − plain| of each."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        m1, W = shape[0], shape[3]
+        p32 = ref.taylor_predict_ref(diffs.float(), w)
+        # one rounding to the table dtype (rtol) plus the f32 rounding by
+        # which an FMA chain and a multiply-then-add differ (as the chain)
+        tol = 2.0 ** -8 if diffs.dtype == torch.bfloat16 else 1e-6
+        terms = ref.taylor_predict_ref(diffs.float().abs(), w.abs())
+        excess = ((pk.float() - p32).abs() - tol * p32.abs()
+                  - 2.0 ** -21 * terms).max().item()
+        assert excess <= 0.0, f"scalar predict off by {excess} at {shape}"
+        lanes = ops.taylor_predict_lanes(diffs,
+                                         w[:, None].expand(m1, W).contiguous())
+        assert torch.equal(pk, lanes), \
+            f"scalar predict != lane kernel with broadcast weights at {shape}"
+        up = ref.taylor_update_ref(diffs, feats)
+        assert torch.equal(uk, up), f"scalar refresh not bitwise at {shape}"
+        f32 = feats.float()                   # f32 features into the table
+        assert torch.equal(ops.taylor_update(diffs, f32),
+                           ref.taylor_update_ref(diffs, f32)), \
+            f"scalar refresh not bitwise at {shape}, f32 features"
+        sp, ep = ref.verify_sums_ref(pred, real), ref.verify_error_ref(pred,
+                                                                       real)
+        torch.testing.assert_close(sk, sp, rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(ek, ep, rtol=1e-5, atol=0.0)
+        pp = ref.taylor_predict_ref(diffs, w)
+        return {"scalar_predict_max_abs_err":
+                (pk.float() - pp.float()).abs().max().item(),
+                "scalar_update_max_abs_err":
+                (uk.float() - up.float()).abs().max().item(),
+                "verify_sums_max_abs_err": (sk - sp).abs().max().item(),
+                "verify_sums_max_rel_err":
+                ((sk - sp).abs() / sp.abs()).max().item(),
+                "verify_error_max_abs_err": (ek - ep).abs().max().item()}
+
+    def _check_scalar_kernels(self, shape, dtype):
+        """The scalar-anchor surface at a shape other than the serving
+        table's (which ``_drive_and_time_scalar`` holds)."""
+        from repro_torch.kernels import ops
+        diffs, feats, w, pred, real = self._scalar_surface(shape, dtype, 6)
+        return self._hold_scalar(
+            shape, diffs, feats, w, pred, real, ops.taylor_predict(diffs, w),
+            ops.taylor_update(diffs, feats), ops.verify_sums(pred, real),
+            ops.verify_error(pred, real))
+
+    def _drive_and_time_scalar(self, shape, dtype):
+        """The reference's public scalar-anchor surface at the serving
+        table's width: driven once with the launch counts set to 0 just
+        before and read just after, its outputs held against their plain
+        versions, then each kernel timed beside its plain version, a
+        library call where one computes the same function, and its bound."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        diffs, feats, w, pred, real = self._scalar_surface(shape, dtype, 8)
+        m1, es = shape[0], diffs.element_size()
+        n = feats.numel()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()                    # this slice's path:
+        pk = ops.taylor_predict(diffs, w)
+        uk = ops.taylor_update(diffs, feats)
+        sk = ops.verify_sums(pred, real)
+        ek = ops.verify_error(pred, real)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()               # read just after
+        print(f"scalar surface launches: {launches}")
+        assert all(launches[k] == 1 for k in SCALAR_KEYS), launches
+        assert torch.isfinite(pk).all() and torch.isfinite(uk).all()
+        assert torch.isfinite(sk).all() and torch.isfinite(ek).all()
+        errs = self._hold_scalar(shape, diffs, feats, w, pred, real, pk, uk,
+                                 sk, ek)
+        print(f"scalar surface == plain at {shape} {dtype}: {errs}")
+
+        d32 = diffs.float()
+        p_k = time_ms(torch, lambda: ops.taylor_predict(diffs, w))
+        p_p = time_ms(torch, lambda: ref.taylor_predict_ref(diffs, w))
+        p_l = time_ms(torch, lambda: torch.tensordot(w, d32, dims=1))
+        pb, pf = bound_ms((m1 + 1) * n * es + m1 * 4, 2.0 * m1 * n)
+        self.kernels["taylor_predict"] = dict(
+            ms=p_k, plain_ms=p_p, library_ms=p_l, bound_ms=pb, bound_by=pf,
+            launches=launches["taylor_predict"],
+            max_abs_err=errs["scalar_predict_max_abs_err"])
+
+        u_k = time_ms(torch, lambda: ops.taylor_update(diffs, feats))
+        u_p = time_ms(torch, lambda: ref.taylor_update_ref(diffs, feats))
+        # old planes 0..m-1 and the features read, m+1 planes written
+        ub, uf = bound_ms(((m1 - 1) * n + n + m1 * n) * es,
+                          float((m1 - 1) * n))
+        self.kernels["taylor_update"] = dict(
+            ms=u_k, plain_ms=u_p, library_ms=None, bound_ms=ub, bound_by=uf,
+            launches=launches["taylor_update"],
+            max_abs_err=errs["scalar_update_max_abs_err"])
+
+        W, N = pred.shape
+        v_k = time_ms(torch, lambda: ops.verify_sums(pred, real), iters=100)
+        v_p = time_ms(torch, lambda: ref.verify_sums_ref(pred, real),
+                      iters=100)
+        v_d = device_ms(torch, lambda: ops.verify_sums(pred, real),
+                        ("verify_partials_kernel",
+                         "verify_sums_finish_kernel"))
+        vb, vf = bound_ms(2 * W * N * es + W * 8, 5.0 * W * N)
+        self.kernels["verify_sums"] = dict(
+            ms=v_k, device_ms=v_d, plain_ms=v_p, library_ms=None,
+            bound_ms=vb, bound_by=vf,
+            launches=launches["verify_sums"] + launches["verify_error"],
+            max_abs_err=errs["verify_sums_max_abs_err"],
+            verify_error_max_abs_err=errs["verify_error_max_abs_err"])
+
+    # --- phase 2b ------------------------------------------------------------
+    def attention(self):
+        """Flash attention through this slice's entry points at gemma3-27b's
+        and DiT-XL/2's widths, against the plain f32 attention, the port's
+        non-flash paths and SDPA."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        from repro_torch.layers.attention import (attention_core,
+                                                  full_attention, repeat_kv)
+        bf16 = torch.bfloat16
+        g = torch.Generator(device=self.dev).manual_seed(11)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=self.dev).to(bf16)
+        S, H, KV, hd = ATTN_SEQ, GEMMA3_HEADS, GEMMA3_KV_HEADS, \
+            GEMMA3_HEAD_DIM
+        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        cfg = self.cfg
+        dH, dhd = cfg.num_heads, cfg.d_model // cfg.num_heads
+        dS = (self.dcfg.latent_size // cfg.patch_size) ** 2
+        qd, kd, vd = (randn(LANES, dS, dH, dhd) for _ in range(3))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()                    # this slice's path:
+        outs = {"gemma3_local": full_attention(q, k, v, GEMMA3_WINDOW,
+                                               use_flash=True),
+                "gemma3_global": full_attention(q, k, v, 0, use_flash=True),
+                "dit_xl2": ops.flash_attention(qd, kd, vd, causal=False)}
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()               # read just after
+        print(f"attention launches: {launches}")
+        assert launches["flash_attention"] == 3, launches
+
+        kr, vr = repeat_kv(k, H // KV), repeat_kv(v, H // KV)
+        cases = {
+            "gemma3_local": (q, kr, vr, True, GEMMA3_WINDOW,
+                             lambda: full_attention(q, k, v, GEMMA3_WINDOW)),
+            "gemma3_global": (q, kr, vr, True, 0,
+                              lambda: full_attention(q, k, v, 0)),
+            "dit_xl2": (qd, kd, vd, False, 0,
+                        lambda: attention_core(qd, kd, vd))}
+        detail, max_err = {}, 0.0
+        for name, (a, b, c, causal, window, other) in cases.items():
+            kw = dict(causal=causal, window=window)
+            out = outs[name]
+            assert out.shape == a.shape and out.dtype == bf16
+            assert torch.isfinite(out).all(), f"{name}: non-finite output"
+            plain = ref.flash_attention_ref(a.float(), b.float(), c.float(),
+                                            **kw)
+            err_bf16 = (out.float() - plain).abs().max().item()
+            torch.testing.assert_close(out.float(), plain, rtol=2.0 ** -8,
+                                       atol=1e-5)
+            # the port's own non-flash path (mask bias or SDPA core in f32,
+            # rounded to bf16 on its own): within one bf16 ulp
+            alt = other()
+            torch.testing.assert_close(out.float(), alt.float(),
+                                       rtol=2.0 ** -7, atol=1e-5)
+            o32 = ops.flash_attention(a.float(), b.float(), c.float(), **kw)
+            err_f32 = (o32 - plain).abs().max().item()
+            torch.testing.assert_close(o32, plain, rtol=2e-5, atol=2e-5)
+            del plain, alt, o32
+            detail[name] = self._time_attention(a, b, c, causal, window)
+            detail[name].update(max_abs_err_bf16=err_bf16,
+                                max_abs_err_f32=err_f32)
+            max_err = max(max_err, err_bf16, err_f32)
+            print(f"flash_attention {name}: {detail[name]}")
+        head = detail["gemma3_global"]
+        self.kernels["flash_attention"] = dict(
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"],
+            bound_f32_cuda_core_ms=head["bound_f32_cuda_core_ms"],
+            launches=launches["flash_attention"], max_abs_err=max_err,
+            cases=detail)
+        self.record["attention"] = dict(launches=launches, cases=detail)
+
+    def _time_attention(self, q, k, v, causal, window):
+        """Kernel, plain and SDPA times of one attention case (bf16 inputs,
+        equal head counts), and its bounds from the visible pairs."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops, ref
+        B, S, H, hd = q.shape
+        kw = dict(causal=causal, window=window)
+        ms = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                     iters=10, warmup=2)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, **kw), iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if causal and window == 0:
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        elif causal or window:
+            mask = ref.attention_mask(S, S, causal, window, q.device)
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+        library_ms = time_ms(torch, lib, iters=10, warmup=2)
+        pairs = int(ref.attention_mask(S, S, causal, window, q.device)
+                    .sum().item())
+        flops = 4.0 * hd * pairs * B * H       # q·k and p·v per visible pair
+        nbytes = 4 * B * S * H * hd * q.element_size()
+        # bf16 operands: q·kᵀ is exact in f32 on the dense bf16 tensor
+        # cores, so their rate bounds the function, whatever this kernel's
+        # f32 CUDA-core arithmetic reaches (kept beside it)
+        bound, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+        spans = device_spans(torch, lib)
+        return dict(shape=list(q.shape), causal=causal, window=window,
+                    pairs_per_head=pairs, gflop=flops / 1e9, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    sdpa_kernel=max(spans, key=spans.get,
+                                    default="not seen")[:120],
+                    bound_ms=bound, bound_by=by,
+                    bound_f32_cuda_core_ms=bound_ms(nbytes, flops)[0])
 
     # --- phase 3 -------------------------------------------------------------
     def _model(self):
@@ -705,6 +993,16 @@ KERNEL_META = {
     "spectral_update_lanes": ("src/repro_torch/kernels/csrc/"
                               "spectral_update_lanes.cu",
                               "src/repro/kernels/spectral.py:51"),
+    # the scalar predict is the lane kernel on a one-lane fold
+    "taylor_predict": ("src/repro_torch/kernels/csrc/"
+                       "taylor_predict_lanes.cu",
+                       "src/repro/kernels/taylor_predict.py:37"),
+    "taylor_update": ("src/repro_torch/kernels/csrc/taylor_update.cu",
+                      "src/repro/kernels/taylor_predict.py:258"),
+    "verify_sums": ("src/repro_torch/kernels/csrc/verify_accept.cu",
+                    "src/repro/kernels/verify_error.py:72"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
 }
 # the kernels each serving path must launch
 SERVE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
@@ -713,6 +1011,9 @@ DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
                 "taylor_update_lanes", "verify_accept")
 SPECTRAL_KERNELS = ("spectral_update_lanes", "taylor_predict_chain_lanes",
                     "lane_rollback", "verify_accept")
+# the launch-count keys of the reference's scalar-anchor surface
+SCALAR_KEYS = ("taylor_predict", "taylor_update", "verify_sums",
+               "verify_error")
 
 
 def main() -> int:
@@ -739,6 +1040,7 @@ def main() -> int:
     if smoke.failures:
         return 1
     smoke.phase("kernels", smoke.check_kernels)
+    smoke.phase("attention", smoke.attention)
     smoke.phase("serve", smoke.serve)
     if "serve" not in smoke.failures:
         smoke.phase("serve_deep", smoke.serve_deep)
@@ -756,6 +1058,8 @@ def main() -> int:
                      "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms")})
+        if "bound_f32_cuda_core_ms" in k:        # flash: its f32 arithmetic
+            rows[-1]["bound_f32_cuda_core_ms"] = k["bound_f32_cuda_core_ms"]
     OUT.mkdir(exist_ok=True)
     smoke.record.update(card=card, kernels=rows,
                         kernel_detail=smoke.kernels, failures=smoke.failures,

@@ -10,9 +10,12 @@ and a forecast ``d`` sampler steps past the anchor evaluates eq. (2),
     F_pred(d) = Σ_{i=0}^{m}  Δⁱ / (i! · Nᵉᶠᶠⁱ) · dⁱ,
 
 with Nᵉᶠᶠ the measured spacing of the lane's last two anchors. Anchor
-metadata (``n_anchors``, ``anchor_step``, ``gap``) is held per lane. The
-table work runs through the fused per-lane kernels of
-``repro_torch.kernels.ops`` (their plain versions for CPU tensors).
+metadata (``n_anchors``, ``anchor_step``, ``gap``) is held per lane for
+serving, and the per-lane table work runs through the fused kernels of
+``repro_torch.kernels.ops`` (their plain versions for CPU tensors). A
+table with scalar metadata (``init_state(..., lanes=None)``) refreshes and
+forecasts the whole batch at once through :func:`update` and
+:func:`predict`, in plain PyTorch as in the reference.
 """
 from __future__ import annotations
 
@@ -21,22 +24,45 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
 
 State = Dict[str, torch.Tensor]
 
 
-def init_state(order: int, feat_shape, dtype: torch.dtype, lanes: int,
-               device: torch.device) -> State:
-    """A zero table of order+1 difference planes and per-lane metadata."""
+def init_state(order: int, feat_shape, dtype: torch.dtype,
+               lanes: Optional[int] = None,
+               device: DeviceLike = "cuda") -> State:
+    """A zero table of order+1 difference planes and its anchor metadata:
+    per lane ([lanes]) for serving, or scalar (``lanes=None``: whole-batch
+    anchors, the reproduction path of :func:`update`/:func:`predict`)."""
+    meta = () if lanes is None else (int(lanes),)
     return {
         "diffs": torch.zeros((order + 1,) + tuple(feat_shape), dtype=dtype,
                              device=device),
-        "n_anchors": torch.zeros((lanes,), dtype=torch.int32, device=device),
-        "anchor_step": torch.full((lanes,), -1, dtype=torch.int32,
+        "n_anchors": torch.zeros(meta, dtype=torch.int32, device=device),
+        "anchor_step": torch.full(meta, -1, dtype=torch.int32,
                                   device=device),
-        "gap": torch.ones((lanes,), dtype=torch.float32, device=device),
+        "gap": torch.ones(meta, dtype=torch.float32, device=device),
     }
+
+
+def update(state: State, feats: torch.Tensor, step) -> State:
+    """Whole-batch anchor refresh of a scalar-metadata table: Δ⁰ = F,
+    Δⁱ = Δⁱ⁻¹_new − Δⁱ⁻¹_old, each subtraction in the table dtype (the
+    reference's plain ``update``, not its scalar kernel)."""
+    old = state["diffs"]
+    rows = [feats.to(old.dtype)]
+    for i in range(1, old.shape[0]):
+        rows.append(rows[i - 1] - old[i - 1])
+    step = torch.as_tensor(step, dtype=torch.int32, device=old.device)
+    anchor = state["anchor_step"]
+    gap = torch.where(anchor >= 0, (step - anchor).to(torch.float32),
+                      torch.ones_like(state["gap"]))
+    return {"diffs": torch.stack(rows),
+            "n_anchors": state["n_anchors"] + 1,
+            "anchor_step": step,
+            "gap": torch.clamp(gap, min=1.0)}
 
 
 def update_lanes(state: State, feats: torch.Tensor, step: torch.Tensor,
@@ -127,6 +153,20 @@ def prediction_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
     if order_cap is not None:
         valid = valid & (orders <= order_cap)
     return torch.where(valid, w, torch.zeros_like(w))
+
+
+def predict(state: State, step, mode: str = "taylor") -> torch.Tensor:
+    """Whole-batch forecast of a scalar-metadata table at ``step``:
+    Σ_i w_i·Δⁱ as an f32 ``tensordot`` over the order axis, cast to the
+    table dtype (the reference's plain ``predict``)."""
+    diffs = state["diffs"]
+    step = torch.as_tensor(step, dtype=torch.int32, device=diffs.device)
+    d = (step - state["anchor_step"]).to(torch.float32)
+    w = prediction_weights(diffs.shape[0] - 1, d, state["gap"],
+                           state["n_anchors"], mode)
+    pred = torch.tensordot(w.to(torch.float32), diffs.to(torch.float32),
+                           dims=([0], [0]))
+    return pred.to(diffs.dtype)
 
 
 def predict_lanes(state: State, step: torch.Tensor,

@@ -23,29 +23,45 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("taylor_predict_lanes", "taylor_update_lanes", "verify_accept",
-           "taylor_predict_chain", "lane_rollback", "spectral_update_lanes")
+           "taylor_predict_chain", "lane_rollback", "spectral_update_lanes",
+           "taylor_update", "flash_attention")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# argument types of each library's C entry point (same name as the file)
-SIGNATURES: Dict[str, Sequence] = {
+# argument types of each library's C entry points (the first entry has the
+# same name as the file)
+SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     # diffs, w, out, dtype, m1, R, C, lanes, vec, stream, device
-    "taylor_predict_lanes": (_P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I),
+    "taylor_predict_lanes": {"taylor_predict_lanes": (
+        _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
     # old, feats, mask, out, dtype, m1, R, C, lanes, vec, stream, device
-    "taylor_update_lanes": (_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P,
-                            _I),
-    # pred, ref, tau, partials, err, accept, dtype, W, N, chunk, nchunks,
-    # eps, vec, stream, device
-    "verify_accept": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F,
-                      _I, _P, _I),
+    "taylor_update_lanes": {"taylor_update_lanes": (
+        _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
+    "verify_accept": {
+        # pred, ref, tau, partials, err, accept, dtype, W, N, chunk,
+        # nchunks, eps, vec, stream, device
+        "verify_accept": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F,
+                          _I, _P, _I),
+        # pred, ref, partials, sums, dtype, W, N, chunk, nchunks, vec,
+        # stream, device
+        "verify_sums": (_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
     # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device
-    "taylor_predict_chain": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P,
-                             _I),
+    "taylor_predict_chain": {"taylor_predict_chain": (
+        _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P, _I)},
     # chain, idx, out, K, R, row_bytes, lanes, stream, device
-    "lane_rollback": (_P, _P, _P, _I, _LL, _LL, _I, _P, _I),
+    "lane_rollback": {"lane_rollback": (
+        _P, _P, _P, _I, _LL, _LL, _I, _P, _I)},
     # old, feats, mask, out, dtype, m1, R, C, lanes, vec, stream, device
-    "spectral_update_lanes": (_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I,
-                              _P, _I),
+    "spectral_update_lanes": {"spectral_update_lanes": (
+        _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
+    # old, feats, out, dtype, feats_dtype, m1, n, vec, stream, device
+    "taylor_update": {"taylor_update": (
+        _P, _P, _P, _I, _I, _I, _LL, _I, _P, _I)},
+    # q, k, v, out, dtype, B, S, H, hd, q/k/v strides (b, s, h), causal,
+    # window, scale, stream, device
+    "flash_attention": {"flash_attention": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+        _LL, _LL, _LL, _I, _I, _F, _P, _I)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -116,9 +132,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = list(SIGNATURES[name])
-        fn.restype = ctypes.c_int
+        for entry, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib

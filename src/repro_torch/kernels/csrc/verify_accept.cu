@@ -1,8 +1,13 @@
-// Fused per-lane verification: the SpeCa accept decision.
+// Fused per-lane verification: the SpeCa accept decision, and the plain
+// per-row verification sums.
 //
-// Replaces the TPU kernel verify_sums with tau
-// (src/repro/kernels/verify_error.py:72, body _verify_tau_kernel at :44,
-// pallas_call at :100).
+// Replaces the TPU kernel verify_sums (src/repro/kernels/verify_error.py:72)
+// in both its forms: with tau (body _verify_tau_kernel at :44, pallas_call
+// at :100) through the entry verify_accept, and without tau (body
+// _verify_kernel at :26, pallas_call at :87; verify_error at :114 sits on
+// top) through the entry verify_sums, which writes (Σ(p−r)², Σr²) per row
+// as [W, 2] f32. Both share pass 1; only the finish differs, so the τ
+// path's bits do not depend on the τ-less one.
 //
 // pred/ref [W, N] (both f32 or both bf16), tau [W] f32 ->
 //   err[w]    = sqrt(Σ(p−r)²) / (sqrt(Σr²) + eps)
@@ -112,6 +117,24 @@ verify_finish_kernel(const float* __restrict__ partials,
   }
 }
 
+// The τ-less finish: the same chunk-order sums, written as (num, den).
+__global__ void __launch_bounds__(rt::kThreads)
+verify_sums_finish_kernel(const float* __restrict__ partials,
+                          float* __restrict__ sums, int nchunks) {
+  const int lane = blockIdx.x;
+  const float* part = partials + static_cast<int64_t>(lane) * nchunks * 2;
+  float num = 0.f, den = 0.f;
+  for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
+    num += part[2 * c];
+    den += part[2 * c + 1];
+  }
+  block_sum2(num, den);
+  if (threadIdx.x == 0) {
+    sums[2 * lane] = num;
+    sums[2 * lane + 1] = den;
+  }
+}
+
 template <class Tr, bool kVec>
 void launch_partials(const void* pred, const void* ref, float* partials,
                      int W, int64_t N, int64_t chunk, int nchunks,
@@ -120,6 +143,26 @@ void launch_partials(const void* pred, const void* ref, float* partials,
   verify_partials_kernel<Tr, kVec><<<grid, rt::kThreads, 0, stream>>>(
       static_cast<const typename Tr::storage*>(pred),
       static_cast<const typename Tr::storage*>(ref), partials, N, chunk);
+}
+
+int partials_any(const void* pred, const void* ref, float* part, int dtype,
+                 int W, int64_t N, int64_t chunk, int nchunks, int vec,
+                 cudaStream_t s) {
+  if (dtype == rt::kBF16) {
+    if (vec)
+      launch_partials<rt::BF16, true>(pred, ref, part, W, N, chunk, nchunks, s);
+    else
+      launch_partials<rt::BF16, false>(pred, ref, part, W, N, chunk, nchunks,
+                                       s);
+  } else if (dtype == rt::kF32) {
+    if (vec)
+      launch_partials<rt::F32, true>(pred, ref, part, W, N, chunk, nchunks, s);
+    else
+      launch_partials<rt::F32, false>(pred, ref, part, W, N, chunk, nchunks, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return rt::launched();
 }
 
 }  // namespace
@@ -139,24 +182,29 @@ extern "C" int verify_accept(const void* pred, const void* ref,
   if (e) return e;
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (dtype == rt::kBF16) {
-    if (vec)
-      launch_partials<rt::BF16, true>(pred, ref, part, W, N, chunk, nchunks, s);
-    else
-      launch_partials<rt::BF16, false>(pred, ref, part, W, N, chunk, nchunks,
-                                       s);
-  } else if (dtype == rt::kF32) {
-    if (vec)
-      launch_partials<rt::F32, true>(pred, ref, part, W, N, chunk, nchunks, s);
-    else
-      launch_partials<rt::F32, false>(pred, ref, part, W, N, chunk, nchunks, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  e = rt::launched();
+  e = partials_any(pred, ref, part, dtype, W, N, chunk, nchunks, vec, s);
   if (e) return e;
   verify_finish_kernel<<<W, rt::kThreads, 0, s>>>(
       part, static_cast<const float*>(tau), static_cast<float*>(err),
       static_cast<uint8_t*>(accept), nchunks, eps);
+  return rt::launched();
+}
+
+// The τ-less sums: sums is [W, 2] f32 = (Σ(p−r)², Σr²) per row; the other
+// arguments as for verify_accept.
+extern "C" int verify_sums(const void* pred, const void* ref, void* partials,
+                           void* sums, int dtype, int W, long long N,
+                           long long chunk, int nchunks, int vec,
+                           void* stream, int device) {
+  if (W < 1 || N < 1 || chunk < 1 || nchunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int e = rt::prepare(device);
+  if (e) return e;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  e = partials_any(pred, ref, part, dtype, W, N, chunk, nchunks, vec, s);
+  if (e) return e;
+  verify_sums_finish_kernel<<<W, rt::kThreads, 0, s>>>(
+      part, static_cast<float*>(sums), nchunks);
   return rt::launched();
 }

@@ -1,4 +1,6 @@
-"""Wrappers around the Hopper kernels of the serving path.
+"""Wrappers around the Hopper kernels: the serving path's, and the
+reference's public kernel surface (scalar-anchor Taylor predict and
+refresh, the τ-less verify sums and error, flash attention).
 
 Each wrapper checks its arguments, runs the plain PyTorch version
 (``ref``) when the tensors lie on the CPU, and otherwise launches its
@@ -7,7 +9,7 @@ the plain version. A launch that is refused raises. Every launch adds one
 to the wrapper's entry in :data:`LAUNCHES`; the plain path counts
 nothing, so a count shows which runs went through a kernel.
 
-The table layout is the reference's ``[m+1, L, 2, W, T, D]``, folded to
+The lane table layout is the reference's ``[m+1, L, 2, W, T, D]``, folded to
 ``[m+1, G·W, C]`` with ``G = L·2`` and ``lane = row % W``
 (``repro.kernels.ops._lane_fold``). In PyTorch that fold is a view: no
 pad, the kernels mask the ragged tail of C themselves.
@@ -26,13 +28,19 @@ LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "verify_accept": 0,
                             "taylor_predict_chain_lanes": 0,
                             "lane_rollback": 0,
-                            "spectral_update_lanes": 0}
+                            "spectral_update_lanes": 0,
+                            "taylor_predict": 0,
+                            "taylor_update": 0,
+                            "verify_sums": 0,
+                            "verify_error": 0,
+                            "flash_attention": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
 _MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
 _MAX_ROWS = 65535        # gridDim.y
 _VERIFY_CHUNK = 8192     # elements per pass-1 block of verify_accept
+_FLASH_HEAD_DIMS = (16, 32, 64, 72, 128)   # instantiated in flash_attention.cu
 
 
 def reset_launch_counts() -> None:
@@ -106,11 +114,20 @@ def taylor_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, *,
     if _on_cpu(diffs, weights):
         return ref.taylor_predict_lanes_ref(diffs, weights,
                                             lane_axis=lane_axis)
+    return _launch_predict_lanes(diffs, weights, feat, G * B, C, B,
+                                 "taylor_predict_lanes")
+
+
+def _launch_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, feat,
+                          R: int, C: int, B: int, key: str) -> torch.Tensor:
+    """The lane predict kernel on diffs folded to [m+1, R, C] (lane =
+    row % B) with weights [m+1, B] f32 -> [...feat]; counts the launch
+    under ``key``."""
+    m1 = diffs.shape[0]
     code = _kernel_dtype(diffs, "the table")
     _contiguous("diffs and weights", diffs, weights)
     if not 1 <= m1 <= _MAX_ORDERS:
         raise ValueError(f"the kernel takes 1..{_MAX_ORDERS} orders, got {m1}")
-    R = G * B
     if R > _MAX_ROWS:
         raise ValueError(f"{R} table rows exceed the kernel's {_MAX_ROWS}")
     out = torch.empty(feat, dtype=diffs.dtype, device=diffs.device)
@@ -122,7 +139,7 @@ def taylor_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, *,
         diffs.data_ptr(), weights.data_ptr(), out.data_ptr(), code, m1, R, C,
         B, _vec_ok(C, diffs.element_size(), diffs, out), stream, dev)
     build.check("taylor_predict_lanes", lib, rc)
-    LAUNCHES["taylor_predict_lanes"] += 1
+    LAUNCHES[key] += 1
     return out
 
 
@@ -162,6 +179,29 @@ def taylor_update_lanes(old_diffs: torch.Tensor, feats: torch.Tensor,
     return out
 
 
+def _same_shape(pred: torch.Tensor, ref_: torch.Tensor) -> None:
+    if tuple(ref_.shape) != tuple(pred.shape):
+        raise ValueError(f"pred {tuple(pred.shape)} and ref "
+                         f"{tuple(ref_.shape)} differ in shape")
+
+
+def _verify_planes(pred: torch.Tensor, ref_: torch.Tensor):
+    """pred/ref [B, ...] of one shape on the card -> (pred, ref, B, N):
+    one kernel dtype (a mixed pair widens both to f32, exactly),
+    contiguous."""
+    _kernel_dtype(pred, "pred")
+    _kernel_dtype(ref_, "ref")
+    if pred.dtype != ref_.dtype:
+        pred, ref_ = pred.to(torch.float32), ref_.to(torch.float32)
+    _contiguous("pred and ref", pred, ref_)
+    W = pred.shape[0]
+    N = pred.numel() // max(W, 1)
+    if W == 0 or N == 0 or W > _MAX_ROWS:
+        raise ValueError(f"verify needs 1..{_MAX_ROWS} rows of N >= 1 "
+                         f"elements, got B={W}, N={N}")
+    return pred, ref_, W, N
+
+
 def verify_accept(pred: torch.Tensor, ref_: torch.Tensor,
                   tau: torch.Tensor, *, eps: float = 1e-8
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,24 +209,14 @@ def verify_accept(pred: torch.Tensor, ref_: torch.Tensor,
     (err [W] f32, accept [W] bool) with err = ‖p−r‖₂/(‖r‖₂+ε) and
     accept = err ≤ τ, finished on the device."""
     W = pred.shape[0]
-    if tuple(ref_.shape) != tuple(pred.shape):
-        raise ValueError(f"pred {tuple(pred.shape)} and ref "
-                         f"{tuple(ref_.shape)} differ in shape")
+    _same_shape(pred, ref_)
     if tuple(tau.shape) != (W,) or tau.dtype != torch.float32:
         raise ValueError(f"tau must be a [{W}] float32 tensor")
     if _on_cpu(pred, ref_, tau):
         return ref.verify_accept_ref(pred, ref_, tau, eps=eps)
-    _kernel_dtype(pred, "pred")
-    _kernel_dtype(ref_, "ref")
-    if pred.dtype != ref_.dtype:
-        # a table dtype other than the model's: widen both (exact)
-        pred, ref_ = pred.to(torch.float32), ref_.to(torch.float32)
+    _contiguous("tau", tau)
+    pred, ref_, W, N = _verify_planes(pred, ref_)
     code = _DTYPE_CODES[pred.dtype]
-    _contiguous("pred, ref and tau", pred, ref_, tau)
-    N = pred.numel() // max(W, 1)
-    if W == 0 or N == 0 or W > _MAX_ROWS:
-        raise ValueError(f"verify_accept needs 1..{_MAX_ROWS} lanes of "
-                         f"N >= 1 elements, got W={W}, N={N}")
     nchunks = -(-N // _VERIFY_CHUNK)
     partials = torch.empty((W, nchunks, 2), dtype=torch.float32,
                            device=pred.device)
@@ -309,6 +339,145 @@ def spectral_update_lanes(old_ring: torch.Tensor, feats: torch.Tensor,
         stream, dev)
     build.check("spectral_update_lanes", lib, rc)
     LAUNCHES["spectral_update_lanes"] += 1
+    return out
+
+
+def taylor_predict(diffs: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """Whole-table (scalar-anchor) Taylor evaluation: diffs [m+1, ...feat],
+    weights [m+1] (cast to f32, as the reference does) -> Σ_i w_i·Δⁱ
+    [...feat] in the table dtype.
+
+    On the card this is the lane predict kernel on a one-lane fold
+    (G = 1, one lane, C = numel, weights [m+1, 1]): the reference's scalar
+    body is its lane body with one weight column, so the result is
+    bitwise :func:`taylor_predict_lanes` called with the weights broadcast
+    to every lane."""
+    m1, feat = diffs.shape[0], tuple(diffs.shape[1:])
+    if tuple(weights.shape) != (m1,):
+        raise ValueError(f"weights shape {tuple(weights.shape)} != {(m1,)}")
+    if _on_cpu(diffs, weights):
+        return ref.taylor_predict_ref(diffs, weights)
+    w = weights.to(torch.float32).reshape(m1, 1).contiguous()
+    n = torch.Size(feat).numel()
+    return _launch_predict_lanes(diffs, w, feat, 1, n, 1, "taylor_predict")
+
+
+def taylor_update(old_diffs: torch.Tensor,
+                  feats: torch.Tensor) -> torch.Tensor:
+    """Whole-table recursive difference refresh: old_diffs [m+1, ...feat],
+    feats [...feat] -> new diffs, Δ⁰ = F and Δⁱ = Δⁱ⁻¹_new − Δⁱ⁻¹_old
+    chained in f32 and rounded to the table dtype once per plane (the
+    reference's scalar kernel; the lane refresh rounds every Δ)."""
+    m1, feat = old_diffs.shape[0], tuple(old_diffs.shape[1:])
+    if tuple(feats.shape) != feat:
+        raise ValueError(f"feats shape {tuple(feats.shape)} != {feat}")
+    if _on_cpu(old_diffs, feats):
+        return ref.taylor_update_ref(old_diffs, feats)
+    code = _kernel_dtype(old_diffs, "the table")
+    if not feats.is_floating_point():
+        raise TypeError(f"feats must be floating point, got {feats.dtype}")
+    if feats.dtype != old_diffs.dtype:
+        # the chain starts from the features in f32 (exact for bf16/f16)
+        feats = feats.to(torch.float32)
+    feats = feats.contiguous()
+    _contiguous("old_diffs", old_diffs)
+    if m1 < 1:
+        raise ValueError("the table needs at least one plane")
+    out = torch.empty_like(old_diffs)
+    n = feats.numel()
+    if n == 0:
+        return out
+    lib = build.library("taylor_update")
+    stream, dev = _stream(old_diffs)
+    rc = lib.taylor_update(
+        old_diffs.data_ptr(), feats.data_ptr(), out.data_ptr(), code,
+        _DTYPE_CODES[feats.dtype], m1, n,
+        _vec_ok(n, old_diffs.element_size(), old_diffs, feats, out),
+        stream, dev)
+    build.check("taylor_update", lib, rc)
+    LAUNCHES["taylor_update"] += 1
+    return out
+
+
+def _launch_verify_sums(pred: torch.Tensor, ref_: torch.Tensor,
+                        key: str) -> torch.Tensor:
+    pred, ref_, W, N = _verify_planes(pred, ref_)
+    nchunks = -(-N // _VERIFY_CHUNK)
+    partials = torch.empty((W, nchunks, 2), dtype=torch.float32,
+                           device=pred.device)
+    sums = torch.empty((W, 2), dtype=torch.float32, device=pred.device)
+    lib = build.library("verify_accept")
+    stream, dev = _stream(pred)
+    rc = lib.verify_sums(
+        pred.data_ptr(), ref_.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), _DTYPE_CODES[pred.dtype], W, N, _VERIFY_CHUNK,
+        nchunks, _vec_ok(N, pred.element_size(), pred, ref_), stream, dev)
+    build.check("verify_sums", lib, rc)
+    LAUNCHES[key] += 1
+    return sums
+
+
+def verify_sums(pred: torch.Tensor, ref_: torch.Tensor) -> torch.Tensor:
+    """Per-row verification sums: pred/ref [B, ...] -> [B, 2] f32 =
+    (Σ(p−r)², Σr²), summed in f32 (the reference's ``verify_sums``
+    without τ)."""
+    _same_shape(pred, ref_)
+    if _on_cpu(pred, ref_):
+        return ref.verify_sums_ref(pred, ref_)
+    return _launch_verify_sums(pred, ref_, "verify_sums")
+
+
+def verify_error(pred: torch.Tensor, ref_: torch.Tensor, *,
+                 eps: float = 1e-8) -> torch.Tensor:
+    """Per-row relative L2 error (eq. 4): pred/ref [B, ...] -> [B] f32 =
+    √num / (√den + ε) from the :func:`verify_sums` kernel's sums."""
+    _same_shape(pred, ref_)
+    if _on_cpu(pred, ref_):
+        return ref.verify_error_ref(pred, ref_, eps=eps)
+    sums = _launch_verify_sums(pred, ref_, "verify_error")
+    return torch.sqrt(sums[:, 0]) / (torch.sqrt(sums[:, 1]) + eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Online-softmax attention in f32: q/k/v [B, S, H, hd] with equal
+    head counts (repeat GQA heads first) -> [B, S, H, hd] in q's dtype.
+    Key k is visible from query q when k <= q (``causal``) and when
+    q − k < ``window`` (``window > 0``, also without ``causal``)."""
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"q/k/v must be [B, S, H, hd] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    window = int(window)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+    code = _kernel_dtype(q, "q")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    B, S, H, hd = q.shape
+    if hd not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in the kernel's "
+                         f"{_FLASH_HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q/k/v need a contiguous last (head-dim) axis")
+    if B * H > _MAX_ROWS:
+        raise ValueError(f"B·H = {B * H} exceeds the kernel's {_MAX_ROWS}")
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library("flash_attention")
+    stream, dev = _stream(q)
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, B, S,
+        H, hd, *strides, int(bool(causal)), max(min(window, S), 0),
+        1.0 / (hd ** 0.5), stream, dev)
+    build.check("flash_attention", lib, rc)
+    LAUNCHES["flash_attention"] += 1
     return out
 
 

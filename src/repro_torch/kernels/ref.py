@@ -5,14 +5,19 @@ chip check compares each kernel with its plain version on the card. Each
 computes the same function as its kernel in the same precision: the
 predict accumulates in f32 in the order i = 0..m (separate multiply and
 add, so it differs from the kernel's FMA chain by FMA rounding), the
-refresh rounds every subtraction to the table dtype (bitwise equal to
-the kernel), the verify sums in f32 in PyTorch's own order.
+lane refresh rounds every subtraction to the table dtype and the scalar
+refresh chains its subtractions in f32 and rounds once (each bitwise
+equal to its kernel), the verify sums in f32 in PyTorch's own order, and
+attention materialises its f32 scores.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+NEG_INF = -1e30
 
 
 def _lane_shape(ndim: int, lane_axis: int, lanes: int):
@@ -96,3 +101,80 @@ def verify_accept_ref(pred: torch.Tensor, ref: torch.Tensor,
     den = torch.sum(r * r, dim=-1)
     err = torch.sqrt(num) / (torch.sqrt(den) + eps)
     return err, err <= tau.to(torch.float32)
+
+
+def taylor_predict_ref(diffs: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Whole-table (scalar-anchor) prediction: diffs [m+1, ...feat],
+    weights [m+1] f32 -> Σ_i w_i·Δⁱ accumulated in f32 in the order
+    i = 0..m and cast to the table dtype; :func:`taylor_predict_lanes_ref`
+    with one weight column."""
+    w = weights.to(torch.float32)
+    acc = w[0] * diffs[0].to(torch.float32)
+    for i in range(1, diffs.shape[0]):
+        acc = acc + w[i] * diffs[i].to(torch.float32)
+    return acc.to(diffs.dtype)
+
+
+def taylor_update_ref(old_diffs: torch.Tensor,
+                      feats: torch.Tensor) -> torch.Tensor:
+    """Whole-table refresh as the scalar TPU kernel computes it: Δ⁰ = F,
+    Δⁱ = Δⁱ⁻¹_new − Δⁱ⁻¹_old chained in f32 (from the features in their
+    own dtype) and rounded to the table dtype once per plane, at the
+    store. For bf16 tables this differs from the lane refresh, which
+    rounds every Δ before the next subtraction."""
+    cur = feats.to(torch.float32)
+    rows = [cur]
+    for i in range(1, old_diffs.shape[0]):
+        cur = cur - old_diffs[i - 1].to(torch.float32)
+        rows.append(cur)
+    return torch.stack(rows).to(old_diffs.dtype)
+
+
+def verify_sums_ref(pred: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """pred/ref [B, ...] -> [B, 2] f32 = (Σ(p−r)², Σr²) per row."""
+    B = pred.shape[0]
+    p = pred.reshape(B, -1).to(torch.float32)
+    r = ref.reshape(B, -1).to(torch.float32)
+    d = p - r
+    return torch.stack([torch.sum(d * d, dim=-1),
+                        torch.sum(r * r, dim=-1)], dim=-1)
+
+
+def verify_error_ref(pred: torch.Tensor, ref: torch.Tensor, *,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Per-row relative L2 error √num / (√den + ε) [B] f32."""
+    sums = verify_sums_ref(pred, ref)
+    return torch.sqrt(sums[:, 0]) / (torch.sqrt(sums[:, 1]) + eps)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window: int,
+                   device) -> torch.Tensor:
+    """[sq, sk] bool: key k visible from query q — k <= q when
+    ``causal``, q − k < window when ``window > 0`` (also without
+    ``causal``)."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (ki <= qi)
+    if window > 0:
+        ok = ok & ((qi - ki) < window)
+    return ok
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q/k/v [B, S, H, hd] (equal head counts) -> [B, S, H, hd] in q's
+    dtype: f32 scores q·k/√hd, masked with −1e30, softmax, f32 product
+    with v."""
+    s = q.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(q.shape[-1])
+    if causal or window > 0:
+        ok = attention_mask(s, s, causal, window, q.device)
+        scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)

@@ -72,7 +72,12 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
                                    "verify_accept": 1,
                                    "taylor_predict_chain_lanes": 0,
                                    "lane_rollback": 0,
-                                   "spectral_update_lanes": 0}
+                                   "spectral_update_lanes": 0,
+                                   "taylor_predict": 0,
+                                   "taylor_update": 0,
+                                   "verify_sums": 0,
+                                   "verify_error": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -163,16 +168,31 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError):
         ops.lane_rollback(d.float().transpose(1, 2),
                           torch.zeros(2, dtype=torch.int32, device=cuda))
-    # a CUDA tensor never reaches a plain version: with the plain
-    # versions replaced by a trap, every wrapper still computes
+    with pytest.raises(ValueError):           # no kernel for head dim 48
+        q48 = torch.zeros((1, 8, 2, 48), device=cuda)
+        ops.flash_attention(q48, q48, q48)
+    with pytest.raises(TypeError):
+        q16 = torch.zeros((1, 8, 2, 16), dtype=torch.float16, device=cuda)
+        ops.flash_attention(q16, q16, q16)
+    with pytest.raises(TypeError):
+        ops.taylor_update(d, d[0])
+    # a CUDA tensor never reaches a plain version (nor, on the flash path
+    # of full_attention, SDPA): with them replaced by a trap, every
+    # wrapper still computes
+    from repro_torch.layers import attention
     calls = []
     saved = {n: getattr(ref, n) for n in dir(ref) if n.endswith("_ref")}
+    sdpa = attention.F.scaled_dot_product_attention
     try:
         for n in saved:
             setattr(ref, n, lambda *a, _n=n, **k: calls.append(_n))
+        attention.F.scaled_dot_product_attention = \
+            lambda *a, **k: calls.append("sdpa")
         t = torch.randn((3, 2, 2, 2, 4, 8), device=cuda)
         mask = torch.tensor([True, False], device=cuda)
         idx = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+        q = torch.randn((1, 8, 4, 16), device=cuda)
+        kv = torch.randn((1, 8, 2, 16), device=cuda)
         outs = [ops.taylor_predict_lanes(t, torch.ones((3, 2), device=cuda)),
                 ops.taylor_update_lanes(t, t[0], mask),
                 ops.verify_accept(t[0, 0, 0], t[0, 0, 1],
@@ -180,12 +200,107 @@ def test_cuda_tensors_never_fall_back(cuda):
                 ops.taylor_predict_chain_lanes(
                     t, torch.ones((3, 4, 2), device=cuda)),
                 ops.lane_rollback(t, idx),
-                ops.spectral_update_lanes(t, t[0], mask)]
+                ops.spectral_update_lanes(t, t[0], mask),
+                ops.taylor_predict(t, torch.ones(3, device=cuda)),
+                ops.taylor_update(t, t[0]),
+                ops.verify_sums(t[0, 0, 0], t[0, 0, 1]),
+                ops.verify_error(t[0, 0, 0], t[0, 0, 1]),
+                ops.flash_attention(q, q, q, causal=False),
+                attention.full_attention(q, kv, kv, 3, use_flash=True)]
     finally:
         for n, fn in saved.items():
             setattr(ref, n, fn)
+        attention.F.scaled_dot_product_attention = sdpa
     torch.cuda.synchronize()
     assert calls == [] and all(o.is_cuda for o in outs)
+
+
+SCALAR_SHAPES = [(1, 64), (3, 17), (3, 2, 2, 4, 8, 16), (2, 1000),
+                 (5, 8, 128), (3, 4, 300, 77)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCALAR_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_kernels_match_plain_on_card(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    d = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    f32 = torch.randn(shape[1:], generator=g, device=cuda) * 4.0
+    w = torch.randn((shape[0],), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    pk = ops.taylor_predict(d, w)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(pk.float(),
+                               ref.taylor_predict_ref(d.float(), w),
+                               rtol=tol, atol=1e-5)
+    # bitwise the lane kernel with the weights broadcast to every lane,
+    # on another fold of the table (other rows, columns and vector path)
+    axis = max(len(shape) - 3, 0)
+    lanes = ops.taylor_predict_lanes(
+        d, w[:, None].expand(shape[0], shape[1 + axis]).contiguous(),
+        lane_axis=axis)
+    assert torch.equal(pk, lanes)
+    for feats in (f32.to(dtype), f32):       # table dtype, and f32 features
+        uk = ops.taylor_update(d, feats)
+        assert torch.equal(uk, ref.taylor_update_ref(d, feats)), feats.dtype
+    pred = d[0].reshape(shape[1], -1) if d.dim() > 2 else d[:1]
+    real = (pred.float() * 1.05 + 0.01).to(dtype)
+    torch.testing.assert_close(ops.verify_sums(pred, real),
+                               ref.verify_sums_ref(pred, real), rtol=1e-5,
+                               atol=0.0)
+    torch.testing.assert_close(ops.verify_error(pred, real),
+                               ref.verify_error_ref(pred, real), rtol=1e-5,
+                               atol=0.0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["taylor_predict"], counts["taylor_update"],
+            counts["verify_sums"], counts["verify_error"]) == (1, 2, 1, 1)
+
+
+def _flash_tol(dtype):
+    return dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=2.0 ** -8, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 72, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 37),
+                                           (False, 0), (False, 20)])
+@pytest.mark.parametrize("s", [100, 257])
+def test_flash_matches_plain_on_card(cuda, dtype, hd, causal, window, s):
+    g = torch.Generator(device=cuda).manual_seed(hd + s)
+    q, k, v = (torch.randn((2, s, 3, hd), generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, **_flash_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_reads_strided_inputs_and_full_attention_on_card(cuda):
+    """q/k/v as views of one packed [B, S, 3, H, hd] tensor (strides, not
+    copies), and ``full_attention(use_flash=True)`` with GQA against its
+    mask path."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = torch.randn((2, 130, 3, 4, 64), generator=g, device=cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    from repro_torch.layers.attention import full_attention
+    kv = qkv[:, :, 1:, :2]                       # 2 KV heads for 4 q heads
+    for window in (0, 40):
+        fl = full_attention(q, kv[:, :, 0], kv[:, :, 1], window,
+                            use_flash=True)
+        plain = full_attention(q, kv[:, :, 0], kv[:, :, 1], window)
+        torch.testing.assert_close(fl, plain, rtol=2e-5, atol=2e-5)
 
 
 def _small_dit(cuda):

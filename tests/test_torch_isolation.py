@@ -69,7 +69,9 @@ def test_kernel_build_is_lazy(tmp_path):
     from repro_torch.kernels import build
     assert set(build.SOURCES) == set(build.SIGNATURES)
     for name in build.SOURCES:
-        assert (build.CSRC / f"{name}.cu").exists()
+        src = (build.CSRC / f"{name}.cu").read_text()
+        for entry in build.SIGNATURES[name]:
+            assert f'extern "C" int {entry}(' in src, (name, entry)
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
             "from repro_torch.kernels import build\n"

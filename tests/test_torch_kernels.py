@@ -9,8 +9,17 @@ tables; the refresh bitwise; the verify error to rtol=1e-5 (f32 sums in
 another order) with identical accept bits. The chain predict like the
 predict, and each of its positions bitwise the port's own predict; the
 rollback and the ring shift bitwise; the spectral weights to rtol 1e-6
-(PyTorch's cos and pow are not XLA's). ``tests/test_torch_cuda.py``
-holds the CUDA kernels against the plain versions on a card.
+(PyTorch's cos and pow are not XLA's). The scalar-anchor surface: the
+predict like the lane predict and bitwise the port's lane predict with
+the weights broadcast; the scalar refresh bitwise against the Pallas
+kernel (f32 chain, one rounding per plane) in f32 and bf16; the τ-less
+verify sums and error to rtol 1e-5. Flash attention: f32 to
+rtol=atol=1e-5 (online against materialised softmax); bf16 within one
+bf16 ulp of the f32 result (rtol 2^-8 plus the f32 atol against the
+reference run on the same bf16 inputs in f32, rtol 2^-7 against the
+reference's own bf16 output, which rounds its own f32 result).
+``tests/test_torch_cuda.py`` holds the CUDA kernels against the plain
+versions on a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +29,7 @@ import torch
 from repro.core import forecaster as jfc
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.verify_error import verify_sums as jverify_sums
 from repro_torch.core import forecaster as pfc
 from repro_torch.kernels import ops, ref
 
@@ -128,19 +138,32 @@ def test_cpu_path_does_not_count_launches():
     ops.taylor_predict_chain_lanes(d, torch.ones(3, 4, 2))
     ops.lane_rollback(d, torch.tensor([0, 2], dtype=torch.int32))
     ops.spectral_update_lanes(d, torch.zeros(2, 2, 2, 4, 8), mask)
+    ops.taylor_predict(d, torch.ones(3))
+    ops.taylor_update(d, torch.zeros(2, 2, 2, 4, 8))
+    ops.verify_sums(torch.ones(2, 8), torch.ones(2, 8))
+    ops.verify_error(torch.ones(2, 8), torch.ones(2, 8))
+    q = torch.zeros(1, 8, 2, 16)
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == {"taylor_predict_lanes": 0,
                                    "taylor_update_lanes": 0,
                                    "verify_accept": 0,
                                    "taylor_predict_chain_lanes": 0,
                                    "lane_rollback": 0,
-                                   "spectral_update_lanes": 0}
+                                   "spectral_update_lanes": 0,
+                                   "taylor_predict": 0,
+                                   "taylor_update": 0,
+                                   "verify_sums": 0,
+                                   "verify_error": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.parametrize("case", ["weights_shape", "weights_dtype",
                                   "mask_dtype", "feats_shape", "tau_shape",
                                   "devices", "chain_weights_shape",
                                   "rollback_idx_dtype", "rollback_idx_shape",
-                                  "ring_mask_dtype"])
+                                  "ring_mask_dtype", "scalar_weights_shape",
+                                  "scalar_feats_shape", "sums_shape",
+                                  "flash_shape"])
 def test_wrappers_reject_bad_arguments(case):
     d = torch.zeros(3, 2, 2, 2, 4, 8)
     f = torch.zeros(2, 2, 2, 4, 8)
@@ -165,6 +188,17 @@ def test_wrappers_reject_bad_arguments(case):
             ops.lane_rollback(d, torch.zeros(3, dtype=torch.int32))
         elif case == "ring_mask_dtype":
             ops.spectral_update_lanes(d, f, torch.tensor([1, 0]))
+        elif case == "scalar_weights_shape":
+            ops.taylor_predict(d, torch.ones(3, 2))
+        elif case == "scalar_feats_shape":
+            ops.taylor_update(d, f[:, :, :1])
+        elif case == "sums_shape":
+            ops.verify_sums(torch.ones(2, 8), torch.ones(2, 9))
+        elif case == "flash_shape":
+            # unequal head counts: repeat the KV heads first
+            ops.flash_attention(torch.zeros(1, 8, 4, 16),
+                                torch.zeros(1, 8, 2, 16),
+                                torch.zeros(1, 8, 2, 16))
         else:
             ops.taylor_predict_lanes(d, torch.ones(3, 2, device="meta"))
 
@@ -297,3 +331,136 @@ def test_spectral_weights_match_reference(kind):
     w0 = pfc.spectral_weights(order, torch.zeros(()), torch.ones(()),
                               torch.tensor(3))
     assert w0.tolist() == pytest.approx([1.0, 0.0, 0.0], abs=1e-7)
+
+
+SCALAR_SHAPES = [(1, 64), (3, 17), (4, 2, 2, 33, 40), (2, 1000), (5, 8, 128)]
+
+
+@pytest.mark.parametrize("shape", SCALAR_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_predict_plain_matches_pallas(shape, dtype):
+    d = _table(shape, 13)
+    w = np.random.default_rng(14).normal(size=shape[0]).astype(np.float32)
+    dj, dt = _both(d, dtype)
+    pj = jops.taylor_predict(dj, jnp.asarray(w))
+    pt = ops.taylor_predict(dt, torch.from_numpy(w))
+    assert pt.dtype == dtype and tuple(pt.shape) == shape[1:]
+    if dtype == torch.float32:
+        # FMA rounding: a few f32 ulps of the largest term |w_i·Δⁱ|
+        terms = np.abs(w).reshape((-1,) + (1,) * (d.ndim - 1)) * np.abs(d)
+        np.testing.assert_array_less(np.abs(_np(pt) - _np(pj)),
+                                     2.0 ** -21 * terms.sum(0) + 1e-30)
+    else:
+        np.testing.assert_allclose(_np(pt), _np(pj), rtol=2.0 ** -8,
+                                   atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_predict_is_lane_predict_with_broadcast_weights(dtype):
+    """The degenerate invariant, bitwise: the scalar predict is the lane
+    predict with one weight column broadcast to every lane (the port runs
+    the same kernel on a one-lane fold)."""
+    feat = (2, 2, 3, 12, 24)
+    d = torch.from_numpy(_table((3,) + feat, 15)).to(dtype)
+    w = torch.from_numpy(
+        np.random.default_rng(16).normal(size=3).astype(np.float32))
+    lanes = ops.taylor_predict_lanes(d, w[:, None].expand(3, feat[2])
+                                     .contiguous(), lane_axis=2)
+    assert torch.equal(ops.taylor_predict(d, w), lanes)
+
+
+@pytest.mark.parametrize("shape", [(2, 40), (4, 3, 130), (3, 8, 128),
+                                   (3, 2, 2, 4, 8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feats_f32", [False, True])
+def test_scalar_update_plain_bitwise_matches_pallas(shape, dtype, feats_f32):
+    """The scalar refresh chains its differences in f32 and rounds once
+    per plane, bit for bit the Pallas kernel (f32 subtraction is exact
+    and both casts round to nearest even) — also with f32 features into
+    a bf16 table, whose Δ¹ starts from the unrounded features."""
+    old = _table(shape, 17)
+    feats = _table(shape[1:], 18) * 4.0
+    oj, ot = _both(old, dtype)
+    fj, ft = _both(feats, torch.float32 if feats_f32 else dtype)
+    nj = jops.taylor_update(oj, fj)
+    nt = ops.taylor_update(ot, ft)
+    assert nt.dtype == dtype
+    np.testing.assert_array_equal(_np(nt), _np(nj))
+
+
+def test_scalar_update_is_not_the_lane_refresh_in_bf16():
+    """The trap the port keeps apart: in bf16 the scalar kernel's f32
+    chain differs from the lane refresh's per-Δ rounding (and from the
+    reference's jnp oracle, which rounds like the lane refresh)."""
+    shape = (3, 2, 2, 4, 8, 16)
+    old = torch.from_numpy(_table(shape, 19)).to(torch.bfloat16)
+    feats = torch.from_numpy(_table(shape[1:], 20) * 4.0).to(torch.bfloat16)
+    scalar = ops.taylor_update(old, feats)
+    lanes = ops.taylor_update_lanes(old, feats,
+                                    torch.ones(shape[3], dtype=torch.bool))
+    oracle = jref.taylor_update_ref(jnp.asarray(_np(old)).astype(
+        jnp.bfloat16), jnp.asarray(_np(feats)).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(_np(lanes), _np(oracle))
+    assert torch.equal(scalar[:2], lanes[:2])        # Δ⁰ and Δ¹ agree
+    assert not torch.equal(scalar[2], lanes[2])      # Δ² does not
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [64, 127, 1000, 4096])
+def test_verify_sums_and_error_plain_match_pallas(dtype, n):
+    rng = np.random.default_rng(21)
+    B = 3
+    r = rng.normal(size=(B, n)).astype(np.float32)
+    p = r + rng.normal(size=(B, n)).astype(np.float32) \
+        * np.array([0.01, 0.3, 1.0], np.float32)[:, None]
+    pj, pt = _both(p, dtype)
+    rj, rt = _both(r, dtype)
+    pad = (-n) % 128                   # the Pallas kernel takes N % 128 == 0
+    sj = jverify_sums(jnp.pad(pj, ((0, 0), (0, pad))),
+                      jnp.pad(rj, ((0, 0), (0, pad))),
+                      block_c=128, interpret=True)
+    st = ops.verify_sums(pt, rt)
+    assert st.dtype == torch.float32 and tuple(st.shape) == (B, 2)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5)
+    ej = jops.verify_error(pj, rj)
+    et = ops.verify_error(pt, rt)
+    assert et.dtype == torch.float32 and tuple(et.shape) == (B,)
+    np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-5)
+
+
+FLASH_CASES = [(64, 2, 32, True, 0),      # the reference's cases
+               (64, 2, 32, True, 16),
+               (128, 4, 64, True, 0),
+               (64, 2, 32, False, 0),
+               (96, 1, 16, True, 8),
+               (48, 2, 72, False, 0),     # DiT-XL/2's head dim, bidirectional
+               (80, 2, 16, False, 12)]    # a window without causal
+
+
+def _flash_inputs(s, h, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(2, s, h, hd)).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("s,h,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_plain_matches_pallas(s, h, hd, causal, window,
+                                              dtype):
+    q, k, v = _flash_inputs(s, h, hd, s + hd)
+    both = [_both(x, dtype) for x in (q, k, v)]
+    jq, jk, jv = (b[0] for b in both)
+    tq, tk, tv = (b[1] for b in both)
+    kw = dict(causal=causal, window=window)
+    oj = jops.flash_attention(jq, jk, jv, **kw)
+    ot = ops.flash_attention(tq, tk, tv, **kw)
+    assert ot.dtype == dtype and tuple(ot.shape) == (2, s, h, hd)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(ot), _np(oj), rtol=1e-5, atol=1e-5)
+    else:
+        # the f32 function of the same bf16 inputs, through the reference
+        o32 = _np(jops.flash_attention(*(x.astype(jnp.float32)
+                                         for x in (jq, jk, jv)), **kw))
+        np.testing.assert_allclose(_np(ot), o32, rtol=2.0 ** -8, atol=1e-5)
+        np.testing.assert_allclose(_np(ot), _np(oj), rtol=2.0 ** -7,
+                                   atol=1e-5)

@@ -242,6 +242,39 @@ def test_taylor_lane_tables_match():
             atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["taylor", "newton"])
+def test_taylor_scalar_tables_match(dtype, mode):
+    """Whole-batch anchors (``init_state(lanes=None)``): a few refreshes at
+    uneven steps and forecasts past each, through both packages' plain
+    ``update``/``predict``: tables and metadata bitwise, forecasts to FMA
+    rounding (f32) or one bf16 ulp."""
+    feat = (2, 2, 3, 4, 8)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    sj = jtaylor.init_state(2, feat, jd)
+    sp = ptaylor.init_state(2, feat, td, device=CPU)
+    assert all(sp[k].shape == () for k in ("n_anchors", "anchor_step",
+                                           "gap"))
+    for k, step in enumerate([0, 2, 3, 6]):
+        f = _rand(*feat, seed=20 + k)
+        sj = jtaylor.update(sj, _j(f), step)
+        sp = ptaylor.update(sp, _t(f), step)
+        for key in ("diffs", "n_anchors", "anchor_step", "gap"):
+            np.testing.assert_array_equal(
+                sp[key].to(torch.float32).numpy() if key == "diffs"
+                else sp[key].numpy(),
+                np.asarray(sj[key].astype(jnp.float32) if key == "diffs"
+                           else sj[key]), key)
+        for ahead in (1, 2):
+            pj = jtaylor.predict(sj, step + ahead, mode)
+            pp = ptaylor.predict(sp, step + ahead, mode)
+            assert pp.dtype == td
+            tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+            np.testing.assert_allclose(pp.to(torch.float32).numpy(),
+                                       np.asarray(pj.astype(jnp.float32)),
+                                       rtol=tol, atol=tol)
+
+
 def _tiny_random_dit():
     cfg = dataclasses.replace(reduced(get_config("dit-xl2")), num_layers=3,
                               d_model=32, d_ff=64, num_heads=4,
