@@ -6,9 +6,11 @@ CUDA toolkit:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
 
-1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
-   sources, ten kernel rows; one nvcc per source, started together) and
-   print what ptxas reports.
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
+   sources, eleven kernel rows; one nvcc per source, started together) and
+   print what ptxas reports. The tensor-core flash kernel must show wgmma
+   (``HGMMA``) and TMA loads (``UTMALDG``) in its SASS (``cuobjdump``)
+   and no spills.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes (W=4 lanes, table [3, 224, 294912] bf16, a chain
    of K=4 positions, latent snapshots [5, 4, 32, 32, 4] f32), in f32 and
@@ -34,17 +36,18 @@ Phases (any failure ends the run with a non-zero exit):
    through the τ-less ``ops.verify_sums`` and ``ops.verify_error`` (rtol
    1e-5); each is also checked at the other shapes above.
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
-   (32 query heads on 16 KV heads, head dim 128, S = 4096, bf16) with a
-   local window of 1024 and globally, and ``ops.flash_attention(causal=
-   False)`` at DiT-XL/2's (4 lanes, 256 tokens, 16 heads of 72), launch
-   counts set to 0 just before and read just after; each output held
-   against the plain f32 attention (bf16 within one bf16 ulp: rtol 2^-8,
-   atol 1e-5; the same inputs in f32 through the kernel within rtol =
-   atol = 2e-5) and against the port's own mask path or SDPA core, and
-   timed beside ``scaled_dot_product_attention`` on the same inputs. Its
-   bound takes the dense bf16 tensor cores' 989.4 TFLOP/s, the rate of
-   its bf16 operands; the f32 CUDA-core figure this kernel's arithmetic
-   could reach at best is kept beside it.
+   (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
+   window of 1024 and globally, and ``ops.flash_attention(causal=False)``
+   at DiT-XL/2's (4 lanes, 256 tokens, 16 heads of 72), each in bf16
+   (the tensor-core kernel) and on the same inputs in f32 (the CUDA-core
+   kernel), launch counts set to 0 just before and read just after (3
+   launches of each). Each output is held against the plain f32 attention
+   (bf16 within one bf16 ulp: rtol 2^-8, atol 1e-5; f32 within rtol =
+   atol = 2e-5) and the bf16 one also against the port's own mask path
+   or SDPA core (rtol 2^-7), and each is timed beside
+   ``scaled_dot_product_attention`` on the same inputs. Bounds: 4·hd
+   operations per visible pair over the dense bf16 tensor cores'
+   989.4 TFLOP/s for bf16 operands, over 67 TFLOP/s for f32 ones.
 3. Serve DiT-XL/2 at full width (28 layers, d 1152, bf16, 32×32×4
    latents, 50 DDIM steps) through ``SpeCaEngine.serve_batched``: 8
    requests at lanes=4, taylor_order=2, per-sample accept, fused verify.
@@ -79,6 +82,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +117,16 @@ def smi_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def cuobjdump_path() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy Triton ships."""
+    found = shutil.which("cuobjdump", path="/usr/local/cuda/bin")
+    if found:
+        return found
+    import triton
+    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+               / "cuobjdump")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -200,6 +215,21 @@ class Smoke:
                     print(f"  {line.strip()}")
         for name in build.SOURCES:
             build.library(name)
+        # the tensor-core flash kernel: wgmma (HGMMA) and TMA loads
+        # (UTMALDG) in its SASS, and no spills
+        sass = subprocess.run([cuobjdump_path(), "-sass",
+                               str(paths["flash_attention_sm90"])],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        log = build.build_logs.get("flash_attention_sm90", "")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        print(f"flash_attention_sm90 SASS: {counts}; spill bytes "
+              f"{sum(spills)}")
+        self.record["flash_attention_sm90"] = dict(sass=counts,
+                                                   spill_bytes=spills)
+        assert all(counts.values()), counts
+        assert log and not any(spills), "ptxas: no log, or spills"
 
     # --- phase 2 -------------------------------------------------------------
     def _inputs(self, shape, dtype, seed):
@@ -616,8 +646,9 @@ class Smoke:
     # --- phase 2b ------------------------------------------------------------
     def attention(self):
         """Flash attention through this slice's entry points at gemma3-27b's
-        and DiT-XL/2's widths, against the plain f32 attention, the port's
-        non-flash paths and SDPA."""
+        and DiT-XL/2's widths: bf16 through the tensor-core kernel, the
+        same inputs in f32 through the CUDA-core kernel, against the plain
+        f32 attention, the port's non-flash paths and SDPA."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         from repro_torch.layers.attention import (attention_core,
@@ -634,15 +665,23 @@ class Smoke:
         dH, dhd = cfg.num_heads, cfg.d_model // cfg.num_heads
         dS = (self.dcfg.latent_size // cfg.patch_size) ** 2
         qd, kd, vd = (randn(LANES, dS, dH, dhd) for _ in range(3))
+        f32 = {id(x): x.float() for x in (q, k, v, qd, kd, vd)}
+
+        def drive(dt):
+            a, b, c, e, f, h = (x if dt == bf16 else f32[id(x)]
+                                for x in (q, k, v, qd, kd, vd))
+            return {"gemma3_local": full_attention(a, b, c, GEMMA3_WINDOW,
+                                                   use_flash=True),
+                    "gemma3_global": full_attention(a, b, c, 0,
+                                                    use_flash=True),
+                    "dit_xl2": ops.flash_attention(e, f, h, causal=False)}
         torch.cuda.synchronize()
         ops.reset_launch_counts()                    # this slice's path:
-        outs = {"gemma3_local": full_attention(q, k, v, GEMMA3_WINDOW,
-                                               use_flash=True),
-                "gemma3_global": full_attention(q, k, v, 0, use_flash=True),
-                "dit_xl2": ops.flash_attention(qd, kd, vd, causal=False)}
+        outs, outs32 = drive(bf16), drive(torch.float32)
         torch.cuda.synchronize()
         launches = ops.launch_counts()               # read just after
         print(f"attention launches: {launches}")
+        assert launches["flash_attention_sm90"] == 3, launches
         assert launches["flash_attention"] == 3, launches
 
         kr, vr = repeat_kv(k, H // KV), repeat_kv(v, H // KV)
@@ -653,14 +692,15 @@ class Smoke:
                               lambda: full_attention(q, k, v, 0)),
             "dit_xl2": (qd, kd, vd, False, 0,
                         lambda: attention_core(qd, kd, vd))}
-        detail, max_err = {}, 0.0
+        detail = {"bf16": {}, "f32": {}}
         for name, (a, b, c, causal, window, other) in cases.items():
             kw = dict(causal=causal, window=window)
-            out = outs[name]
+            out, o32 = outs[name], outs32[name]
             assert out.shape == a.shape and out.dtype == bf16
+            assert o32.shape == a.shape and o32.dtype == torch.float32
             assert torch.isfinite(out).all(), f"{name}: non-finite output"
-            plain = ref.flash_attention_ref(a.float(), b.float(), c.float(),
-                                            **kw)
+            a32, b32, c32 = a.float(), b.float(), c.float()
+            plain = ref.flash_attention_ref(a32, b32, c32, **kw)
             err_bf16 = (out.float() - plain).abs().max().item()
             torch.testing.assert_close(out.float(), plain, rtol=2.0 ** -8,
                                        atol=1e-5)
@@ -669,28 +709,39 @@ class Smoke:
             alt = other()
             torch.testing.assert_close(out.float(), alt.float(),
                                        rtol=2.0 ** -7, atol=1e-5)
-            o32 = ops.flash_attention(a.float(), b.float(), c.float(), **kw)
             err_f32 = (o32 - plain).abs().max().item()
             torch.testing.assert_close(o32, plain, rtol=2e-5, atol=2e-5)
-            del plain, alt, o32
-            detail[name] = self._time_attention(a, b, c, causal, window)
-            detail[name].update(max_abs_err_bf16=err_bf16,
-                                max_abs_err_f32=err_f32)
-            max_err = max(max_err, err_bf16, err_f32)
-            print(f"flash_attention {name}: {detail[name]}")
-        head = detail["gemma3_global"]
-        self.kernels["flash_attention"] = dict(
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            library_ms=head["library_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"],
-            bound_f32_cuda_core_ms=head["bound_f32_cuda_core_ms"],
-            launches=launches["flash_attention"], max_abs_err=max_err,
-            cases=detail)
+            del plain, alt
+            detail["bf16"][name] = self._time_attention(a, b, c, causal,
+                                                        window)
+            detail["bf16"][name]["max_abs_err"] = err_bf16
+            detail["f32"][name] = self._time_attention(a32, b32, c32,
+                                                       causal, window)
+            detail["f32"][name]["max_abs_err"] = err_f32
+            del a32, b32, c32
+            for route in detail:
+                print(f"flash_attention {route} {name}: "
+                      f"{detail[route][name]}")
+        for key, route in (("flash_attention_sm90", "bf16"),
+                           ("flash_attention", "f32")):
+            head = detail[route]["gemma3_global"]
+            self.kernels[key] = dict(
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], launches=launches[key],
+                device_ms=head["device_ms"],
+                library_device_ms=head["library_device_ms"],
+                max_abs_err=max(c["max_abs_err"]
+                                for c in detail[route].values()),
+                cases=detail[route])
         self.record["attention"] = dict(launches=launches, cases=detail)
 
     def _time_attention(self, q, k, v, causal, window):
-        """Kernel, plain and SDPA times of one attention case (bf16 inputs,
-        equal head counts), and its bounds from the visible pairs."""
+        """Kernel, plain and SDPA times of one attention case (equal head
+        counts), and its bound from the visible pairs: bf16 operands over
+        the dense bf16 tensor cores (q·kᵀ of bf16 values is exact in their
+        f32 accumulator), f32 operands over the f32 rate outside them (the
+        f32 function needs f32 products; TF32 would not do)."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import ops, ref
@@ -719,18 +770,21 @@ class Smoke:
                     .sum().item())
         flops = 4.0 * hd * pairs * B * H       # q·k and p·v per visible pair
         nbytes = 4 * B * S * H * hd * q.element_size()
-        # bf16 operands: q·kᵀ is exact in f32 on the dense bf16 tensor
-        # cores, so their rate bounds the function, whatever this kernel's
-        # f32 CUDA-core arithmetic reaches (kept beside it)
-        bound, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
-        spans = device_spans(torch, lib)
-        return dict(shape=list(q.shape), causal=causal, window=window,
-                    pairs_per_head=pairs, gflop=flops / 1e9, ms=ms,
+        rate = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+        bound, by = bound_ms(nbytes, flops, rate)
+        # device time per call (the events above include the host's cost
+        # of a call, which is of the order of the DiT-XL/2 case's kernel)
+        spans = device_spans(torch, lib, iters=5)
+        mine = device_spans(
+            torch, lambda: ops.flash_attention(q, k, v, **kw), iters=5)
+        return dict(shape=list(q.shape), dtype=str(q.dtype), causal=causal,
+                    window=window, pairs_per_head=pairs, gflop=flops / 1e9,
+                    ms=ms, device_ms=sum(mine.values()) / 1e3,
                     plain_ms=plain_ms, library_ms=library_ms,
+                    library_device_ms=sum(spans.values()) / 1e3,
                     sdpa_kernel=max(spans, key=spans.get,
                                     default="not seen")[:120],
-                    bound_ms=bound, bound_by=by,
-                    bound_f32_cuda_core_ms=bound_ms(nbytes, flops)[0])
+                    bound_ms=bound, bound_by=by)
 
     # --- phase 3 -------------------------------------------------------------
     def _model(self):
@@ -1001,8 +1055,13 @@ KERNEL_META = {
                       "src/repro/kernels/taylor_predict.py:258"),
     "verify_sums": ("src/repro_torch/kernels/csrc/verify_accept.cu",
                     "src/repro/kernels/verify_error.py:72"),
+    # flash attention: f32 inputs on the CUDA cores, bf16 on the tensor
+    # cores (ops.flash_attention dispatches by dtype)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:68"),
+    "flash_attention_sm90": ("src/repro_torch/kernels/csrc/"
+                             "flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention.py:68"),
 }
 # the kernels each serving path must launch
 SERVE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
@@ -1058,8 +1117,8 @@ def main() -> int:
                      "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms")})
-        if "bound_f32_cuda_core_ms" in k:        # flash: its f32 arithmetic
-            rows[-1]["bound_f32_cuda_core_ms"] = k["bound_f32_cuda_core_ms"]
+        rows[-1].update({x: k[x] for x in ("device_ms", "library_device_ms")
+                         if x in k})
     OUT.mkdir(exist_ok=True)
     smoke.record.update(card=card, kernels=rows,
                         kernel_detail=smoke.kernels, failures=smoke.failures,

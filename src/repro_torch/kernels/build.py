@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("taylor_predict_lanes", "taylor_update_lanes", "verify_accept",
            "taylor_predict_chain", "lane_rollback", "spectral_update_lanes",
-           "taylor_update", "flash_attention")
+           "taylor_update", "flash_attention", "flash_attention_sm90")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -57,15 +57,19 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     # old, feats, out, dtype, feats_dtype, m1, n, vec, stream, device
     "taylor_update": {"taylor_update": (
         _P, _P, _P, _I, _I, _I, _LL, _I, _P, _I)},
-    # q, k, v, out, dtype, B, S, H, hd, q/k/v strides (b, s, h), causal,
-    # window, scale, stream, device
+    # q, k, v, out, B, S, H, hd, q/k/v strides (b, s, h), causal, window,
+    # scale, stream, device: f32 (flash_attention) and bf16
+    # (flash_attention_sm90, whose TMA maps are built from the strides)
     "flash_attention": {"flash_attention": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-        _LL, _LL, _LL, _I, _I, _F, _P, _I)},
+        _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+        _LL, _LL, _I, _I, _F, _P, _I)},
+    "flash_attention_sm90": {"flash_attention_sm90": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+        _LL, _LL, _I, _I, _F, _P, _I)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# what ptxas reported for each library built by this process
+# what ptxas reported for each library (kept beside it as <library>.log)
 build_logs: Dict[str, str] = {}
 
 
@@ -108,6 +112,10 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     names = list(SOURCES if names is None else names)
     paths = {n: _library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
+    for n in names:
+        log = paths[n].with_suffix(".log")
+        if n not in todo and n not in build_logs and log.exists():
+            build_logs[n] = log.read_text()
     if not todo:
         return paths
     nvcc = nvcc_path()
@@ -117,6 +125,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         out, _ = proc.communicate()
         build_logs[n] = out
         if proc.returncode == 0:
+            final.with_suffix(".log").write_text(out)
             os.replace(tmp, final)
         else:
             os.unlink(tmp)

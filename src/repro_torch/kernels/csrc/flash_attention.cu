@@ -1,13 +1,14 @@
-// Blocked online-softmax attention (flash attention) in f32.
+// Blocked online-softmax attention (flash attention) in f32, for f32
+// inputs.
 //
 // Replaces the TPU kernel flash_attention_bhsd
-// (src/repro/kernels/flash_attention.py:68, body _flash_kernel at :22),
-// reached through repro.kernels.ops.flash_attention and
-// repro.layers.attention.full_attention(..., use_flash=True).
+// (src/repro/kernels/flash_attention.py:68, body _flash_kernel at :22)
+// for f32 inputs, reached through repro.kernels.ops.flash_attention and
+// repro.layers.attention.full_attention(..., use_flash=True); bf16 inputs
+// take flash_attention_sm90.cu (the tensor cores).
 //
 // q/k/v [B, S, H, hd] (equal head counts, read through their strides; the
-// last axis contiguous) -> out [B, S, H, hd] contiguous, in the inputs'
-// dtype. Scores are (q·scale)·k in f32 with scale = 1/√hd, masked with
+// last axis contiguous) -> out [B, S, H, hd] contiguous f32. Scores are (q·scale)·k in f32 with scale = 1/√hd, masked with
 // −1e30 where key k is not visible from query q (k > q when causal,
 // q − k >= window when window > 0, also without causal); running (m, l,
 // acc) per query row in f32, acc rescaled by exp(m_old − m_new) per key
@@ -22,8 +23,8 @@
 // inside it.
 //
 // Bound on the card: f32 operations (4·hd per visible query–key pair) —
-// the TPU kernel computes in f32, and this kernel does too, on the CUDA
-// cores; the tensor cores (mma.sync / wgmma in bf16) are the next step.
+// the f32 function needs f32 products, so the CUDA cores (TF32 would not
+// hold its tolerance).
 // Design: one block of 256 threads per (64-query tile, b·h); the query
 // tile (pre-scaled) and each 64-key tile are staged in shared memory as
 // f32, transposed so a thread reads 4 rows and 4 keys as two float4 per
@@ -244,12 +245,12 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = launched). Strides are in
-// elements (the last axis is contiguous); out is a contiguous
-// [B, S, H, hd] buffer of the same dtype. The caller guarantees hd in
+// Returns the cudaError_t of the launch (0 = launched). q/k/v are f32;
+// strides are in elements (the last axis is contiguous); out is a
+// contiguous [B, S, H, hd] f32 buffer. The caller guarantees hd in
 // {16, 32, 64, 72, 128}, S >= 1 and B·H <= 65535.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int dtype, int B, int S, int H,
+                               void* out, int B, int S, int H,
                                int hd, long long qsb, long long qss,
                                long long qsh, long long ksb, long long kss,
                                long long ksh, long long vsb, long long vss,
@@ -261,11 +262,6 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (err) return err;
   auto s = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  if (dtype == rt::kBF16)
-    return launch_hd<rt::BF16>(hd, q, k, v, out, B, S, H, qs, ks, vs, causal,
-                               window, scale, s);
-  if (dtype == rt::kF32)
-    return launch_hd<rt::F32>(hd, q, k, v, out, B, S, H, qs, ks, vs, causal,
-                              window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hd<rt::F32>(hd, q, k, v, out, B, S, H, qs, ks, vs, causal,
+                            window, scale, s);
 }

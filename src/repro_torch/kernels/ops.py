@@ -33,14 +33,15 @@ LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "taylor_update": 0,
                             "verify_sums": 0,
                             "verify_error": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "flash_attention_sm90": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
 _MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
 _MAX_ROWS = 65535        # gridDim.y
 _VERIFY_CHUNK = 8192     # elements per pass-1 block of verify_accept
-_FLASH_HEAD_DIMS = (16, 32, 64, 72, 128)   # instantiated in flash_attention.cu
+_FLASH_HEAD_DIMS = (16, 32, 64, 72, 128)   # instantiated in both flash files
 
 
 def reset_launch_counts() -> None:
@@ -444,7 +445,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Online-softmax attention in f32: q/k/v [B, S, H, hd] with equal
     head counts (repeat GQA heads first) -> [B, S, H, hd] in q's dtype.
     Key k is visible from query q when k <= q (``causal``) and when
-    q − k < ``window`` (``window > 0``, also without ``causal``)."""
+    q − k < ``window`` (``window > 0``, also without ``causal``).
+
+    On the card the dtype picks the kernel: bf16 runs the tensor-core
+    kernel (``flash_attention_sm90.cu``, TMA-fed, so bases must be 16-byte
+    aligned and strides multiples of 16 bytes), f32 the CUDA-core kernel
+    (``flash_attention.cu``), whose f32 products the f32 function needs.
+    Each counts its launches under its own key."""
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape):
         raise ValueError(f"q/k/v must be [B, S, H, hd] of one shape, got "
@@ -454,7 +461,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window)
-    code = _kernel_dtype(q, "q")
+    _kernel_dtype(q, "q")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -464,21 +471,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_FLASH_HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q/k/v need a contiguous last (head-dim) axis")
-    if B * H > _MAX_ROWS:
-        raise ValueError(f"B·H = {B * H} exceeds the kernel's {_MAX_ROWS}")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = build.library("flash_attention")
     stream, dev = _stream(q)
+    args = (int(bool(causal)), max(min(window, S), 0), 1.0 / (hd ** 0.5),
+            stream, dev)
+    if q.dtype == torch.bfloat16:
+        strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+        lib = build.library("flash_attention_sm90")
+        rc = lib.flash_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, hd, *strides, *args)
+        build.check("flash_attention_sm90", lib, rc)
+        LAUNCHES["flash_attention_sm90"] += 1
+        return out
+    if B * H > _MAX_ROWS:
+        raise ValueError(f"B·H = {B * H} exceeds the kernel's {_MAX_ROWS}")
+    lib = build.library("flash_attention")
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
     rc = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code, B, S,
-        H, hd, *strides, int(bool(causal)), max(min(window, S), 0),
-        1.0 / (hd ** 0.5), stream, dev)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        hd, *strides, *args)
     build.check("flash_attention", lib, rc)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (b, s, h) element strides of a bf16 [B, S, H, hd] operand for
+    its TMA map. TMA needs a 16-byte-aligned base and strides that are
+    multiples of 16 bytes; anything else raises. A dimension of size 1 is
+    never stepped over, so its stride is replaced by a dense one."""
+    if t.data_ptr() % 16:
+        raise ValueError("bf16 flash attention needs q/k/v bases aligned to "
+                         f"16 bytes (TMA); got address {t.data_ptr():#x}")
+    B, S, H, hd = t.shape
+    dense = (S * H * hd, H * hd, hd)
+    out = []
+    for size, stride, alt in zip((B, S, H), t.stride()[:3], dense):
+        stride = alt if size == 1 else stride
+        if stride * t.element_size() % 16:
+            raise ValueError("bf16 flash attention needs q/k/v strides that "
+                             "are multiples of 16 bytes (TMA); got "
+                             f"{tuple(t.stride())}")
+        out.append(stride)
+    return tuple(out)
 
 
 # The spectral prediction is the same per-lane contraction Σ_j w_j·row_j

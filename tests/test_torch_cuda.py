@@ -77,7 +77,8 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
                                    "taylor_update": 0,
                                    "verify_sums": 0,
                                    "verify_error": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_sm90": 0}
 
 
 @pytest.mark.cuda
@@ -206,7 +207,10 @@ def test_cuda_tensors_never_fall_back(cuda):
                 ops.verify_sums(t[0, 0, 0], t[0, 0, 1]),
                 ops.verify_error(t[0, 0, 0], t[0, 0, 1]),
                 ops.flash_attention(q, q, q, causal=False),
-                attention.full_attention(q, kv, kv, 3, use_flash=True)]
+                attention.full_attention(q, kv, kv, 3, use_flash=True),
+                ops.flash_attention(*(q.bfloat16(),) * 3, causal=False),
+                attention.full_attention(q.bfloat16(), kv.bfloat16(),
+                                         kv.bfloat16(), 3, use_flash=True)]
     finally:
         for n, fn in saved.items():
             setattr(ref, n, fn)
@@ -262,6 +266,19 @@ def _flash_tol(dtype):
         dict(rtol=2.0 ** -8, atol=1e-5)
 
 
+def _flash_launched(dtype):
+    """The launch counts one flash call leaves: bf16 runs the tensor-core
+    kernel, f32 the CUDA-core kernel."""
+    sm90 = dtype == torch.bfloat16
+    return {"flash_attention": int(not sm90),
+            "flash_attention_sm90": int(sm90)}
+
+
+def _flash_counts():
+    n = ops.launch_counts()
+    return {k: n[k] for k in ("flash_attention", "flash_attention_sm90")}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 72, 128])
@@ -277,30 +294,72 @@ def test_flash_matches_plain_on_card(cuda, dtype, hd, causal, window, s):
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == 1
+    assert _flash_counts() == _flash_launched(dtype)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want, **_flash_tol(dtype))
 
 
 @pytest.mark.cuda
-def test_flash_reads_strided_inputs_and_full_attention_on_card(cuda):
+def test_flash_bf16_long_causal_on_card(cuda):
+    """The tensor-core kernel at gemma3's head dim and sequence length:
+    S 4096, hd 128, causal, 64 key tiles deep and 32 query tiles."""
+    g = torch.Generator(device=cuda).manual_seed(4096)
+    q, k, v = (torch.randn((1, 4096, 2, 128), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True)
+    torch.cuda.synchronize()
+    assert _flash_counts() == _flash_launched(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want,
+                               **_flash_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_strided_inputs_and_full_attention_on_card(cuda, dtype):
     """q/k/v as views of one packed [B, S, 3, H, hd] tensor (strides, not
     copies), and ``full_attention(use_flash=True)`` with GQA against its
-    mask path."""
+    mask path (in bf16 within one bf16 ulp: the mask path rounds its own
+    f32 result)."""
     g = torch.Generator(device=cuda).manual_seed(9)
-    qkv = torch.randn((2, 130, 3, 4, 64), generator=g, device=cuda)
+    qkv = torch.randn((2, 130, 3, 4, 64), generator=g, device=cuda).to(dtype)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
+    ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=True, window=50)
-    want = ref.flash_attention_ref(q, k, v, causal=True, window=50)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.cuda.synchronize()
+    assert _flash_counts() == _flash_launched(dtype)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True, window=50)
+    torch.testing.assert_close(got.float(), want, **_flash_tol(dtype))
     from repro_torch.layers.attention import full_attention
     kv = qkv[:, :, 1:, :2]                       # 2 KV heads for 4 q heads
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=2.0 ** -7, atol=1e-5)
     for window in (0, 40):
         fl = full_attention(q, kv[:, :, 0], kv[:, :, 1], window,
                             use_flash=True)
         plain = full_attention(q, kv[:, :, 0], kv[:, :, 1], window)
-        torch.testing.assert_close(fl, plain, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(fl.float(), plain.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_misaligned_raises_on_card(cuda):
+    """The tensor-core kernel's TMA maps need 16-byte-aligned bases and
+    strides: a misaligned bf16 operand raises and launches nothing."""
+    big = torch.zeros((1, 64, 2, 80), dtype=torch.bfloat16, device=cuda)
+    q = big[..., 1:73]                           # base 2 bytes off
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(q, q, q)
+    padded = torch.zeros((1, 64, 2, 73), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(padded[..., :72], padded[..., :72],
+                            padded[..., :72])
+    assert _flash_counts() == {"flash_attention": 0,
+                               "flash_attention_sm90": 0}
 
 
 def _small_dit(cuda):

@@ -1,5 +1,6 @@
 """The port stands alone: no module under ``src/repro_torch/`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package, every module
+``chip_smoke.py`` and the card-side tools) imports ``jax`` or the JAX
+package, every module
 imports on a machine without ``nvcc``, and the entry points run on the
 card unless the caller asks for the CPU."""
 import ast
@@ -17,7 +18,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py",
+        REPO / "tools" / "flash_ab.py"]
 
 
 def _imported_roots(path: pathlib.Path):

@@ -154,7 +154,8 @@ def test_cpu_path_does_not_count_launches():
                                    "taylor_update": 0,
                                    "verify_sums": 0,
                                    "verify_error": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_sm90": 0}
 
 
 @pytest.mark.parametrize("case", ["weights_shape", "weights_dtype",
@@ -464,3 +465,115 @@ def test_flash_attention_plain_matches_pallas(s, h, hd, causal, window,
         np.testing.assert_allclose(_np(ot), o32, rtol=2.0 ** -8, atol=1e-5)
         np.testing.assert_allclose(_np(ot), _np(oj), rtol=2.0 ** -7,
                                    atol=1e-5)
+
+
+def _flash_sm90_emulation(q, k, v, *, causal, window, split=True,
+                          block_q=128, block_k=128):
+    """The arithmetic of ``csrc/flash_attention_sm90.cu`` in PyTorch on
+    bf16-exact f32 operands [B, S, H, hd]: 128-row query tiles that skip
+    the key tiles hidden from the whole tile, 128-key tiles, f32 products
+    of bf16 values, −1e30 on masked scores (keys past S too), the scale
+    folded into exp2 as p = exp2((s − m)·c), P split into bf16 hi and lo
+    halves whose two products with V add into one f32 accumulator, and
+    l == 0 -> 1 (``split=False`` drops P_lo). Returns the f32 output
+    before its rounding to bf16."""
+    B, S, H, hd = q.shape
+    c = torch.tensor(np.float32(np.log2(np.e)) / np.float32(np.sqrt(hd)))
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    out = torch.zeros(B, H, S, hd)
+    for q0 in range(0, S, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, S))
+        k_hi = rows[-1].item() if causal else S - 1
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        m = torch.full((B, H, len(rows), 1), ref.NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hd)
+        for k0 in range(k_lo // block_k * block_k, k_hi + 1, block_k):
+            keys = torch.arange(k0, k0 + block_k)
+            kt = torch.zeros(B, H, block_k, hd)      # zero fill past S
+            vt = torch.zeros(B, H, block_k, hd)
+            n = min(block_k, S - k0)
+            kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], \
+                vf[:, :, k0:k0 + n]
+            s = qf[:, :, rows] @ kt.transpose(-1, -2)
+            ok = (keys[None, :] < S).expand(len(rows), block_k)
+            if causal:
+                ok = ok & (keys[None, :] <= rows[:, None])
+            if window > 0:
+                ok = ok & (rows[:, None] - keys[None, :] < window)
+            s = torch.where(ok, s, torch.tensor(ref.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2((s - m_new) * c)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            p_hi = p.to(torch.bfloat16).float()
+            p_lo = (p - p_hi).to(torch.bfloat16).float() if split \
+                else torch.zeros_like(p)
+            acc = acc * alpha + p_hi @ vt + p_lo @ vt
+            m = m_new
+        out[:, :, rows] = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("s,h,hd,causal,window",
+                         FLASH_CASES + [(512, 2, 128, True, 100)])
+def test_flash_sm90_arithmetic_meets_the_card_check(s, h, hd, causal,
+                                                    window):
+    """The bf16 tensor-core kernel's numerics, emulated on the CPU, hold
+    the unchanged tolerances against the Pallas kernel (interpret mode):
+    one bf16 ulp (rtol 2^-8, atol 1e-5) of the f32 function of the same
+    bf16 inputs, rtol 2^-7 of the reference's own bf16 output."""
+    q, k, v = _flash_inputs(s, h, hd, s + hd)
+    both = [_both(x, torch.bfloat16) for x in (q, k, v)]
+    jq, jk, jv = (b[0] for b in both)
+    kw = dict(causal=causal, window=window)
+    got = _flash_sm90_emulation(*(b[1] for b in both), **kw)
+    got = got.to(torch.bfloat16).float().numpy()
+    o32 = _np(jops.flash_attention(*(x.astype(jnp.float32)
+                                     for x in (jq, jk, jv)), **kw))
+    np.testing.assert_allclose(got, o32, rtol=2.0 ** -8, atol=1e-5)
+    oj = _np(jops.flash_attention(jq, jk, jv, **kw))
+    np.testing.assert_allclose(got, oj, rtol=2.0 ** -7, atol=1e-5)
+
+
+def test_flash_sm90_emulation_needs_the_split():
+    """Rounding P to bf16 once, instead of splitting it, leaves the check:
+    without P_lo the emulation falls outside one bf16 ulp of the f32
+    function; with it, it stays inside."""
+    q, k, v = _flash_inputs(512, 2, 128, 7)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = ref.flash_attention_ref(tq.float(), tk.float(), tv.float(),
+                                   causal=True)
+    kw = dict(causal=True, window=0)
+    got = _flash_sm90_emulation(tq, tk, tv, **kw)
+    torch.testing.assert_close(got.to(torch.bfloat16).float(), want,
+                               rtol=2.0 ** -8, atol=1e-5)
+    once = _flash_sm90_emulation(tq, tk, tv, split=False, **kw)
+    bad = ~torch.isclose(once.to(torch.bfloat16).float(), want,
+                         rtol=2.0 ** -8, atol=1e-5)
+    assert bad.float().mean() > 0.01
+
+
+@pytest.mark.parametrize("case", ["base", "s_stride", "h_stride"])
+def test_flash_tma_strides_reject_misaligned_bf16(case):
+    """The bf16 route's TMA maps need a 16-byte-aligned base and strides
+    that are multiples of 16 bytes: the wrapper's check raises on the
+    rest, on any device, before a launch."""
+    big = torch.zeros(2, 8, 4, 72 + 8, dtype=torch.bfloat16)
+    t = {"base": big[..., 1:73],                 # base 2 bytes off
+         "s_stride": torch.zeros(2, 8, 4 * 72 + 4, dtype=torch.bfloat16)
+         [..., :4 * 72].unflatten(2, (4, 72)),   # S stride 580 elements
+         "h_stride": torch.zeros(2, 8, 4, 73, dtype=torch.bfloat16)
+         [..., :72]}[case]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops._tma_strides(t)
+
+
+def test_flash_tma_strides_of_packed_and_size_one_dims():
+    """Packed ``qkv.unbind`` views keep their strides; a dimension of size
+    1 takes a dense stride, whatever the view says."""
+    qkv = torch.zeros(2, 130, 3, 4, 64, dtype=torch.bfloat16)
+    q, _, _ = qkv.unbind(2)
+    assert ops._tma_strides(q) == (130 * 3 * 4 * 64, 3 * 4 * 64, 64)
+    one = torch.zeros(1, 16, 1, 72, dtype=torch.bfloat16)
+    assert ops._tma_strides(one) == (16 * 72, 72, 72)
