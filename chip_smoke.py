@@ -8,9 +8,9 @@ Phases (any failure ends the run with a non-zero exit):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
    sources, eleven kernel rows; one nvcc per source, started together) and
-   print what ptxas reports. The tensor-core flash kernel must show wgmma
-   (``HGMMA``) and TMA loads (``UTMALDG``) in its SASS (``cuobjdump``)
-   and no spills.
+   print what ptxas reports. Both flash kernels must show wgmma
+   (``HGMMA``, of TF32 type in the f32 one) and TMA loads (``UTMALDG``) in
+   their SASS (``cuobjdump``) and no spills.
 2. Hold each kernel against its plain PyTorch version on the card at the
    serving path's shapes (W=4 lanes, table [3, 224, 294912] bf16, a chain
    of K=4 positions, latent snapshots [5, 4, 32, 32, 4] f32), in f32 and
@@ -21,7 +21,8 @@ Phases (any failure ends the run with a non-zero exit):
    multiply-then-add rounding of its larger extrapolation terms), and
    every chain position (K = 1 and 4) bitwise the depth-1 predict kernel;
    the verify error to rtol 1e-5 with equal accept bits
-   wherever |e − τ| > 1e-5. Time each kernel (CUDA events; for the verify
+   wherever |e − τ| > 1e-5, in one kernel launch a call (the profiler
+   counts them). Time each kernel (CUDA events; for the verify
    and the rollback also their device time from ``torch.profiler``)
    beside its plain version, one PyTorch library call where one computes
    the same function, and its bound (bytes over 3.35 TB/s, f32
@@ -38,16 +39,19 @@ Phases (any failure ends the run with a non-zero exit):
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
-   at DiT-XL/2's (4 lanes, 256 tokens, 16 heads of 72), each in bf16
-   (the tensor-core kernel) and on the same inputs in f32 (the CUDA-core
-   kernel), launch counts set to 0 just before and read just after (3
-   launches of each). Each output is held against the plain f32 attention
-   (bf16 within one bf16 ulp: rtol 2^-8, atol 1e-5; f32 within rtol =
-   atol = 2e-5) and the bf16 one also against the port's own mask path
-   or SDPA core (rtol 2^-7), and each is timed beside
-   ``scaled_dot_product_attention`` on the same inputs. Bounds: 4·hd
-   operations per visible pair over the dense bf16 tensor cores'
-   989.4 TFLOP/s for bf16 operands, over 67 TFLOP/s for f32 ones.
+   at DiT-XL/2's (4 lanes, 256 tokens, 16 heads of 72), in three routes:
+   bf16 (the bf16 tensor-core kernel), the same values in f32, and inputs
+   drawn in f32 (the 3×TF32 kernel; bf16 values fit in TF32, so only
+   full-mantissa inputs show that the split is there), launch counts set
+   to 0 just before and read just after (3 bf16 launches, 6 f32). Each
+   output is held against the plain f32 attention (bf16 within one bf16
+   ulp: rtol 2^-8, atol 1e-5; f32 within rtol = atol = 2e-5), the bf16
+   one also against the port's own mask path or SDPA core (rtol 2^-7),
+   and each is timed beside ``scaled_dot_product_attention`` on the same
+   inputs. Bounds: 4·hd operations per visible pair over the dense bf16
+   tensor cores' 989.4 TFLOP/s for bf16 operands; 12·hd (three TF32
+   products per f32 product) over the dense TF32 rate of 494.7 TFLOP/s
+   for f32 ones, with 4·hd over the f32 CUDA cores' 67 TFLOP/s beside.
 3. Serve DiT-XL/2 at full width (28 layers, d 1152, bf16, 32×32×4
    latents, 50 DDIM steps) through ``SpeCaEngine.serve_batched``: 8
    requests at lanes=4, taylor_order=2, per-sample accept, fused verify.
@@ -96,6 +100,7 @@ OUT = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
+TF32_TC_FLOPS = 494.7e12         # H100 SXM, dense TF32 tensor cores
 LANES = 4
 N_REQUESTS = 8
 CHAIN_K = 4                       # the deep phases' max_draft_depth
@@ -171,6 +176,19 @@ def device_ms(torch, fn, names, iters: int = 100):
     return total_us / 1e3
 
 
+def kernels_per_call(torch, fn, iters: int = 10) -> float:
+    """CUDA kernels launched per call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) / iters
+
+
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -215,21 +233,21 @@ class Smoke:
                     print(f"  {line.strip()}")
         for name in build.SOURCES:
             build.library(name)
-        # the tensor-core flash kernel: wgmma (HGMMA) and TMA loads
-        # (UTMALDG) in its SASS, and no spills
-        sass = subprocess.run([cuobjdump_path(), "-sass",
-                               str(paths["flash_attention_sm90"])],
-                              capture_output=True, text=True,
-                              timeout=120).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        log = build.build_logs.get("flash_attention_sm90", "")
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
-        print(f"flash_attention_sm90 SASS: {counts}; spill bytes "
-              f"{sum(spills)}")
-        self.record["flash_attention_sm90"] = dict(sass=counts,
-                                                   spill_bytes=spills)
-        assert all(counts.values()), counts
-        assert log and not any(spills), "ptxas: no log, or spills"
+        # both flash kernels: wgmma (HGMMA; of TF32 type in the f32 one)
+        # and TMA loads (UTMALDG) in their SASS, and no spills
+        for name, op in (("flash_attention_sm90", "HGMMA"),
+                         ("flash_attention", "HGMMA.*TF32")):
+            sass = subprocess.run([cuobjdump_path(), "-sass",
+                                   str(paths[name])], capture_output=True,
+                                  text=True, timeout=120).stdout
+            counts = {k: len(re.findall(k, sass))
+                      for k in (op, "UTMALDG")}
+            log = build.build_logs.get(name, "")
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+            print(f"{name} SASS: {counts}; spill bytes {sum(spills)}")
+            self.record[name] = dict(sass=counts, spill_bytes=spills)
+            assert all(counts.values()), (name, counts)
+            assert log and not any(spills), f"{name} ptxas: no log, or spills"
 
     # --- phase 2 -------------------------------------------------------------
     def _inputs(self, shape, dtype, seed):
@@ -440,10 +458,14 @@ class Smoke:
         ek, _ = ops.verify_accept(pred, real, tau)
         ep, _ = ref.verify_accept_ref(pred, real, tau)
         vb, vf = bound_ms(2 * W * N * es + W * (4 + 4 + 1), 5.0 * W * N)
-        v_d = device_ms(torch, lambda: ops.verify_accept(pred, real, tau),
-                        ("verify_partials_kernel", "verify_finish_kernel"))
+        def call():
+            return ops.verify_accept(pred, real, tau)
+        v_d = device_ms(torch, call, ("verify_kernel",))
+        per_call = kernels_per_call(torch, call)
+        assert per_call == 1, f"verify_accept: {per_call} kernels a call"
         self.kernels["verify_accept"] = dict(
-            ms=v_k, device_ms=v_d, plain_ms=v_p, library_ms=None,
+            ms=v_k, device_ms=v_d, kernels_per_call=per_call, plain_ms=v_p,
+            library_ms=None,
             bound_ms=vb, bound_by=vf,
             max_abs_err=(ek - ep).abs().max().item())
 
@@ -633,8 +655,7 @@ class Smoke:
         v_p = time_ms(torch, lambda: ref.verify_sums_ref(pred, real),
                       iters=100)
         v_d = device_ms(torch, lambda: ops.verify_sums(pred, real),
-                        ("verify_partials_kernel",
-                         "verify_sums_finish_kernel"))
+                        ("verify_kernel",))
         vb, vf = bound_ms(2 * W * N * es + W * 8, 5.0 * W * N)
         self.kernels["verify_sums"] = dict(
             ms=v_k, device_ms=v_d, plain_ms=v_p, library_ms=None,
@@ -646,9 +667,11 @@ class Smoke:
     # --- phase 2b ------------------------------------------------------------
     def attention(self):
         """Flash attention through this slice's entry points at gemma3-27b's
-        and DiT-XL/2's widths: bf16 through the tensor-core kernel, the
-        same inputs in f32 through the CUDA-core kernel, against the plain
-        f32 attention, the port's non-flash paths and SDPA."""
+        and DiT-XL/2's widths: bf16 through the bf16 tensor-core kernel;
+        the same values in f32, and inputs drawn in f32 (full mantissas,
+        which TF32 does not hold), through the 3×TF32 kernel; each against
+        the plain f32 attention, the bf16 one also against the port's
+        non-flash paths, and each timed beside SDPA."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         from repro_torch.layers.attention import (attention_core,
@@ -657,19 +680,19 @@ class Smoke:
         g = torch.Generator(device=self.dev).manual_seed(11)
 
         def randn(*shape):
-            return torch.randn(shape, generator=g, device=self.dev).to(bf16)
+            return torch.randn(shape, generator=g, device=self.dev)
         S, H, KV, hd = ATTN_SEQ, GEMMA3_HEADS, GEMMA3_KV_HEADS, \
             GEMMA3_HEAD_DIM
-        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
         cfg = self.cfg
         dH, dhd = cfg.num_heads, cfg.d_model // cfg.num_heads
         dS = (self.dcfg.latent_size // cfg.patch_size) ** 2
-        qd, kd, vd = (randn(LANES, dS, dH, dhd) for _ in range(3))
-        f32 = {id(x): x.float() for x in (q, k, v, qd, kd, vd)}
+        shapes = [(1, S, H, hd), (1, S, KV, hd), (1, S, KV, hd)] + \
+            [(LANES, dS, dH, dhd)] * 3
+        inputs = {"bf16": [randn(*sh).to(bf16) for sh in shapes]}
+        inputs["f32"] = [x.float() for x in inputs["bf16"]]
+        inputs["f32_full"] = [randn(*sh) for sh in shapes]
 
-        def drive(dt):
-            a, b, c, e, f, h = (x if dt == bf16 else f32[id(x)]
-                                for x in (q, k, v, qd, kd, vd))
+        def drive(a, b, c, e, f, h):
             return {"gemma3_local": full_attention(a, b, c, GEMMA3_WINDOW,
                                                    use_flash=True),
                     "gemma3_global": full_attention(a, b, c, 0,
@@ -677,71 +700,74 @@ class Smoke:
                     "dit_xl2": ops.flash_attention(e, f, h, causal=False)}
         torch.cuda.synchronize()
         ops.reset_launch_counts()                    # this slice's path:
-        outs, outs32 = drive(bf16), drive(torch.float32)
+        outs = {route: drive(*xs) for route, xs in inputs.items()}
         torch.cuda.synchronize()
         launches = ops.launch_counts()               # read just after
         print(f"attention launches: {launches}")
         assert launches["flash_attention_sm90"] == 3, launches
-        assert launches["flash_attention"] == 3, launches
+        assert launches["flash_attention"] == 6, launches
 
-        kr, vr = repeat_kv(k, H // KV), repeat_kv(v, H // KV)
-        cases = {
-            "gemma3_local": (q, kr, vr, True, GEMMA3_WINDOW,
-                             lambda: full_attention(q, k, v, GEMMA3_WINDOW)),
-            "gemma3_global": (q, kr, vr, True, 0,
-                              lambda: full_attention(q, k, v, 0)),
-            "dit_xl2": (qd, kd, vd, False, 0,
-                        lambda: attention_core(qd, kd, vd))}
-        detail = {"bf16": {}, "f32": {}}
-        for name, (a, b, c, causal, window, other) in cases.items():
-            kw = dict(causal=causal, window=window)
-            out, o32 = outs[name], outs32[name]
-            assert out.shape == a.shape and out.dtype == bf16
-            assert o32.shape == a.shape and o32.dtype == torch.float32
-            assert torch.isfinite(out).all(), f"{name}: non-finite output"
-            a32, b32, c32 = a.float(), b.float(), c.float()
-            plain = ref.flash_attention_ref(a32, b32, c32, **kw)
-            err_bf16 = (out.float() - plain).abs().max().item()
-            torch.testing.assert_close(out.float(), plain, rtol=2.0 ** -8,
-                                       atol=1e-5)
-            # the port's own non-flash path (mask bias or SDPA core in f32,
-            # rounded to bf16 on its own): within one bf16 ulp
-            alt = other()
-            torch.testing.assert_close(out.float(), alt.float(),
-                                       rtol=2.0 ** -7, atol=1e-5)
-            err_f32 = (o32 - plain).abs().max().item()
-            torch.testing.assert_close(o32, plain, rtol=2e-5, atol=2e-5)
-            del plain, alt
-            detail["bf16"][name] = self._time_attention(a, b, c, causal,
-                                                        window)
-            detail["bf16"][name]["max_abs_err"] = err_bf16
-            detail["f32"][name] = self._time_attention(a32, b32, c32,
-                                                       causal, window)
-            detail["f32"][name]["max_abs_err"] = err_f32
-            del a32, b32, c32
-            for route in detail:
+        detail = {route: {} for route in inputs}
+        for route, (q, k, v, qd, kd, vd) in inputs.items():
+            kr, vr = repeat_kv(k, H // KV), repeat_kv(v, H // KV)
+            cases = {"gemma3_local": (q, kr, vr, True, GEMMA3_WINDOW,
+                                      lambda: full_attention(q, k, v,
+                                                             GEMMA3_WINDOW)),
+                     "gemma3_global": (q, kr, vr, True, 0,
+                                       lambda: full_attention(q, k, v, 0)),
+                     "dit_xl2": (qd, kd, vd, False, 0,
+                                 lambda: attention_core(qd, kd, vd))}
+            for name, (a, b, c, causal, window, other) in cases.items():
+                kw = dict(causal=causal, window=window)
+                out = outs[route][name]
+                assert out.shape == a.shape and out.dtype == a.dtype
+                assert torch.isfinite(out).all(), f"{name}: non-finite"
+                plain = ref.flash_attention_ref(a.float(), b.float(),
+                                                c.float(), **kw)
+                err = (out.float() - plain).abs().max().item()
+                if route == "bf16":
+                    torch.testing.assert_close(out.float(), plain,
+                                               rtol=2.0 ** -8, atol=1e-5)
+                    # the port's own non-flash path (mask bias or SDPA
+                    # core in f32, rounded to bf16 on its own): within one
+                    # bf16 ulp
+                    torch.testing.assert_close(out.float(),
+                                               other().float(),
+                                               rtol=2.0 ** -7, atol=1e-5)
+                else:
+                    torch.testing.assert_close(out, plain, rtol=2e-5,
+                                               atol=2e-5)
+                del plain
+                detail[route][name] = self._time_attention(a, b, c, causal,
+                                                           window)
+                detail[route][name]["max_abs_err"] = err
                 print(f"flash_attention {route} {name}: "
                       f"{detail[route][name]}")
-        for key, route in (("flash_attention_sm90", "bf16"),
-                           ("flash_attention", "f32")):
-            head = detail[route]["gemma3_global"]
+        # each row: its headline case (gemma3 global, the first route)
+        for key, routes in (("flash_attention_sm90", ("bf16",)),
+                            ("flash_attention", ("f32_full", "f32"))):
+            head = detail[routes[0]]["gemma3_global"]
             self.kernels[key] = dict(
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 library_ms=head["library_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], launches=launches[key],
                 device_ms=head["device_ms"],
                 library_device_ms=head["library_device_ms"],
-                max_abs_err=max(c["max_abs_err"]
-                                for c in detail[route].values()),
-                cases=detail[route])
+                max_abs_err=max(c["max_abs_err"] for r in routes
+                                for c in detail[r].values()),
+                cases={r: detail[r] for r in routes})
+            if "bound_f32_cuda_core_ms" in head:
+                self.kernels[key]["bound_f32_cuda_core_ms"] = \
+                    head["bound_f32_cuda_core_ms"]
         self.record["attention"] = dict(launches=launches, cases=detail)
 
     def _time_attention(self, q, k, v, causal, window):
         """Kernel, plain and SDPA times of one attention case (equal head
         counts), and its bound from the visible pairs: bf16 operands over
-        the dense bf16 tensor cores (q·kᵀ of bf16 values is exact in their
-        f32 accumulator), f32 operands over the f32 rate outside them (the
-        f32 function needs f32 products; TF32 would not do)."""
+        the dense bf16 tensor cores at 4·hd operations a pair (q·kᵀ of bf16
+        values is exact in their f32 accumulator), f32 operands over the
+        dense TF32 tensor cores at 12·hd (three TF32 products for each f32
+        product), with the f32 CUDA cores' 4·hd over 67 TFLOP/s beside."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import ops, ref
@@ -770,8 +796,12 @@ class Smoke:
                     .sum().item())
         flops = 4.0 * hd * pairs * B * H       # q·k and p·v per visible pair
         nbytes = 4 * B * S * H * hd * q.element_size()
-        rate = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
-        bound, by = bound_ms(nbytes, flops, rate)
+        if q.dtype == torch.bfloat16:
+            bound, by = bound_ms(nbytes, flops, BF16_TC_FLOPS)
+            extra = {}
+        else:
+            bound, by = bound_ms(nbytes, 3 * flops, TF32_TC_FLOPS)
+            extra = dict(bound_f32_cuda_core_ms=bound_ms(nbytes, flops)[0])
         # device time per call (the events above include the host's cost
         # of a call, which is of the order of the DiT-XL/2 case's kernel)
         spans = device_spans(torch, lib, iters=5)
@@ -784,7 +814,7 @@ class Smoke:
                     library_device_ms=sum(spans.values()) / 1e3,
                     sdpa_kernel=max(spans, key=spans.get,
                                     default="not seen")[:120],
-                    bound_ms=bound, bound_by=by)
+                    bound_ms=bound, bound_by=by, **extra)
 
     # --- phase 3 -------------------------------------------------------------
     def _model(self):
@@ -1117,7 +1147,8 @@ def main() -> int:
                      "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms")})
-        rows[-1].update({x: k[x] for x in ("device_ms", "library_device_ms")
+        rows[-1].update({x: k[x] for x in ("device_ms", "library_device_ms",
+                                           "bound_f32_cuda_core_ms")
                          if x in k})
     OUT.mkdir(exist_ok=True)
     smoke.record.update(card=card, kernels=rows,

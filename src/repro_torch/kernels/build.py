@@ -38,13 +38,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "taylor_update_lanes": {"taylor_update_lanes": (
         _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
     "verify_accept": {
-        # pred, ref, tau, partials, err, accept, dtype, W, N, chunk,
-        # nchunks, eps, vec, stream, device
-        "verify_accept": (_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F,
-                          _I, _P, _I),
-        # pred, ref, partials, sums, dtype, W, N, chunk, nchunks, vec,
-        # stream, device
-        "verify_sums": (_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
+        # pred, ref, tau, partials, tickets, err, accept, dtype, W, N,
+        # chunk, nchunks, eps, vec, stream, device
+        "verify_accept": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I,
+                          _F, _I, _P, _I),
+        # pred, ref, partials, tickets, sums, dtype, W, N, chunk, nchunks,
+        # vec, stream, device
+        "verify_sums": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P,
+                        _I)},
     # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device
     "taylor_predict_chain": {"taylor_predict_chain": (
         _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P, _I)},

@@ -6,28 +6,48 @@
 // at :100) through the entry verify_accept, and without tau (body
 // _verify_kernel at :26, pallas_call at :87; verify_error at :114 sits on
 // top) through the entry verify_sums, which writes (Σ(p−r)², Σr²) per row
-// as [W, 2] f32. Both share pass 1; only the finish differs, so the τ
-// path's bits do not depend on the τ-less one.
+// as [W, 2] f32. Both run the one kernel below; only its finish differs,
+// so the τ path's bits do not depend on the τ-less one.
 //
 // pred/ref [W, N] (both f32 or both bf16), tau [W] f32 ->
 //   err[w]    = sqrt(Σ(p−r)²) / (sqrt(Σr²) + eps)
 //   accept[w] = err[w] <= tau[w]          (NaN never accepts)
 // with every sum taken in f32.
 //
-// The TPU kernel carries its sums across a sequential grid axis; CUDA
-// blocks run in no order, so this is two passes without atomics. Pass 1:
-// block (chunk, lane) reduces one chunk of one lane to two partial sums.
-// Pass 2: one block per lane adds its chunks' partials in chunk order and
-// finishes err and accept on the device. The summation order depends only
-// on the shapes, so a rerun gives the same bits — accept decisions hang
-// on it.
+// Bound on the card: bytes. It reads both planes once (2 bytes per bf16
+// element each) for 5 flops per element; at the serving shape (W 4 lanes
+// × N 294,912 bf16) that is 4.7 MB, 1.4 µs at 3.35 TB/s — so one launch's
+// latency and the grid's balance decide its time.
 //
-// Bound on the card: launch overhead at the serving shapes (a few MB);
-// in bytes it reads both planes once (2 bytes per bf16 element each) for
-// 5 flops per element (a subtraction and two multiply-adds).
+// One launch, with a ticket. The TPU kernel carries its sums across a
+// sequential grid axis; CUDA blocks run in no order. Block (chunk, lane)
+// reduces one chunk of one lane to two partial sums, writes them and
+// takes a ticket from its lane's int32 counter (atom.add.acq_rel.gpu: it
+// publishes the partial and, for the last, sees every other). The block
+// that draws the last ticket of its lane reads that lane's partials from
+// L2 and adds them in a fixed order (lane t of its first warp takes chunks
+// t, t + 32, … in turn, then a fixed tree over the warp), finishes err
+// and accept (or writes the sums), and puts the counter back to 0 for the
+// next call on the stream. The counters are a small buffer
+// that the wrapper allocates once per (device, stream), zeroed.
+//
+// Determinism. The summation order depends only on N: the chunk is a
+// fixed 2,048 elements (kVerifyChunk in ops.py), never a function of W or
+// of the SM count, and neither the in-block order nor the finish's order
+// depends on which block finishes when. So a lane's err is bitwise the
+// same at every lane width — the engine's trajectories at lanes=4 equal
+// lanes=1's — and a rerun gives the same bits. The chunk is smaller than
+// the two-pass design's 8,192: 576 blocks of 8 KB at the serving shape,
+// over four a SM, where 144 blocks left twelve SMs reading twice the
+// bytes of the rest. The new chunk moves err in its last bits against the
+// two-pass kernel (the check is rtol 1e-5 against the plain version, with
+// equal accept bits wherever |e − τ| > 1e-5).
 #include "common.cuh"
 
 namespace {
+
+constexpr int kVThreads = 128;       // threads per (chunk, lane) block
+constexpr int kUnroll = 4;           // 16-byte loads in flight per plane
 
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
@@ -40,7 +60,7 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 // Sums (a, b) over the block in a fixed order; the result is valid in
 // thread 0.
 __device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[rt::kThreads / 32], sb[rt::kThreads / 32];
+  __shared__ float sa[kVThreads / 32], sb[kVThreads / 32];
   warp_sum2(a, b);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane == 0) {
@@ -49,162 +69,171 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
   __syncthreads();
   if (warp == 0) {
-    a = lane < rt::kThreads / 32 ? sa[lane] : 0.f;
-    b = lane < rt::kThreads / 32 ? sb[lane] : 0.f;
+    a = lane < kVThreads / 32 ? sa[lane] : 0.f;
+    b = lane < kVThreads / 32 ? sb[lane] : 0.f;
     warp_sum2(a, b);
   }
 }
 
+// this thread's Σ(p−r)² and Σr² over elements [start, end) of one row
 template <class Tr, bool kVec>
-__global__ void __launch_bounds__(rt::kThreads)
-verify_partials_kernel(const typename Tr::storage* __restrict__ pred,
-                       const typename Tr::storage* __restrict__ ref,
-                       float* __restrict__ partials, int64_t N,
-                       int64_t chunk) {
-  const int64_t lane = blockIdx.y;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  const typename Tr::storage* p = pred + lane * N;
-  const typename Tr::storage* r = ref + lane * N;
-  float num = 0.f, den = 0.f;
+__device__ __forceinline__ void chunk_sums(const typename Tr::storage* p,
+                                           const typename Tr::storage* r,
+                                           int64_t start, int64_t end,
+                                           float& num, float& den) {
   if (kVec) {
     using V = rt::Vec<Tr>;
-    for (int64_t c = start + static_cast<int64_t>(threadIdx.x) * V::N;
-         c < end; c += static_cast<int64_t>(blockDim.x) * V::N) {
-      V pv, rv;
-      pv.load(p + c);
-      rv.load(r + c);
+    constexpr int64_t kStep = static_cast<int64_t>(kVThreads) * V::N;
+    for (int64_t c0 = start + static_cast<int64_t>(threadIdx.x) * V::N;
+         c0 < end; c0 += kUnroll * kStep) {
+      V pv[kUnroll], rv[kUnroll];
 #pragma unroll
-      for (int k = 0; k < V::N; ++k) {
-        const float rr = Tr::load(rv.s[k]);
-        const float d = Tr::load(pv.s[k]) - rr;
-        num += d * d;
-        den += rr * rr;
-      }
+      for (int u = 0; u < kUnroll; ++u)
+        if (c0 + u * kStep < end) {
+          pv[u].load(p + c0 + u * kStep);
+          rv[u].load(r + c0 + u * kStep);
+        }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (c0 + u * kStep < end) {
+#pragma unroll
+          for (int k = 0; k < V::N; ++k) {
+            const float rr = Tr::load(rv[u].s[k]);
+            const float d = Tr::load(pv[u].s[k]) - rr;
+            num += d * d;
+            den += rr * rr;
+          }
+        }
     }
   } else {
-    for (int64_t c = start + threadIdx.x; c < end; c += blockDim.x) {
+    for (int64_t c = start + threadIdx.x; c < end; c += kVThreads) {
       const float rr = Tr::load(r[c]);
       const float d = Tr::load(p[c]) - rr;
       num += d * d;
       den += rr * rr;
     }
   }
-  block_sum2(num, den);
-  if (threadIdx.x == 0) {
-    float* out = partials + (lane * gridDim.x + blockIdx.x) * 2;
-    out[0] = num;
-    out[1] = den;
-  }
 }
 
-__global__ void __launch_bounds__(rt::kThreads)
-verify_finish_kernel(const float* __restrict__ partials,
-                     const float* __restrict__ tau, float* __restrict__ err,
-                     uint8_t* __restrict__ accept, int nchunks, float eps) {
-  const int lane = blockIdx.x;
-  const float* part = partials + static_cast<int64_t>(lane) * nchunks * 2;
+// Block (chunk, lane): the chunk's partial sums, then the lane's finish in
+// the block that draws its last ticket. With kTau: err and accept; else
+// sums [W, 2] in `out` (accept, tau and eps unused).
+template <class Tr, bool kVec, bool kTau>
+__global__ void __launch_bounds__(kVThreads)
+verify_kernel(const typename Tr::storage* __restrict__ pred,
+              const typename Tr::storage* __restrict__ ref,
+              float2* __restrict__ partials, int* __restrict__ tickets,
+              const float* __restrict__ tau, float* __restrict__ out,
+              uint8_t* __restrict__ accept, int64_t N, int64_t chunk,
+              float eps) {
+  __shared__ bool last;
+  const int64_t lane = blockIdx.y;
+  const int nchunks = gridDim.x;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t end = start + chunk < N ? start + chunk : N;
   float num = 0.f, den = 0.f;
-  for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
-    num += part[2 * c];
-    den += part[2 * c + 1];
-  }
+  chunk_sums<Tr, kVec>(pred + lane * N, ref + lane * N, start, end, num,
+                       den);
   block_sum2(num, den);
   if (threadIdx.x == 0) {
-    const float e = sqrtf(num) / (sqrtf(den) + eps);
-    err[lane] = e;
-    accept[lane] = e <= tau[lane] ? 1 : 0;
+    partials[lane * nchunks + blockIdx.x] = make_float2(num, den);
+    // the ticket releases the partial and acquires the lane's others
+    int ticket;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(ticket)
+                 : "l"(tickets + lane)
+                 : "memory");
+    last = ticket == nchunks - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  // warp 0 of the last block: chunks lane, lane + 32, … in turn, then a
+  // fixed tree over the warp
+  const float2* part = partials + lane * nchunks;
+  num = den = 0.f;
+  for (int c = threadIdx.x; c < nchunks; c += 32) {
+    const float2 v = __ldcg(part + c);     // from L2, not a stale L1 line
+    num += v.x;
+    den += v.y;
+  }
+  warp_sum2(num, den);
+  if (threadIdx.x == 0) {
+    if (kTau) {
+      const float e = sqrtf(num) / (sqrtf(den) + eps);
+      out[lane] = e;
+      accept[lane] = e <= tau[lane] ? 1 : 0;
+    } else {
+      out[2 * lane] = num;
+      out[2 * lane + 1] = den;
+    }
+    tickets[lane] = 0;                     // ready for the next call
   }
 }
 
-// The τ-less finish: the same chunk-order sums, written as (num, den).
-__global__ void __launch_bounds__(rt::kThreads)
-verify_sums_finish_kernel(const float* __restrict__ partials,
-                          float* __restrict__ sums, int nchunks) {
-  const int lane = blockIdx.x;
-  const float* part = partials + static_cast<int64_t>(lane) * nchunks * 2;
-  float num = 0.f, den = 0.f;
-  for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
-    num += part[2 * c];
-    den += part[2 * c + 1];
-  }
-  block_sum2(num, den);
-  if (threadIdx.x == 0) {
-    sums[2 * lane] = num;
-    sums[2 * lane + 1] = den;
-  }
-}
-
-template <class Tr, bool kVec>
-void launch_partials(const void* pred, const void* ref, float* partials,
-                     int W, int64_t N, int64_t chunk, int nchunks,
-                     cudaStream_t stream) {
+template <class Tr, bool kVec, bool kTau>
+void launch_t(const void* pred, const void* ref, void* partials,
+              void* tickets, const void* tau, void* out, void* accept, int W,
+              int64_t N, int64_t chunk, int nchunks, float eps,
+              cudaStream_t s) {
   dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W));
-  verify_partials_kernel<Tr, kVec><<<grid, rt::kThreads, 0, stream>>>(
+  verify_kernel<Tr, kVec, kTau><<<grid, kVThreads, 0, s>>>(
       static_cast<const typename Tr::storage*>(pred),
-      static_cast<const typename Tr::storage*>(ref), partials, N, chunk);
+      static_cast<const typename Tr::storage*>(ref),
+      static_cast<float2*>(partials), static_cast<int*>(tickets),
+      static_cast<const float*>(tau), static_cast<float*>(out),
+      static_cast<uint8_t*>(accept), N, chunk, eps);
 }
 
-int partials_any(const void* pred, const void* ref, float* part, int dtype,
-                 int W, int64_t N, int64_t chunk, int nchunks, int vec,
-                 cudaStream_t s) {
-  if (dtype == rt::kBF16) {
-    if (vec)
-      launch_partials<rt::BF16, true>(pred, ref, part, W, N, chunk, nchunks, s);
-    else
-      launch_partials<rt::BF16, false>(pred, ref, part, W, N, chunk, nchunks,
-                                       s);
-  } else if (dtype == rt::kF32) {
-    if (vec)
-      launch_partials<rt::F32, true>(pred, ref, part, W, N, chunk, nchunks, s);
-    else
-      launch_partials<rt::F32, false>(pred, ref, part, W, N, chunk, nchunks, s);
-  } else {
+template <bool kTau>
+int launch(const void* pred, const void* ref, void* partials, void* tickets,
+           const void* tau, void* out, void* accept, int dtype, int W,
+           long long N, long long chunk, int nchunks, float eps, int vec,
+           void* stream, int device) {
+  if (W < 1 || N < 1 || chunk < 1 || nchunks != (N + chunk - 1) / chunk)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int e = rt::prepare(device);
+  if (e) return e;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kBF16 && vec)
+    launch_t<rt::BF16, true, kTau>(pred, ref, partials, tickets, tau, out,
+                                   accept, W, N, chunk, nchunks, eps, s);
+  else if (dtype == rt::kBF16)
+    launch_t<rt::BF16, false, kTau>(pred, ref, partials, tickets, tau, out,
+                                    accept, W, N, chunk, nchunks, eps, s);
+  else if (dtype == rt::kF32 && vec)
+    launch_t<rt::F32, true, kTau>(pred, ref, partials, tickets, tau, out,
+                                  accept, W, N, chunk, nchunks, eps, s);
+  else if (dtype == rt::kF32)
+    launch_t<rt::F32, false, kTau>(pred, ref, partials, tickets, tau, out,
+                                   accept, W, N, chunk, nchunks, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return rt::launched();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launches (0 = launched). partials is
-// scratch of W·nchunks·2 floats with nchunks = ceil(N / chunk); with vec,
-// N and chunk are multiples of 16 / element size and the pointers are
-// 16-byte aligned. accept is W bytes (a torch.bool buffer).
+// Returns the cudaError_t of the launch (0 = launched). partials is
+// scratch of W·nchunks float2 with nchunks = ceil(N / chunk); tickets is W
+// int32 counters that are 0 before the call and 0 again after it (keep
+// one buffer per stream). With vec, N and chunk are multiples of
+// 16 / element size and the pointers are 16-byte aligned. accept is W
+// bytes (a torch.bool buffer).
 extern "C" int verify_accept(const void* pred, const void* ref,
-                             const void* tau, void* partials, void* err,
-                             void* accept, int dtype, int W, long long N,
-                             long long chunk, int nchunks, float eps,
-                             int vec, void* stream, int device) {
-  if (W < 1 || N < 1 || chunk < 1 || nchunks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int e = rt::prepare(device);
-  if (e) return e;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto part = static_cast<float*>(partials);
-  e = partials_any(pred, ref, part, dtype, W, N, chunk, nchunks, vec, s);
-  if (e) return e;
-  verify_finish_kernel<<<W, rt::kThreads, 0, s>>>(
-      part, static_cast<const float*>(tau), static_cast<float*>(err),
-      static_cast<uint8_t*>(accept), nchunks, eps);
-  return rt::launched();
+                             const void* tau, void* partials, void* tickets,
+                             void* err, void* accept, int dtype, int W,
+                             long long N, long long chunk, int nchunks,
+                             float eps, int vec, void* stream, int device) {
+  return launch<true>(pred, ref, partials, tickets, tau, err, accept, dtype,
+                      W, N, chunk, nchunks, eps, vec, stream, device);
 }
 
 // The τ-less sums: sums is [W, 2] f32 = (Σ(p−r)², Σr²) per row; the other
 // arguments as for verify_accept.
 extern "C" int verify_sums(const void* pred, const void* ref, void* partials,
-                           void* sums, int dtype, int W, long long N,
-                           long long chunk, int nchunks, int vec,
+                           void* tickets, void* sums, int dtype, int W,
+                           long long N, long long chunk, int nchunks, int vec,
                            void* stream, int device) {
-  if (W < 1 || N < 1 || chunk < 1 || nchunks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int e = rt::prepare(device);
-  if (e) return e;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto part = static_cast<float*>(partials);
-  e = partials_any(pred, ref, part, dtype, W, N, chunk, nchunks, vec, s);
-  if (e) return e;
-  verify_sums_finish_kernel<<<W, rt::kThreads, 0, s>>>(
-      part, static_cast<float*>(sums), nchunks);
-  return rt::launched();
+  return launch<false>(pred, ref, partials, tickets, nullptr, sums, nullptr,
+                       dtype, W, N, chunk, nchunks, 0.f, vec, stream, device);
 }

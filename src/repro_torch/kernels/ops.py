@@ -40,7 +40,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
 _MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
 _MAX_ROWS = 65535        # gridDim.y
-_VERIFY_CHUNK = 8192     # elements per pass-1 block of verify_accept
+_VERIFY_CHUNK = 2048     # elements per verify block: fixed, never a
+                         # function of W (verify_accept.cu)
 _FLASH_HEAD_DIMS = (16, 32, 64, 72, 128)   # instantiated in both flash files
 
 
@@ -97,7 +98,10 @@ def _vec_ok(n: int, elem: int, *ts: torch.Tensor) -> int:
 
 
 def _stream(t: torch.Tensor) -> Tuple[int, int]:
-    return torch.cuda.current_stream(t.device).cuda_stream, t.device.index
+    """(the current raw stream of t's device, its index), without making a
+    torch.cuda.Stream object."""
+    dev = t.device.index
+    return torch._C._cuda_getCurrentRawStream(dev), dev
 
 
 def taylor_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, *,
@@ -217,22 +221,45 @@ def verify_accept(pred: torch.Tensor, ref_: torch.Tensor,
         return ref.verify_accept_ref(pred, ref_, tau, eps=eps)
     _contiguous("tau", tau)
     pred, ref_, W, N = _verify_planes(pred, ref_)
-    code = _DTYPE_CODES[pred.dtype]
-    nchunks = -(-N // _VERIFY_CHUNK)
-    partials = torch.empty((W, nchunks, 2), dtype=torch.float32,
-                           device=pred.device)
     err = torch.empty((W,), dtype=torch.float32, device=pred.device)
     accept = torch.empty((W,), dtype=torch.bool, device=pred.device)
-    lib = build.library("verify_accept")
-    stream, dev = _stream(pred)
-    rc = lib.verify_accept(
-        pred.data_ptr(), ref_.data_ptr(), tau.data_ptr(),
-        partials.data_ptr(), err.data_ptr(), accept.data_ptr(), code, W, N,
-        _VERIFY_CHUNK, nchunks, float(eps),
-        _vec_ok(N, pred.element_size(), pred, ref_), stream, dev)
+    lib, args = _verify_args(pred, ref_, W, N)
+    rc = lib.verify_accept(*args[:2], tau.data_ptr(), *args[2:4],
+                           err.data_ptr(), accept.data_ptr(), *args[4:-3],
+                           float(eps), *args[-3:])
     build.check("verify_accept", lib, rc)
     LAUNCHES["verify_accept"] += 1
     return err, accept
+
+
+# (device index, stream) -> (tickets int32, partials f32): the verify
+# kernel's scratch, one per stream, since calls on a stream run in order;
+# every launch leaves its tickets at 0 for the next
+_VERIFY_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _verify_args(pred: torch.Tensor, ref_: torch.Tensor, W: int, N: int):
+    """(library, arguments) of a verify entry on planes [W, N]: pred, ref,
+    partials, tickets, dtype, W, N, chunk, nchunks, vec, stream, device —
+    the entries take their other arguments in between."""
+    nchunks = -(-N // _VERIFY_CHUNK)
+    stream, dev = _stream(pred)
+    scratch = _VERIFY_SCRATCH.get((dev, stream))
+    if scratch is None or scratch[0].numel() < W \
+            or scratch[1].numel() < 2 * W * nchunks:
+        old = scratch or (torch.empty(0), torch.empty(0))
+        scratch = (torch.zeros(max(W, old[0].numel()), dtype=torch.int32,
+                               device=pred.device),
+                   torch.empty(max(2 * W * nchunks, old[1].numel()),
+                               dtype=torch.float32, device=pred.device))
+        _VERIFY_SCRATCH[(dev, stream)] = scratch
+    tickets, partials = scratch
+    p, r = pred.data_ptr(), ref_.data_ptr()
+    vec = int(N % (16 // pred.element_size()) == 0 and (p | r) % 16 == 0)
+    return build.library("verify_accept"), (
+        p, r, partials.data_ptr(), tickets.data_ptr(),
+        _DTYPE_CODES[pred.dtype], W, N, _VERIFY_CHUNK, nchunks, vec, stream,
+        dev)
 
 
 def taylor_predict_chain_lanes(diffs: torch.Tensor, weights: torch.Tensor,
@@ -404,16 +431,9 @@ def taylor_update(old_diffs: torch.Tensor,
 def _launch_verify_sums(pred: torch.Tensor, ref_: torch.Tensor,
                         key: str) -> torch.Tensor:
     pred, ref_, W, N = _verify_planes(pred, ref_)
-    nchunks = -(-N // _VERIFY_CHUNK)
-    partials = torch.empty((W, nchunks, 2), dtype=torch.float32,
-                           device=pred.device)
     sums = torch.empty((W, 2), dtype=torch.float32, device=pred.device)
-    lib = build.library("verify_accept")
-    stream, dev = _stream(pred)
-    rc = lib.verify_sums(
-        pred.data_ptr(), ref_.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), _DTYPE_CODES[pred.dtype], W, N, _VERIFY_CHUNK,
-        nchunks, _vec_ok(N, pred.element_size(), pred, ref_), stream, dev)
+    lib, args = _verify_args(pred, ref_, W, N)
+    rc = lib.verify_sums(*args[:4], sums.data_ptr(), *args[4:])
     build.check("verify_sums", lib, rc)
     LAUNCHES[key] += 1
     return sums
@@ -447,11 +467,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Key k is visible from query q when k <= q (``causal``) and when
     q − k < ``window`` (``window > 0``, also without ``causal``).
 
-    On the card the dtype picks the kernel: bf16 runs the tensor-core
-    kernel (``flash_attention_sm90.cu``, TMA-fed, so bases must be 16-byte
-    aligned and strides multiples of 16 bytes), f32 the CUDA-core kernel
-    (``flash_attention.cu``), whose f32 products the f32 function needs.
-    Each counts its launches under its own key."""
+    On the card both dtypes run tensor-core kernels fed by TMA (bases
+    16-byte aligned, strides multiples of 16 bytes; anything else
+    raises), picked by dtype: bf16 ``flash_attention_sm90.cu``, f32
+    ``flash_attention.cu``, whose 3×TF32 products keep the f32 function's
+    tolerance. Each counts its launches under its own key."""
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape):
         raise ValueError(f"q/k/v must be [B, S, H, hd] of one shape, got "
@@ -474,37 +494,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+    key = "flash_attention_sm90" if q.dtype == torch.bfloat16 \
+        else "flash_attention"
+    lib = build.library(key)
     stream, dev = _stream(q)
-    args = (int(bool(causal)), max(min(window, S), 0), 1.0 / (hd ** 0.5),
-            stream, dev)
-    if q.dtype == torch.bfloat16:
-        strides = [s for t in (q, k, v) for s in _tma_strides(t)]
-        lib = build.library("flash_attention_sm90")
-        rc = lib.flash_attention_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, hd, *strides, *args)
-        build.check("flash_attention_sm90", lib, rc)
-        LAUNCHES["flash_attention_sm90"] += 1
-        return out
-    if B * H > _MAX_ROWS:
-        raise ValueError(f"B·H = {B * H} exceeds the kernel's {_MAX_ROWS}")
-    lib = build.library("flash_attention")
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    rc = lib.flash_attention(
+    rc = getattr(lib, key)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        hd, *strides, *args)
-    build.check("flash_attention", lib, rc)
-    LAUNCHES["flash_attention"] += 1
+        hd, *strides, int(bool(causal)), max(min(window, S), 0),
+        1.0 / (hd ** 0.5), stream, dev)
+    build.check(key, lib, rc)
+    LAUNCHES[key] += 1
     return out
 
 
 def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
-    """The (b, s, h) element strides of a bf16 [B, S, H, hd] operand for
-    its TMA map. TMA needs a 16-byte-aligned base and strides that are
+    """The (b, s, h) element strides of a [B, S, H, hd] operand for its
+    TMA map. TMA needs a 16-byte-aligned base and strides that are
     multiples of 16 bytes; anything else raises. A dimension of size 1 is
     never stepped over, so its stride is replaced by a dense one."""
     if t.data_ptr() % 16:
-        raise ValueError("bf16 flash attention needs q/k/v bases aligned to "
+        raise ValueError("flash attention needs q/k/v bases aligned to "
                          f"16 bytes (TMA); got address {t.data_ptr():#x}")
     B, S, H, hd = t.shape
     dense = (S * H * hd, H * hd, hd)
@@ -512,7 +522,7 @@ def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     for size, stride, alt in zip((B, S, H), t.stride()[:3], dense):
         stride = alt if size == 1 else stride
         if stride * t.element_size() % 16:
-            raise ValueError("bf16 flash attention needs q/k/v strides that "
+            raise ValueError("flash attention needs q/k/v strides that "
                              "are multiples of 16 bytes (TMA); got "
                              f"{tuple(t.stride())}")
         out.append(stride)

@@ -10,7 +10,8 @@ machine without them:
 Tolerances against the plain PyTorch versions on the same card: the
 refresh bitwise; the predict within one bf16 ulp (rtol 2^-8) of the plain
 f32 sum, in f32 to FMA rounding (1e-6); the verify error to rtol 1e-5,
-accept bits equal wherever |e − τ| > 1e-5; the chain predict like the
+accept bits equal wherever |e − τ| > 1e-5, and bitwise the same at every
+lane width; the chain predict like the
 predict and each position bitwise the depth-1 kernel; the rollback and
 the ring shift bitwise.
 """
@@ -153,6 +154,79 @@ def test_verify_is_reproducible_and_mixed_dtypes(cuda):
     torch.testing.assert_close(em, eb, rtol=1e-5, atol=0.0)
 
 
+VERIFY_N = [256 * 1152, 1000, 2048 * 3 + 5]   # serving, scalar, ragged
+
+
+def _verify_planes(cuda, W, N, dtype, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    real = torch.randn((W, N), generator=g, device=cuda)
+    scale = torch.linspace(0.05, 1.0, W, device=cuda)[:, None]
+    pred = real + scale * torch.randn((W, N), generator=g, device=cuda)
+    return pred.to(dtype), real.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", VERIFY_N)
+def test_verify_err_is_bitwise_independent_of_lane_width(cuda, dtype, N):
+    """The one-launch verify sums each lane in an order fixed by N alone:
+    at W = 4 every lane's err is bitwise its W = 1 call's, so the engine's
+    trajectories do not depend on the lane width."""
+    pred, real = _verify_planes(cuda, 4, N, dtype)
+    tau = torch.full((4,), 0.3, device=cuda)
+    e4, a4 = ops.verify_accept(pred, real, tau)
+    for w in range(4):
+        e1, a1 = ops.verify_accept(pred[w:w + 1].contiguous(),
+                                   real[w:w + 1].contiguous(), tau[w:w + 1])
+        assert torch.equal(e1, e4[w:w + 1]) and torch.equal(a1, a4[w:w + 1])
+    er, _ = ref.verify_accept_ref(pred, real, tau)
+    torch.testing.assert_close(e4, er, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_tickets_reset_between_calls(cuda, dtype):
+    """The per-lane tickets go back to 0 after every call: two calls in a
+    row, and a call after one of another W and N, give the same bits (the
+    τ-less entry shares the tickets)."""
+    pred, real = _verify_planes(cuda, 4, 256 * 1152, dtype)
+    tau = torch.full((4,), 0.3, device=cuda)
+    e1, a1 = ops.verify_accept(pred, real, tau)
+    e2, a2 = ops.verify_accept(pred, real, tau)
+    assert torch.equal(e1, e2) and torch.equal(a1, a2)
+    p7, r7 = _verify_planes(cuda, 7, 3001, dtype, seed=2)
+    ops.verify_accept(p7, r7, torch.full((7,), 0.3, device=cuda))
+    ops.verify_sums(p7, r7)
+    ops.verify_sums(pred, real)
+    e3, a3 = ops.verify_accept(pred, real, tau)
+    assert torch.equal(e1, e3) and torch.equal(a1, a3)
+    s1 = ops.verify_sums(p7, r7)
+    torch.testing.assert_close(s1, ref.verify_sums_ref(p7, r7), rtol=1e-5,
+                               atol=0.0)
+    assert torch.equal(s1, ops.verify_sums(p7, r7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_accept_and_nan_on_card(cuda, dtype):
+    """accept = err <= τ, finished on the device: a NaN lane never
+    accepts (its err is NaN), a zero reference gives err = ‖p‖/ε, a lane
+    at twice its τ rejects."""
+    pred, real = _verify_planes(cuda, 4, 5000, dtype)
+    pred[1, 17] = float("nan")
+    real[2] = 0.0
+    e0, _ = ref.verify_accept_ref(pred, real, torch.ones(4, device=cuda))
+    tau = e0.clone()
+    tau[3] = e0[3] * 0.5
+    ek, ak = ops.verify_accept(pred, real, tau)
+    er, ar = ref.verify_accept_ref(pred, real, tau)
+    assert torch.isnan(ek[1]) and not ak[1]
+    torch.testing.assert_close(ek, er, rtol=1e-5, atol=0.0, equal_nan=True)
+    far = (er - tau).abs() > 1e-5
+    assert torch.equal(ak[far], ar[far])
+    assert not ak[3] and ak.dtype == torch.bool and ek.dtype == torch.float32
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_fall_back(cuda):
     d = torch.zeros((3, 2, 2, 2, 4, 8), dtype=torch.float16, device=cuda)
@@ -267,8 +341,8 @@ def _flash_tol(dtype):
 
 
 def _flash_launched(dtype):
-    """The launch counts one flash call leaves: bf16 runs the tensor-core
-    kernel, f32 the CUDA-core kernel."""
+    """The launch counts one flash call leaves: bf16 runs the bf16
+    tensor-core kernel, f32 the 3×TF32 one."""
     sm90 = dtype == torch.bfloat16
     return {"flash_attention": int(not sm90),
             "flash_attention_sm90": int(sm90)}
@@ -314,6 +388,37 @@ def test_flash_bf16_long_causal_on_card(cuda):
     assert _flash_counts() == _flash_launched(torch.bfloat16)
     torch.testing.assert_close(got.float(), want,
                                **_flash_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_flash_f32_long_causal_strided_on_card(cuda):
+    """The 3×TF32 kernel at gemma3's head dim, 2048 keys deep, causal, on
+    full-mantissa f32 inputs read as strided views of one packed
+    [B, S, 3, H, hd] tensor."""
+    g = torch.Generator(device=cuda).manual_seed(2048)
+    qkv = torch.randn((1, 2048, 3, 2, 128), generator=g, device=cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _flash_counts() == _flash_launched(torch.float32)
+    torch.testing.assert_close(got, want, **_flash_tol(torch.float32))
+
+
+@pytest.mark.cuda
+def test_flash_f32_misaligned_raises_on_card(cuda):
+    """The f32 kernel is TMA-fed too: a base or stride that is not a
+    multiple of 16 bytes raises and launches nothing."""
+    big = torch.zeros((1, 64, 2, 80), device=cuda)
+    padded = torch.zeros((1, 64, 2, 74), device=cuda)
+    ops.reset_launch_counts()
+    for q in (big[..., 1:73], padded[..., :72]):
+        with pytest.raises(ValueError, match="16 bytes"):
+            ops.flash_attention(q, q, q)
+    assert _flash_counts() == {"flash_attention": 0,
+                               "flash_attention_sm90": 0}
 
 
 @pytest.mark.cuda

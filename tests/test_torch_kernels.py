@@ -17,7 +17,10 @@ verify sums and error to rtol 1e-5. Flash attention: f32 to
 rtol=atol=1e-5 (online against materialised softmax); bf16 within one
 bf16 ulp of the f32 result (rtol 2^-8 plus the f32 atol against the
 reference run on the same bf16 inputs in f32, rtol 2^-7 against the
-reference's own bf16 output, which rounds its own f32 result).
+reference's own bf16 output, which rounds its own f32 result). The card
+kernels' arithmetic, emulated: the bf16 kernel's P split at those
+tolerances, the f32 kernel's 3×TF32 products at the card's f32 check
+(rtol = atol = 2e-5) on full-mantissa f32 inputs.
 ``tests/test_torch_cuda.py`` holds the CUDA kernels against the plain
 versions on a card.
 """
@@ -551,6 +554,102 @@ def test_flash_sm90_emulation_needs_the_split():
     once = _flash_sm90_emulation(tq, tk, tv, split=False, **kw)
     bad = ~torch.isclose(once.to(torch.bfloat16).float(), want,
                          rtol=2.0 ** -8, atol=1e-5)
+    assert bad.float().mean() > 0.01
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, in the top 19 bits of the f32 pattern."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _flash_tf32_emulation(q, k, v, *, causal, window, split=True,
+                          block_q=128):
+    """The arithmetic of ``csrc/flash_attention.cu`` in PyTorch on f32
+    operands [B, S, H, hd]: 128-row query tiles that skip the key tiles
+    hidden from the whole tile, key tiles of 32 (hd 128) or 64, −1e30 on
+    masked scores (keys past S too), every product of two f32 values as
+    three TF32 products a_hi·b_hi + a_hi·b_lo + a_lo·b_hi into an f32 sum
+    (``split=False``: one product of the TF32-rounded values), the scale
+    folded into exp2 as p = exp2((s − m)·c), and l == 0 -> 1."""
+    B, S, H, hd = q.shape
+    block_k = 32 if hd == 128 else 64
+    c = torch.tensor(np.float32(np.log2(np.e)) / np.float32(np.sqrt(hd)))
+
+    def mm(a, b):
+        if not split:
+            return _tf32(a) @ _tf32(b)
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return ah @ bl + al @ bh + ah @ bh
+
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    out = torch.zeros(B, H, S, hd)
+    for q0 in range(0, S, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, S))
+        k_hi = rows[-1].item() if causal else S - 1
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        m = torch.full((B, H, len(rows), 1), ref.NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hd)
+        for k0 in range(k_lo // block_k * block_k, k_hi + 1, block_k):
+            keys = torch.arange(k0, k0 + block_k)
+            kt = torch.zeros(B, H, block_k, hd)      # zero fill past S
+            vt = torch.zeros(B, H, block_k, hd)
+            n = min(block_k, S - k0)
+            kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], \
+                vf[:, :, k0:k0 + n]
+            s = mm(qf[:, :, rows], kt.transpose(-1, -2))
+            ok = (keys[None, :] < S).expand(len(rows), block_k)
+            if causal:
+                ok = ok & (keys[None, :] <= rows[:, None])
+            if window > 0:
+                ok = ok & (rows[:, None] - keys[None, :] < window)
+            s = torch.where(ok, s, torch.tensor(ref.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * c)
+            p = torch.exp2((s - m_new) * c)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + mm(p, vt)
+            m = m_new
+        out[:, :, rows] = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("s,h,hd,causal,window",
+                         FLASH_CASES + [(512, 2, 128, True, 100)])
+def test_flash_tf32x3_arithmetic_meets_the_card_check(s, h, hd, causal,
+                                                      window):
+    """The f32 tensor-core kernel's numerics (3×TF32), emulated on the
+    CPU on inputs drawn in f32 (full mantissas, which TF32 does not hold),
+    hold the card's f32 tolerance (rtol = atol = 2e-5) against the Pallas
+    kernel (interpret mode) on the same inputs."""
+    q, k, v = _flash_inputs(s, h, hd, s + hd)
+    kw = dict(causal=causal, window=window)
+    got = _flash_tf32_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                **kw)
+    want = _np(jops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                    **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,hd,causal", [(512, 128, True), (256, 72, False)])
+def test_flash_tf32_emulation_needs_the_split(s, hd, causal):
+    """One TF32 product per f32 product leaves the f32 check: without the
+    lo parts the emulation falls outside rtol = atol = 2e-5 of the f32
+    function on full-mantissa inputs; with them it stays inside."""
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(s, 2, hd, 7))
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    kw = dict(causal=causal, window=0)
+    torch.testing.assert_close(_flash_tf32_emulation(q, k, v, **kw), want,
+                               rtol=2e-5, atol=2e-5)
+    once = _flash_tf32_emulation(q, k, v, split=False, **kw)
+    bad = ~torch.isclose(once, want, rtol=2e-5, atol=2e-5)
     assert bad.float().mean() > 0.01
 
 

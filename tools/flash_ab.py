@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time two builds of the bf16 flash attention kernel in turns, on one GPU.
+"""Time two builds of a flash attention kernel in turns, on one GPU.
 
-Builds ``--variant`` (another version of ``csrc/flash_attention_sm90.cu``
-with the same C entry point, e.g. a parent commit's) beside the tree's
-own, holds both against the plain f32 attention (rtol 2^-8, atol 1e-5,
-the chip check's tolerance) and times them at ``chip_smoke.py``'s
-attention shapes (gemma3-27b global and local, DiT-XL/2) in the order
-variant, tree, tree, variant: device time per call from
-``torch.profiler`` and CUDA events over 20 calls.
+Builds ``--variant`` (another version of the route's source with the same
+C entry point, e.g. a parent commit's) beside the tree's own, holds both
+against the plain f32 attention (the chip check's tolerance) and times
+them at ``chip_smoke.py``'s attention shapes (gemma3-27b global and
+local, DiT-XL/2) in the order variant, tree, tree, variant: device time
+per call from ``torch.profiler`` and CUDA events over 20 calls.
+``--route bf16`` (the default) builds ``csrc/flash_attention_sm90.cu``'s
+entry on bf16 inputs (rtol 2^-8, atol 1e-5); ``--route f32``
+``csrc/flash_attention.cu``'s on inputs drawn in f32 (rtol = atol =
+2e-5).
 
 Run from the repository root on the card:
-    python3 tools/flash_ab.py --variant path/to/flash_attention_sm90.cu
-Writes ``chiprun_out/flash_ab.json`` and prints it.
+    python3 tools/flash_ab.py --route f32 --variant path/to/flash_attention.cu
+Writes ``chiprun_out/flash_ab_<route>.json`` and prints it.
 """
 from __future__ import annotations
 
@@ -28,9 +31,12 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def load_variant(source: Path):
-    """Build ``source`` as the tree's libraries are built; returns the
-    loaded library with the tree's argument types."""
+ROUTES = {"bf16": "flash_attention_sm90", "f32": "flash_attention"}
+
+
+def load_variant(source: Path, entry: str, argtypes):
+    """Build ``source`` as the tree's libraries are built; returns its C
+    ``entry`` with ``argtypes``."""
     from repro_torch.kernels import build
     h = hashlib.sha256(source.read_bytes())
     for f in sorted(build.CSRC.glob("*.cuh")):
@@ -42,16 +48,15 @@ def load_variant(source: Path):
                         "-I", str(build.CSRC), "-o", str(path),
                         str(source)], check=True)
     lib = ctypes.CDLL(str(path))
-    fn = lib.flash_attention_sm90
-    fn.argtypes = list(build.SIGNATURES["flash_attention_sm90"]
-                       ["flash_attention_sm90"])
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
 def caller(torch, fn, q, k, v, causal, window):
     """One call of a library's entry point, as ops.flash_attention makes
-    it for bf16 inputs."""
+    it."""
     from repro_torch.kernels import ops
     B, S, H, hd = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -70,13 +75,21 @@ def caller(torch, fn, q, k, v, causal, window):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", type=Path, required=True)
+    ap.add_argument("--route", choices=sorted(ROUTES), default="bf16")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time a variant that computes something else "
+                    "(a diagnostic with work removed)")
     args = ap.parse_args()
+    name = ROUTES[args.route]
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build, ref
     assert torch.cuda.is_available(), "needs a CUDA device"
-    fns = {"variant": load_variant(args.variant.resolve()),
-           "tree": build.library("flash_attention_sm90").flash_attention_sm90}
+    fns = {"variant": load_variant(args.variant.resolve(), name,
+                                   build.SIGNATURES[name][name]),
+           "tree": getattr(build.library(name), name)}
+    tol = dict(rtol=2.0 ** -8, atol=1e-5) if args.route == "bf16" else \
+        dict(rtol=2e-5, atol=2e-5)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     S, H, hd = cs.ATTN_SEQ, cs.GEMMA3_HEADS, cs.GEMMA3_HEAD_DIM
@@ -84,27 +97,31 @@ def main() -> int:
              "gemma3_local": ((1, S, H, hd), True, cs.GEMMA3_WINDOW),
              "dit_xl2": ((cs.LANES, 256, 16, 72), False, 0)}
     result = {"card": cs.smi_line(), "variant": str(args.variant),
+              "route": args.route, "checked": not args.no_check,
               "cases": {}}
-    for name, (shape, causal, window) in cases.items():
+    for case, (shape, causal, window) in cases.items():
         q, k, v = (torch.randn(shape, generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
+                   for _ in range(3))
+        if args.route == "bf16":
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                        causal=causal, window=window)
         calls = {n: caller(torch, f, q, k, v, causal, window)
                  for n, f in fns.items()}
         row = {n: {"device_ms": [], "ms": []} for n in calls}
         for n in calls:
-            torch.testing.assert_close(calls[n]().float(), want,
-                                       rtol=2.0 ** -8, atol=1e-5)
+            if n == "tree" or not args.no_check:
+                torch.testing.assert_close(calls[n]().float(), want, **tol)
         for n in ("variant", "tree", "tree", "variant"):
             spans = cs.device_spans(torch, calls[n], iters=20)
             row[n]["device_ms"].append(sum(spans.values()) / 1e3)
             row[n]["ms"].append(cs.time_ms(torch, calls[n], iters=20))
-        result["cases"][name] = row
-        print(name, json.dumps(row), flush=True)
+        result["cases"][case] = row
+        print(case, json.dumps(row), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "flash_ab.json").write_text(json.dumps(result, indent=1))
+    (out / f"flash_ab_{args.route}.json").write_text(
+        json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

@@ -32,8 +32,7 @@ sys.path.insert(0, str(ROOT))
 
 GROUPS = (("taylor_predict_lanes", ("predict_lanes_kernel",)),
           ("taylor_update_lanes", ("update_lanes_kernel",)),
-          ("verify_accept", ("verify_partials_kernel",
-                             "verify_finish_kernel")),
+          ("verify_accept", ("verify_kernel",)),
           ("taylor_predict_chain_lanes", ("predict_chain_kernel",)),
           ("lane_rollback", ("rollback_kernel",)),
           ("spectral_update_lanes", ("ring_update_kernel",)),
