@@ -7,7 +7,7 @@ CUDA toolkit:  python3 chip_smoke.py
 Phases (any failure ends the run with a non-zero exit):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
-   sources, eleven kernel rows; one nvcc per source, started together) and
+   sources, twelve kernel rows; one nvcc per source, started together) and
    print what ptxas reports. Both flash kernels must show wgmma
    (``HGMMA``, of TF32 type in the f32 one) and TMA loads (``UTMALDG``) in
    their SASS (``cuobjdump``) and no spills.
@@ -22,11 +22,14 @@ Phases (any failure ends the run with a non-zero exit):
    every chain position (K = 1 and 4) bitwise the depth-1 predict kernel;
    the verify error to rtol 1e-5 with equal accept bits
    wherever |e − τ| > 1e-5, in one kernel launch a call (the profiler
-   counts them). Time each kernel (CUDA events; for the verify
-   and the rollback also their device time from ``torch.profiler``)
-   beside its plain version, one PyTorch library call where one computes
-   the same function, and its bound (bytes over 3.35 TB/s, f32
-   operations over 67 TFLOP/s — the H100 SXM data sheet at 700 W).
+   counts them); the rollback also from a list of snapshots (the chain
+   step's form). Time each kernel (CUDA events; for the verify and the
+   rollback also their device time from ``torch.profiler``) beside its
+   plain version, one PyTorch library call where one computes the same
+   function, and its bound (bytes over 3.35 TB/s, f32 operations over 67
+   TFLOP/s — the H100 SXM data sheet at 700 W); the rollback over the
+   snapshot list in turns with the chain step's old restore (a
+   ``torch.stack`` of the snapshots, then the stacked entry).
    The reference's scalar-anchor kernel surface runs here too, with the
    launch counts set to 0 just before and read just after: the table
    [3, 28, 2, 4, 256, 1152] bf16 as one whole-batch anchor with seeded
@@ -35,7 +38,9 @@ Phases (any failure ends the run with a non-zero exit):
    bitwise the lane predict with the weight column broadcast) and
    ``ops.taylor_update`` (bitwise), and the verify planes [4, 294912]
    through the τ-less ``ops.verify_sums`` and ``ops.verify_error`` (rtol
-   1e-5); each is also checked at the other shapes above.
+   1e-5; the error one kernel a call, bitwise ``verify_accept``'s err and
+   the two-step finish over the sums, and timed beside that finish); each
+   is also checked at the other shapes above.
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
@@ -65,13 +70,15 @@ Phases (any failure ends the run with a non-zero exit):
 4. Deep speculation: the same model and requests on
    ``SpeCaEngine(max_draft_depth=4)`` with ``draft_depth`` 1, 2, 4, 4 by
    request. The chain predict and the rollback must have launched in this
-   run; every request must keep phase 3's accept trajectory and counters
-   with samples within 1e-5 of phase 3's, in fewer ticks; the first 4
-   requests re-served at lanes=1 keep their counters.
+   run, the rollback at most once a chain tick and never on a tick that
+   drafted nothing (so the payload is never stacked); every request must
+   keep phase 3's accept trajectory and counters with samples within
+   1e-5 of phase 3's, in fewer ticks; the first 4 requests re-served at
+   lanes=1 keep their counters.
 5. The spectral forecaster: ``SpeCaEngine(forecaster="spectral",
    max_draft_depth=4)`` serves 4 depth-4 requests at lanes=4 (the ring
-   shift and the chain predict must launch) and at lanes=1, with
-   identical counters.
+   shift and the chain predict must launch, the rollback as in phase 4)
+   and at lanes=1, with identical counters.
 6. ``speca_sample`` at batch 2 on the same model.
 
 Each serving phase resets the launch counts just before its run and
@@ -84,6 +91,7 @@ the card's name and power limit. Everything measured also goes to
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -330,11 +338,15 @@ class Smoke:
         # the serving rollback: latent snapshots, lane axis first
         for dtype in (torch.float32, torch.bfloat16):
             x = self._latent_chain(dtype)
+            snaps = [t.clone() for t in x]
             for idx in self._rollback_indices(LANES):
+                want = ref.lane_rollback_ref(x, idx, lane_axis=0)
                 assert torch.equal(ops.lane_rollback(x, idx, lane_axis=0),
-                                   ref.lane_rollback_ref(x, idx,
-                                                         lane_axis=0)), \
+                                   want), \
                     f"rollback not bitwise on latents {dtype}"
+                assert torch.equal(ops.lane_rollback(snaps, idx,
+                                                     lane_axis=0), want), \
+                    f"snapshot rollback not bitwise on latents {dtype}"
         self.record["kernel_checks"] = checks
         self._time_main(main, torch.bfloat16)
         self._time_chain_kernels(main, torch.bfloat16)
@@ -387,10 +399,11 @@ class Smoke:
         chain = torch.randn((CHAIN_K + 1,) + tuple(shape[1:]), generator=g,
                             device=self.dev).to(dtype)
         for idx in self._rollback_indices(W):
-            assert torch.equal(ops.lane_rollback(chain, idx),
-                               ref.lane_rollback_ref(chain, idx,
-                                                     lane_axis=2)), \
+            want = ref.lane_rollback_ref(chain, idx, lane_axis=2)
+            assert torch.equal(ops.lane_rollback(chain, idx), want), \
                 f"rollback not bitwise at {shape}"
+            assert torch.equal(ops.lane_rollback(list(chain), idx), want), \
+                f"snapshot rollback not bitwise at {shape}"
         for m in (torch.ones_like(mask), torch.zeros_like(mask), mask):
             assert torch.equal(ops.spectral_update_lanes(diffs, feats, m),
                                ref.spectral_update_lanes_ref(diffs, feats,
@@ -499,26 +512,44 @@ class Smoke:
             max_abs_err=(ck.float() - cp.float()).abs().max().item())
 
         x = self._latent_chain(torch.float32)
+        snaps = [t.clone() for t in x]       # one allocation each, as served
         idx = self._rollback_indices(W)[1]
         xs = tuple(x.shape[1:])
         take = idx.long().reshape((1, W) + (1,) * (len(xs) - 1)) \
             .expand((1,) + xs)
-        r_e = time_ms(torch, lambda: ops.lane_rollback(x, idx, lane_axis=0),
-                      iters=100)
-        r_d = device_ms(torch, lambda: ops.lane_rollback(x, idx,
-                                                          lane_axis=0),
-                        ("rollback_kernel",))
-        r_p = time_ms(torch, lambda: ref.lane_rollback_ref(x, idx,
+        # the chain step's old restore (stack, then the stacked entry) and
+        # the new one (the snapshot entry), in turns
+        paths = {"old": lambda: ops.lane_rollback(torch.stack(snaps), idx,
+                                                  lane_axis=0),
+                 "new": lambda: ops.lane_rollback(snaps, idx, lane_axis=0)}
+        turns = {n: {"event_ms": [], "device_ms": [], "kernels_per_call": []}
+                 for n in paths}
+        for n in ("old", "new", "new", "old"):
+            fn = paths[n]
+            turns[n]["event_ms"].append(time_ms(torch, fn, iters=100))
+            turns[n]["device_ms"].append(
+                sum(device_spans(torch, fn, iters=100).values()) / 1e3)
+            turns[n]["kernels_per_call"].append(kernels_per_call(torch, fn))
+        assert turns["new"]["kernels_per_call"] == [1, 1], turns
+        r_p = time_ms(torch, lambda: ref.lane_rollback_ref(snaps, idx,
                                                            lane_axis=0),
                       iters=100)
         r_l = time_ms(torch, lambda: torch.take_along_dim(x, take, dim=0),
                       iters=100)
-        rk = ops.lane_rollback(x, idx, lane_axis=0)
-        rp = ref.lane_rollback_ref(x, idx, lane_axis=0)
+        rk = ops.lane_rollback(snaps, idx, lane_axis=0)
+        rp = ref.lane_rollback_ref(snaps, idx, lane_axis=0)
+        assert torch.equal(paths["old"](), rk), "old and new restore differ"
         # one selected row read and one row written per lane, and idx
         rb, rf = bound_ms(2 * x[0].numel() * x.element_size() + W * 4, 0.0)
+        mean = {n: {k: sum(v) / len(v) for k, v in t.items()}
+                for n, t in turns.items()}
         self.kernels["lane_rollback"] = dict(
-            ms=r_d, event_ms=r_e, plain_ms=r_p, library_ms=r_l, bound_ms=rb,
+            ms=mean["new"]["device_ms"], event_ms=mean["new"]["event_ms"],
+            old_path_ms=mean["old"]["device_ms"],
+            old_path_event_ms=mean["old"]["event_ms"],
+            kernels_per_call=mean["new"]["kernels_per_call"],
+            old_path_kernels_per_call=mean["old"]["kernels_per_call"],
+            turns=turns, plain_ms=r_p, library_ms=r_l, bound_ms=rb,
             bound_by=rf, max_abs_err=(rk - rp).abs().max().item())
 
         s_k = time_ms(torch, lambda: ops.spectral_update_lanes(diffs, feats,
@@ -659,10 +690,38 @@ class Smoke:
         vb, vf = bound_ms(2 * W * N * es + W * 8, 5.0 * W * N)
         self.kernels["verify_sums"] = dict(
             ms=v_k, device_ms=v_d, plain_ms=v_p, library_ms=None,
-            bound_ms=vb, bound_by=vf,
-            launches=launches["verify_sums"] + launches["verify_error"],
-            max_abs_err=errs["verify_sums_max_abs_err"],
-            verify_error_max_abs_err=errs["verify_error_max_abs_err"])
+            bound_ms=vb, bound_by=vf, launches=launches["verify_sums"],
+            max_abs_err=errs["verify_sums_max_abs_err"])
+
+        # the error in one kernel: bitwise the fused verify's err and the
+        # two-step finish over the sums (the sums kernel and four torch
+        # kernels), which is timed beside it
+        def error():
+            return ops.verify_error(pred, real)
+
+        def two_step():
+            s_ = ops.verify_sums(pred, real)
+            return torch.sqrt(s_[:, 0]) / (torch.sqrt(s_[:, 1]) + 1e-8)
+        tau = torch.full((W,), 0.3, device=self.dev)
+        assert torch.equal(ek, ops.verify_accept(pred, real, tau)[0]), \
+            "verify_error != verify_accept's err"
+        assert torch.equal(ek, two_step()), "verify_error != two-step finish"
+        per_call = kernels_per_call(torch, error)
+        assert per_call == 1, f"verify_error: {per_call} kernels a call"
+        e_k = time_ms(torch, error, iters=100)
+        e_d = device_ms(torch, error, ("verify_kernel",))
+        e_p = time_ms(torch, lambda: ref.verify_error_ref(pred, real),
+                      iters=100)
+        t_k = time_ms(torch, two_step, iters=100)
+        t_d = sum(device_spans(torch, two_step, iters=100).values()) / 1e3
+        eb, ef = bound_ms(2 * W * N * es + W * 4, 5.0 * W * N)
+        self.kernels["verify_error"] = dict(
+            ms=e_k, device_ms=e_d, kernels_per_call=per_call, plain_ms=e_p,
+            library_ms=None, bound_ms=eb, bound_by=ef,
+            launches=launches["verify_error"],
+            max_abs_err=errs["verify_error_max_abs_err"],
+            two_step_ms=t_k, two_step_device_ms=t_d,
+            two_step_kernels_per_call=kernels_per_call(torch, two_step))
 
     # --- phase 2b ------------------------------------------------------------
     def attention(self):
@@ -938,6 +997,45 @@ class Smoke:
         return (res, launches, wall, engine.host_syncs - syncs0,
                 torch.cuda.max_memory_allocated() / 2**30)
 
+    @contextlib.contextmanager
+    def _chain_ticks(self):
+        """Record each chain tick run inside: the rollback launches it
+        made (the host-side count, no sync) and its ``n_drafted`` flags
+        (device tensors, read after the run)."""
+        from repro_torch.core import lane_step as LS
+        from repro_torch.kernels import ops
+        ticks = []
+        call = LS.ChainStep.__call__
+
+        def probe(step, state):
+            before = ops.LAUNCHES["lane_rollback"]
+            new, flags = call(step, state)
+            ticks.append((ops.LAUNCHES["lane_rollback"] - before,
+                          flags["n_drafted"]))
+            return new, flags
+        LS.ChainStep.__call__ = probe
+        try:
+            yield ticks
+        finally:
+            LS.ChainStep.__call__ = call
+
+    def _hold_chain_ticks(self, name, ticks, launches):
+        """A chain tick launches the rollback once when some lane drafted
+        (one payload leaf, read from its snapshots: no stack) and not at
+        all when none did; returns the counts to record."""
+        per_tick = [n for n, _ in ticks]
+        drafted = [int(f.sum().item()) > 0 for _, f in ticks]
+        idle = drafted.count(False)
+        print(f"{name}: {len(ticks)} chain ticks, {idle} drafted nothing; "
+              f"rollback launches {launches['lane_rollback']} (per tick "
+              f"at most {max(per_tick, default=0)})")
+        assert all(n == int(d) for n, d in zip(per_tick, drafted)), \
+            "a chain tick's rollback launches != (some lane drafted)"
+        assert launches["lane_rollback"] == sum(per_tick) == \
+            len(ticks) - idle, (launches, len(ticks), idle)
+        return dict(chain_ticks=len(ticks), ticks_drafted_nothing=idle,
+                    rollback_launches=launches["lane_rollback"])
+
     # --- phase 4 -------------------------------------------------------------
     def serve_deep(self):
         torch = self.torch
@@ -949,9 +1047,12 @@ class Smoke:
         reqs = self._requests(N_REQUESTS, lambda i: RequestPolicy(
             draft_depth=DEEP_DEPTHS[i % len(DEEP_DEPTHS)]))
         engine.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=5)
-        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
-                                                             LANES)
+        with self._chain_ticks() as chain_ticks:
+            res, launches, wall, syncs, peak = self._timed_serve(
+                engine, reqs, LANES)
         ticks = max(r.finish_tick for r in res)
+        rollback = self._hold_chain_ticks("serve_deep", chain_ticks,
+                                          launches)
         for name in DEEP_KERNELS:
             # a kernel's row keeps the count of the first path that runs it
             self.kernels.setdefault(name, {}).setdefault("launches",
@@ -989,6 +1090,7 @@ class Smoke:
             depths=list(DEEP_DEPTHS), wall_s=wall,
             req_per_s=N_REQUESTS / wall, host_syncs=syncs, ticks=ticks,
             launches=launches, peak_gib=peak, max_abs_diff_vs_depth1=dmax,
+            **rollback,
             requests=[dict(request_id=r.request_id, num_full=r.num_full,
                            num_spec=r.num_spec, num_drafted=r.num_drafted,
                            finish_tick=r.finish_tick,
@@ -1006,9 +1108,12 @@ class Smoke:
         reqs = self._requests(LANES, lambda i: RequestPolicy(
             draft_depth=CHAIN_K))
         engine.serve_batched(reqs, lanes=LANES, max_ticks=5)
-        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
-                                                             LANES)
+        with self._chain_ticks() as chain_ticks:
+            res, launches, wall, syncs, peak = self._timed_serve(
+                engine, reqs, LANES)
         ticks = max(r.finish_tick for r in res)
+        rollback = self._hold_chain_ticks("serve_spectral", chain_ticks,
+                                          launches)
         for name in SPECTRAL_KERNELS:
             self.kernels.setdefault(name, {}).setdefault("launches",
                                                          launches[name])
@@ -1029,6 +1134,7 @@ class Smoke:
         print(f"spectral lanes={LANES} and lanes=1 counters identical")
         self.record["serve_spectral"] = dict(
             wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            **rollback,
             peak_gib=peak, alpha=[r.alpha for r in res],
             draft_accept_rate=[r.draft_accept_rate for r in res])
 
@@ -1085,6 +1191,10 @@ KERNEL_META = {
                       "src/repro/kernels/taylor_predict.py:258"),
     "verify_sums": ("src/repro_torch/kernels/csrc/verify_accept.cu",
                     "src/repro/kernels/verify_error.py:72"),
+    # the reference's verify_error reaches the τ-less verify_sums kernel;
+    # here the verify kernel finishes the error itself (entry verify_error)
+    "verify_error": ("src/repro_torch/kernels/csrc/verify_accept.cu",
+                     "src/repro/kernels/verify_error.py:114"),
     # flash attention: f32 inputs on the CUDA cores, bf16 on the tensor
     # cores (ops.flash_attention dispatches by dtype)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1100,6 +1210,12 @@ DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
                 "taylor_update_lanes", "verify_accept")
 SPECTRAL_KERNELS = ("spectral_update_lanes", "taylor_predict_chain_lanes",
                     "lane_rollback", "verify_accept")
+# per-kernel numbers the kernels line carries beside the contract's keys
+ROW_EXTRAS = ("device_ms", "event_ms", "kernels_per_call",
+              "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
+              "old_path_event_ms", "old_path_kernels_per_call",
+              "two_step_ms", "two_step_device_ms",
+              "two_step_kernels_per_call")
 # the launch-count keys of the reference's scalar-anchor surface
 SCALAR_KEYS = ("taylor_predict", "taylor_update", "verify_sums",
                "verify_error")
@@ -1147,9 +1263,7 @@ def main() -> int:
                      "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms")})
-        rows[-1].update({x: k[x] for x in ("device_ms", "library_device_ms",
-                                           "bound_f32_cuda_core_ms")
-                         if x in k})
+        rows[-1].update({x: k[x] for x in ROW_EXTRAS if x in k})
     OUT.mkdir(exist_ok=True)
     smoke.record.update(card=card, kernels=rows,
                         kernel_detail=smoke.kernels, failures=smoke.failures,

@@ -21,8 +21,9 @@ At ``max_draft_depth=K > 1`` (:class:`ChainStep`, the reference's
 ``chain_step``) steps 1–3 repeat for K chain positions per tick from one
 chain forecast, the payload advancing blindly with a snapshot after each
 position; the rollback kernel then restores every lane to the snapshot
-of its accepted prefix, and ONE closing full forward serves the lanes
-that stopped on a rejection.
+of its accepted prefix (reading the snapshots where they lie; a tick
+that drafted nothing has nothing to restore and launches nothing), and
+ONE closing full forward serves the lanes that stopped on a rejection.
 
 The reference decides the "runs iff" branches on the device with
 ``lax.cond``. Eager PyTorch decides them on the host, which costs one
@@ -214,8 +215,8 @@ class LaneStep:
 class ChainStep(LaneStep):
     """The depth-K lane step (the reference's ``chain_step``,
     ``repro/core/lane_step.py:607``): K draft-verify positions per tick
-    from ONE chain forecast, then one rollback and one closing full
-    forward. A lane drafts at position j under its budget
+    from ONE chain forecast, then at most one rollback and one closing
+    full forward. A lane drafts at position j under its budget
     ``(draft_k > j) & (step < max_step)`` while it has accepted every
     earlier position; rows advance blindly on the drafted output and the
     rollback restores each lane to the snapshot of its accepted prefix, so
@@ -297,10 +298,17 @@ class ChainStep(LaneStep):
                 rows[k].append(v)
         # exact-copy restore to each lane's accepted-prefix snapshot
         # (n_acc never exceeds the drafted positions, so the snapshots
-        # taken are all it can select)
-        chain = {k: torch.stack([sn[k] for sn in snaps])
-                 for k in wl.dyn_keys}
-        dyn = wl.rollback(chain, n_acc)
+        # taken are all it can select); the kernel reads the snapshots
+        # where they lie. A tick that drafted nothing restores nothing:
+        # every index clamps to snapshot 0, which is dyn itself, so dyn
+        # carries over into the new state as it is — an alias of the old
+        # state's payload, not a copy. That is safe because only the
+        # newest state is live: the engine fills a lane in place on the
+        # state the step returned (Workload.fill_payload) and never
+        # reads an older one again.
+        if len(snaps) > 1:
+            dyn = wl.rollback({k: [sn[k] for sn in snaps]
+                               for k in wl.dyn_keys}, n_acc)
         # ONE closing full forward serves every stopped lane at its
         # rolled-back step and refreshes only those lanes' table slices
         s_eff = torch.clamp(s, max=S - 1)

@@ -193,15 +193,17 @@ def predict_chain_lanes(state: State, steps: torch.Tensor,
                                           w.to(torch.float32).contiguous())
 
 
-def lane_rollback(chain: torch.Tensor, idx: torch.Tensor, *,
+def lane_rollback(chain, idx: torch.Tensor, *,
                   lane_axis: int = 2) -> torch.Tensor:
-    """Per-lane snapshot restore: ``chain`` [K+1, ...feat] stacks the
-    snapshots before and after each drafted chain position, ``idx`` [B]
-    (0..K) is each lane's accepted-prefix length -> chain[idx[lane]] per
-    lane, exact copies. ``lane_axis`` is the lane axis of the feature
-    layout."""
-    return ops.lane_rollback(chain, idx.to(torch.int32).contiguous(),
-                             lane_axis=lane_axis)
+    """Per-lane snapshot restore: ``chain`` holds the snapshots before and
+    after each drafted chain position, as one [K+1, ...feat] tensor or a
+    sequence of K+1 [...feat] tensors (handed to the kernel as they are),
+    ``idx`` [B] (0..K) is each lane's accepted-prefix length ->
+    chain[idx[lane]] per lane, exact copies. ``lane_axis`` is the lane
+    axis of the feature layout."""
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    return ops.lane_rollback(chain, idx, lane_axis=lane_axis)
 
 
 def feature_shape_for(num_layers: int, batch: int, tokens: int,

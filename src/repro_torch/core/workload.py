@@ -50,10 +50,12 @@ class Workload:
     tag: str = "?"
     dyn_axes: Dict[str, int] = {}
 
-    def rollback(self, chain: Dict[str, torch.Tensor], n_acc: torch.Tensor
+    def rollback(self, chain: Dict[str, Any], n_acc: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
         """Restore every payload leaf to snapshot ``n_acc[lane]`` through
-        the rollback kernel, which copies bytes and so takes any dtype."""
+        the rollback kernel, which copies bytes and so takes any dtype.
+        A leaf's snapshots come as one [K+1, ...] tensor or as a sequence
+        of K+1 tensors, which the kernel reads where they lie."""
         return {k: taylor.lane_rollback(v, n_acc, lane_axis=self.dyn_axes[k])
                 for k, v in chain.items()}
 

@@ -45,13 +45,20 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # pred, ref, partials, tickets, sums, dtype, W, N, chunk, nchunks,
         # vec, stream, device
         "verify_sums": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P,
-                        _I)},
+                        _I),
+        # pred, ref, partials, tickets, err, dtype, W, N, chunk, nchunks,
+        # eps, vec, stream, device
+        "verify_error": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F, _I,
+                         _P, _I)},
     # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device
     "taylor_predict_chain": {"taylor_predict_chain": (
         _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P, _I)},
-    # chain, idx, out, K, R, row_bytes, lanes, stream, device
-    "lane_rollback": {"lane_rollback": (
-        _P, _P, _P, _I, _LL, _LL, _I, _P, _I)},
+    "lane_rollback": {
+        # chain, idx, out, K, R, row_bytes, lanes, stream, device
+        "lane_rollback": (_P, _P, _P, _I, _LL, _LL, _I, _P, _I),
+        # snapshot pointer array, K+1, idx, out, R, row_bytes, lanes,
+        # stream, device
+        "lane_rollback_snapshots": (_P, _I, _P, _P, _LL, _LL, _I, _P, _I)},
     # old, feats, mask, out, dtype, m1, R, C, lanes, vec, stream, device
     "spectral_update_lanes": {"spectral_update_lanes": (
         _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},

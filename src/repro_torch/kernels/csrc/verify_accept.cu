@@ -4,15 +4,21 @@
 // Replaces the TPU kernel verify_sums (src/repro/kernels/verify_error.py:72)
 // in both its forms: with tau (body _verify_tau_kernel at :44, pallas_call
 // at :100) through the entry verify_accept, and without tau (body
-// _verify_kernel at :26, pallas_call at :87; verify_error at :114 sits on
-// top) through the entry verify_sums, which writes (Σ(p−r)², Σr²) per row
-// as [W, 2] f32. Both run the one kernel below; only its finish differs,
-// so the τ path's bits do not depend on the τ-less one.
+// _verify_kernel at :26, pallas_call at :87) through the entry
+// verify_sums, which writes (Σ(p−r)², Σr²) per row as [W, 2] f32; and the
+// reference's verify_error (:114), which finishes err from those sums,
+// through the entry verify_error. All three run the one kernel below;
+// only its finish (the Finish mode) differs, so the τ path's bits do not
+// depend on the τ-less ones, and verify_error's err is bitwise
+// verify_accept's on the same planes.
 //
 // pred/ref [W, N] (both f32 or both bf16), tau [W] f32 ->
 //   err[w]    = sqrt(Σ(p−r)²) / (sqrt(Σr²) + eps)
 //   accept[w] = err[w] <= tau[w]          (NaN never accepts)
-// with every sum taken in f32.
+// with every sum taken in f32. No fast-math: sqrtf and the divide are the
+// IEEE operations torch's own sqrt and divide are, so err is bitwise the
+// two-step finish sqrt(sums[:, 0]) / (sqrt(sums[:, 1]) + eps) over the
+// verify_sums entry's sums, in one launch instead of five.
 //
 // Bound on the card: bytes. It reads both planes once (2 bytes per bf16
 // element each) for 5 flops per element; at the serving shape (W 4 lanes
@@ -48,6 +54,9 @@ namespace {
 
 constexpr int kVThreads = 128;       // threads per (chunk, lane) block
 constexpr int kUnroll = 4;           // 16-byte loads in flight per plane
+
+// What the last block of a lane writes: err and accept, the sums, or err.
+enum Finish : int { kAccept = 0, kSums = 1, kError = 2 };
 
 __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
@@ -116,9 +125,10 @@ __device__ __forceinline__ void chunk_sums(const typename Tr::storage* p,
 }
 
 // Block (chunk, lane): the chunk's partial sums, then the lane's finish in
-// the block that draws its last ticket. With kTau: err and accept; else
-// sums [W, 2] in `out` (accept, tau and eps unused).
-template <class Tr, bool kVec, bool kTau>
+// the block that draws its last ticket: kAccept writes err [W] in `out`
+// and accept; kSums the sums [W, 2] in `out` (accept, tau and eps unused);
+// kError err [W] in `out` (accept and tau unused).
+template <class Tr, bool kVec, int kFinish>
 __global__ void __launch_bounds__(kVThreads)
 verify_kernel(const typename Tr::storage* __restrict__ pred,
               const typename Tr::storage* __restrict__ ref,
@@ -158,25 +168,25 @@ verify_kernel(const typename Tr::storage* __restrict__ pred,
   }
   warp_sum2(num, den);
   if (threadIdx.x == 0) {
-    if (kTau) {
-      const float e = sqrtf(num) / (sqrtf(den) + eps);
-      out[lane] = e;
-      accept[lane] = e <= tau[lane] ? 1 : 0;
-    } else {
+    if (kFinish == kSums) {
       out[2 * lane] = num;
       out[2 * lane + 1] = den;
+    } else {
+      const float e = sqrtf(num) / (sqrtf(den) + eps);
+      out[lane] = e;
+      if (kFinish == kAccept) accept[lane] = e <= tau[lane] ? 1 : 0;
     }
     tickets[lane] = 0;                     // ready for the next call
   }
 }
 
-template <class Tr, bool kVec, bool kTau>
+template <class Tr, bool kVec, int kFinish>
 void launch_t(const void* pred, const void* ref, void* partials,
               void* tickets, const void* tau, void* out, void* accept, int W,
               int64_t N, int64_t chunk, int nchunks, float eps,
               cudaStream_t s) {
   dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W));
-  verify_kernel<Tr, kVec, kTau><<<grid, kVThreads, 0, s>>>(
+  verify_kernel<Tr, kVec, kFinish><<<grid, kVThreads, 0, s>>>(
       static_cast<const typename Tr::storage*>(pred),
       static_cast<const typename Tr::storage*>(ref),
       static_cast<float2*>(partials), static_cast<int*>(tickets),
@@ -184,7 +194,7 @@ void launch_t(const void* pred, const void* ref, void* partials,
       static_cast<uint8_t*>(accept), N, chunk, eps);
 }
 
-template <bool kTau>
+template <int kFinish>
 int launch(const void* pred, const void* ref, void* partials, void* tickets,
            const void* tau, void* out, void* accept, int dtype, int W,
            long long N, long long chunk, int nchunks, float eps, int vec,
@@ -195,16 +205,16 @@ int launch(const void* pred, const void* ref, void* partials, void* tickets,
   if (e) return e;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kBF16 && vec)
-    launch_t<rt::BF16, true, kTau>(pred, ref, partials, tickets, tau, out,
+    launch_t<rt::BF16, true, kFinish>(pred, ref, partials, tickets, tau, out,
                                    accept, W, N, chunk, nchunks, eps, s);
   else if (dtype == rt::kBF16)
-    launch_t<rt::BF16, false, kTau>(pred, ref, partials, tickets, tau, out,
+    launch_t<rt::BF16, false, kFinish>(pred, ref, partials, tickets, tau, out,
                                     accept, W, N, chunk, nchunks, eps, s);
   else if (dtype == rt::kF32 && vec)
-    launch_t<rt::F32, true, kTau>(pred, ref, partials, tickets, tau, out,
+    launch_t<rt::F32, true, kFinish>(pred, ref, partials, tickets, tau, out,
                                   accept, W, N, chunk, nchunks, eps, s);
   else if (dtype == rt::kF32)
-    launch_t<rt::F32, false, kTau>(pred, ref, partials, tickets, tau, out,
+    launch_t<rt::F32, false, kFinish>(pred, ref, partials, tickets, tau, out,
                                    accept, W, N, chunk, nchunks, eps, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
@@ -224,8 +234,9 @@ extern "C" int verify_accept(const void* pred, const void* ref,
                              void* err, void* accept, int dtype, int W,
                              long long N, long long chunk, int nchunks,
                              float eps, int vec, void* stream, int device) {
-  return launch<true>(pred, ref, partials, tickets, tau, err, accept, dtype,
-                      W, N, chunk, nchunks, eps, vec, stream, device);
+  return launch<kAccept>(pred, ref, partials, tickets, tau, err, accept,
+                         dtype, W, N, chunk, nchunks, eps, vec, stream,
+                         device);
 }
 
 // The τ-less sums: sums is [W, 2] f32 = (Σ(p−r)², Σr²) per row; the other
@@ -234,6 +245,19 @@ extern "C" int verify_sums(const void* pred, const void* ref, void* partials,
                            void* tickets, void* sums, int dtype, int W,
                            long long N, long long chunk, int nchunks, int vec,
                            void* stream, int device) {
-  return launch<false>(pred, ref, partials, tickets, nullptr, sums, nullptr,
+  return launch<kSums>(pred, ref, partials, tickets, nullptr, sums, nullptr,
                        dtype, W, N, chunk, nchunks, 0.f, vec, stream, device);
+}
+
+// The τ-less error: err is [W] f32 = sqrt(Σ(p−r)²) / (sqrt(Σr²) + eps)
+// per row, finished in the kernel as verify_accept finishes it; the other
+// arguments as for verify_accept.
+extern "C" int verify_error(const void* pred, const void* ref,
+                            void* partials, void* tickets, void* err,
+                            int dtype, int W, long long N, long long chunk,
+                            int nchunks, float eps, int vec, void* stream,
+                            int device) {
+  return launch<kError>(pred, ref, partials, tickets, nullptr, err, nullptr,
+                        dtype, W, N, chunk, nchunks, eps, vec, stream,
+                        device);
 }

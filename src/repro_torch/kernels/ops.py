@@ -16,6 +16,7 @@ pad, the kernels mask the ragged tail of C themselves.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -40,6 +41,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
 _MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
 _MAX_ROWS = 65535        # gridDim.y
+_MAX_SNAPSHOTS = 256     # kMaxSnapshots in lane_rollback.cu
 _VERIFY_CHUNK = 2048     # elements per verify block: fixed, never a
                          # function of W (verify_accept.cu)
 _FLASH_HEAD_DIMS = (16, 32, 64, 72, 128)   # instantiated in both flash files
@@ -303,31 +305,97 @@ def taylor_predict_chain_lanes(diffs: torch.Tensor, weights: torch.Tensor,
     return out
 
 
-def lane_rollback(chain: torch.Tensor, idx: torch.Tensor, *,
-                  lane_axis: int = 2) -> torch.Tensor:
-    """Per-lane snapshot restore (draft-K rollback): chain [K+1, ...feat]
-    of any dtype, idx [B] int32 -> [...feat] with each lane's rows copied
-    from ``chain[clamp(idx[lane], 0, K)]``, bit for bit."""
-    K1, feat = chain.shape[0], tuple(chain.shape[1:])
-    G, B, C = _lane_fold(feat, lane_axis)
-    if tuple(idx.shape) != (B,) or idx.dtype != torch.int32:
-        raise ValueError(f"idx must be a [{B}] int32 tensor")
-    if K1 < 1:
+def _snapshots(chain) -> Tuple[Tuple[torch.Tensor, ...], torch.device]:
+    """(the snapshots of a sequence chain, their device), checked: at
+    least one, each a contiguous tensor of snapshot 0's shape, dtype and
+    device."""
+    snaps = tuple(chain)
+    if not snaps:
         raise ValueError("the chain needs at least one snapshot")
-    if _on_cpu(chain, idx):
-        return ref.lane_rollback_ref(chain, idx, lane_axis=lane_axis)
-    _contiguous("chain and idx", chain, idx)
+    first = snaps[0]
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"snapshot 0 is a {type(first).__name__}, not a "
+                        "tensor")
+    shape, dtype, dev = first.shape, first.dtype, first.device
+    if not first.is_contiguous():
+        raise ValueError("snapshot 0 must be contiguous")
+    for k, t in enumerate(snaps[1:], 1):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"snapshot {k} is a {type(t).__name__}, not a "
+                            "tensor")
+        if t.shape != shape:
+            raise ValueError(f"snapshot {k} has shape {tuple(t.shape)}, "
+                             f"snapshot 0 {tuple(shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"snapshot {k} is {t.dtype}, snapshot 0 {dtype}")
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: snapshot {k} "
+                             f"on {t.device}, snapshot 0 on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"snapshot {k} must be contiguous")
+    return snaps, dev
+
+
+def lane_rollback(chain, idx: torch.Tensor, *,
+                  lane_axis: int = 2) -> torch.Tensor:
+    """Per-lane snapshot restore (draft-K rollback): ``chain`` is the K+1
+    snapshots, either one [K+1, ...feat] tensor (the reference's
+    signature) or a sequence of K+1 contiguous [...feat] tensors of one
+    shape, dtype and device; any dtype. idx [B] int32 -> [...feat] with
+    each lane's rows copied from snapshot ``clamp(idx[lane], 0, K)``, bit
+    for bit.
+
+    A sequence is read where its tensors lie: the kernel takes their base
+    pointers, up to ``_MAX_SNAPSHOTS`` (256) of them. A longer chain is
+    stacked and goes through the kernel's stacked entry; no serving
+    configuration comes near that (a chain of depth K holds K+1
+    snapshots; the chip check serves depth 4). Either way the call
+    counts under ``LAUNCHES["lane_rollback"]``."""
+    if isinstance(chain, torch.Tensor):
+        if chain.dim() == 0 or chain.shape[0] == 0:
+            raise ValueError("the chain needs at least one snapshot")
+        snaps, dev, K1, feat = None, chain.device, chain.shape[0], \
+            chain.shape[1:]
+    else:
+        snaps, dev = _snapshots(chain)
+        K1, feat = len(snaps), snaps[0].shape
+    G, B, C = _lane_fold(feat, lane_axis)
+    if idx.shape != (B,) or idx.dtype != torch.int32:
+        raise ValueError(f"idx must be a [{B}] int32 tensor")
+    if idx.device != dev:
+        raise ValueError(f"tensors on different devices: the chain on {dev}, "
+                         f"idx on {idx.device}")
+    if dev.type == "cpu":
+        return ref.lane_rollback_ref(chain if snaps is None else snaps, idx,
+                                     lane_axis=lane_axis)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _contiguous("idx", idx)
+    if snaps is None:
+        _contiguous("chain", chain)
     R = G * B
     if R > _MAX_ROWS:
         raise ValueError(f"{R} rows exceed the kernel's {_MAX_ROWS}")
-    out = torch.empty(feat, dtype=chain.dtype, device=chain.device)
+    if snaps is not None and K1 > _MAX_SNAPSHOTS:
+        chain, snaps = torch.stack(snaps), None
+    # empty_like of a contiguous snapshot is contiguous, and costs the
+    # host less than torch.empty with a shape, dtype and device
+    out = torch.empty(feat, dtype=chain.dtype, device=dev) if snaps is None \
+        else torch.empty_like(snaps[0])
     if out.numel() == 0:
         return out
     lib = build.library("lane_rollback")
-    stream, dev = _stream(chain)
-    rc = lib.lane_rollback(chain.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                           K1 - 1, R, C * chain.element_size(), B, stream,
-                           dev)
+    stream, devi = _stream(out)
+    row_bytes = C * out.element_size()
+    if snaps is None:
+        rc = lib.lane_rollback(chain.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), K1 - 1, R, row_bytes, B,
+                               stream, devi)
+    else:
+        table = (ctypes.c_void_p * K1)(*[t.data_ptr() for t in snaps])
+        rc = lib.lane_rollback_snapshots(table, K1, idx.data_ptr(),
+                                         out.data_ptr(), R, row_bytes, B,
+                                         stream, devi)
     build.check("lane_rollback", lib, rc)
     LAUNCHES["lane_rollback"] += 1
     return out
@@ -428,17 +496,6 @@ def taylor_update(old_diffs: torch.Tensor,
     return out
 
 
-def _launch_verify_sums(pred: torch.Tensor, ref_: torch.Tensor,
-                        key: str) -> torch.Tensor:
-    pred, ref_, W, N = _verify_planes(pred, ref_)
-    sums = torch.empty((W, 2), dtype=torch.float32, device=pred.device)
-    lib, args = _verify_args(pred, ref_, W, N)
-    rc = lib.verify_sums(*args[:4], sums.data_ptr(), *args[4:])
-    build.check("verify_sums", lib, rc)
-    LAUNCHES[key] += 1
-    return sums
-
-
 def verify_sums(pred: torch.Tensor, ref_: torch.Tensor) -> torch.Tensor:
     """Per-row verification sums: pred/ref [B, ...] -> [B, 2] f32 =
     (Σ(p−r)², Σr²), summed in f32 (the reference's ``verify_sums``
@@ -446,18 +503,32 @@ def verify_sums(pred: torch.Tensor, ref_: torch.Tensor) -> torch.Tensor:
     _same_shape(pred, ref_)
     if _on_cpu(pred, ref_):
         return ref.verify_sums_ref(pred, ref_)
-    return _launch_verify_sums(pred, ref_, "verify_sums")
+    pred, ref_, W, N = _verify_planes(pred, ref_)
+    sums = torch.empty((W, 2), dtype=torch.float32, device=pred.device)
+    lib, args = _verify_args(pred, ref_, W, N)
+    rc = lib.verify_sums(*args[:4], sums.data_ptr(), *args[4:])
+    build.check("verify_sums", lib, rc)
+    LAUNCHES["verify_sums"] += 1
+    return sums
 
 
 def verify_error(pred: torch.Tensor, ref_: torch.Tensor, *,
                  eps: float = 1e-8) -> torch.Tensor:
     """Per-row relative L2 error (eq. 4): pred/ref [B, ...] -> [B] f32 =
-    √num / (√den + ε) from the :func:`verify_sums` kernel's sums."""
+    √num / (√den + ε) over the f32 sums, finished in the verify kernel in
+    one launch: bitwise :func:`verify_accept`'s err on the same planes,
+    and the two-step finish over :func:`verify_sums`."""
     _same_shape(pred, ref_)
     if _on_cpu(pred, ref_):
         return ref.verify_error_ref(pred, ref_, eps=eps)
-    sums = _launch_verify_sums(pred, ref_, "verify_error")
-    return torch.sqrt(sums[:, 0]) / (torch.sqrt(sums[:, 1]) + eps)
+    pred, ref_, W, N = _verify_planes(pred, ref_)
+    err = torch.empty((W,), dtype=torch.float32, device=pred.device)
+    lib, args = _verify_args(pred, ref_, W, N)
+    rc = lib.verify_error(*args[:4], err.data_ptr(), *args[4:-3],
+                          float(eps), *args[-3:])
+    build.check("verify_error", lib, rc)
+    LAUNCHES["verify_error"] += 1
+    return err
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

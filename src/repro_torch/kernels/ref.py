@@ -49,16 +49,16 @@ def taylor_predict_chain_lanes_ref(diffs: torch.Tensor,
         for k in range(weights.shape[1])])
 
 
-def lane_rollback_ref(chain: torch.Tensor, idx: torch.Tensor, *,
+def lane_rollback_ref(chain, idx: torch.Tensor, *,
                       lane_axis: int = 0) -> torch.Tensor:
-    """chain [K+1, ...feat], idx [B] integer -> [...feat] with each lane's
-    rows from chain[idx[lane]]: a where-chain over the snapshot axis, so
-    an index below 0 selects snapshot 0 and one above K snapshot K. Exact
-    copies."""
+    """chain [K+1, ...feat] (or a sequence of K+1 [...feat] snapshots),
+    idx [B] integer -> [...feat] with each lane's rows from
+    chain[idx[lane]]: a where-chain over the snapshots, so an index below
+    0 selects snapshot 0 and one above K snapshot K. Exact copies."""
     sel = idx.to(torch.int32).reshape(
-        _lane_shape(chain.dim() - 1, lane_axis, idx.shape[0]))
+        _lane_shape(chain[0].dim(), lane_axis, idx.shape[0]))
     out = chain[0]
-    for k in range(1, chain.shape[0]):
+    for k in range(1, len(chain)):
         out = torch.where(sel >= k, chain[k], out)
     return out
 

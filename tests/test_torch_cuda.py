@@ -12,8 +12,9 @@ refresh bitwise; the predict within one bf16 ulp (rtol 2^-8) of the plain
 f32 sum, in f32 to FMA rounding (1e-6); the verify error to rtol 1e-5,
 accept bits equal wherever |e − τ| > 1e-5, and bitwise the same at every
 lane width; the chain predict like the
-predict and each position bitwise the depth-1 kernel; the rollback and
-the ring shift bitwise.
+predict and each position bitwise the depth-1 kernel; the rollback (from
+a stacked chain or a list of snapshots) and the ring shift bitwise; the
+τ-less error one kernel a call, bitwise the fused verify's err.
 """
 import numpy as np
 import pytest
@@ -125,6 +126,61 @@ def test_rollback_bitwise_on_card(cuda, shape, dtype):
     x = torch.randn((K + 1, W, 8, 8, 4), generator=g, device=cuda)
     assert torch.equal(ops.lane_rollback(x, idx, lane_axis=0),
                        ref.lane_rollback_ref(x, idx, lane_axis=0))
+
+
+# (snapshot shape, dtype, K+1, elements by which snapshots 1..K sit off
+# their aligned bases, lane axis): the serving latent (16-byte unit),
+# rows of 24, 12, 18 and 15 bytes (8-, 4-, 2- and 1-byte units), bases 4
+# bytes off (the unit drops to 4), int32 leaves, a table layout, and
+# K+1 = 1, 2, kMaxSnapshots and one more (stacked first)
+SNAPSHOT_CASES = [((4, 32, 32, 4), torch.float32, 5, 0, 0),
+                  ((4, 3, 2), torch.float32, 5, 0, 0),
+                  ((4, 3, 1), torch.float32, 5, 0, 0),
+                  ((4, 3, 3), torch.bfloat16, 5, 0, 0),
+                  ((4, 5, 3), torch.uint8, 5, 0, 0),
+                  ((4, 8, 8), torch.float32, 5, 1, 0),
+                  ((4, 9, 16), torch.int32, 5, 0, 0),
+                  ((2, 2, 4, 5, 7), torch.bfloat16, 5, 0, 2),
+                  ((4, 8, 8), torch.float32, 1, 0, 0),
+                  ((4, 8, 8), torch.float32, 2, 0, 0),
+                  ((4, 2, 8), torch.float32, 256, 0, 0),
+                  ((4, 2, 8), torch.float32, 257, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,n,offset,lane_axis", SNAPSHOT_CASES)
+def test_rollback_snapshots_bitwise_on_card(cuda, shape, dtype, n, offset,
+                                            lane_axis):
+    """The rollback over a list of snapshots (the chain step's form; up to
+    kMaxSnapshots read where they lie, more stacked first) is one launch,
+    bitwise the plain version and the stacked entry."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    numel = int(np.prod(shape))
+    size = (n * numel + offset,)
+    if dtype.is_floating_point:
+        buf = (torch.randn(size, generator=g, device=cuda) * 100).to(dtype)
+    else:
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-2 ** 30, 2 ** 30)
+        buf = torch.randint(lo, hi, size, generator=g, device=cuda,
+                            dtype=dtype)
+    snaps = [buf[k * numel + (offset if k else 0):][:numel].view(shape)
+             for k in range(n)]
+    W = shape[lane_axis]
+    idx = (torch.arange(W, device=cuda, dtype=torch.int32) * 3 + 1) % n
+    idx[0], idx[-1] = -1, n + 5            # clamp to snapshots 0 and K
+    ops.reset_launch_counts()
+    out = ops.lane_rollback(snaps, idx, lane_axis=lane_axis)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lane_rollback"] == 1
+    assert out.dtype == dtype and out.shape == shape
+    assert torch.equal(out, ref.lane_rollback_ref(snaps, idx,
+                                                  lane_axis=lane_axis))
+    assert torch.equal(out, ops.lane_rollback(torch.stack(snaps), idx,
+                                              lane_axis=lane_axis))
+    for lane in range(W):
+        k = max(0, min(int(idx[lane]), n - 1))
+        assert torch.equal(out.select(lane_axis, lane),
+                           snaps[k].select(lane_axis, lane)), lane
 
 
 @pytest.mark.cuda
@@ -291,6 +347,47 @@ def test_cuda_tensors_never_fall_back(cuda):
         attention.F.scaled_dot_product_attention = sdpa
     torch.cuda.synchronize()
     assert calls == [] and all(o.is_cuda for o in outs)
+
+
+def _kernels_per_call(fn, iters: int = 10) -> float:
+    """CUDA kernels launched per call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) / iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("N", VERIFY_N)
+def test_verify_error_one_kernel_bitwise_on_card(cuda, dtype, W, N):
+    """The τ-less error is finished in the verify kernel: one kernel a
+    call, bitwise verify_accept's err and the two-step finish over
+    verify_sums on the same planes, rtol 1e-5 against the plain version."""
+    pred, real = _verify_planes(cuda, W, N, dtype)
+    tau = torch.full((W,), 0.3, device=cuda)
+    for eps in (1e-8, 1e-3):
+        ops.reset_launch_counts()
+        err = ops.verify_error(pred, real, eps=eps)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        assert (n["verify_error"], n["verify_sums"]) == (1, 0)
+        assert err.shape == (W,) and err.dtype == torch.float32
+        assert torch.equal(err, ops.verify_accept(pred, real, tau,
+                                                  eps=eps)[0])
+        sums = ops.verify_sums(pred, real)
+        assert torch.equal(err, torch.sqrt(sums[:, 0])
+                           / (torch.sqrt(sums[:, 1]) + eps))
+        torch.testing.assert_close(err, ref.verify_error_ref(pred, real,
+                                                             eps=eps),
+                                   rtol=1e-5, atol=0.0)
+    assert _kernels_per_call(lambda: ops.verify_error(pred, real)) == 1
 
 
 SCALAR_SHAPES = [(1, 64), (3, 17), (3, 2, 2, 4, 8, 16), (2, 1000),

@@ -140,6 +140,7 @@ def test_cpu_path_does_not_count_launches():
     ops.verify_accept(torch.ones(2, 8), torch.ones(2, 8), torch.ones(2))
     ops.taylor_predict_chain_lanes(d, torch.ones(3, 4, 2))
     ops.lane_rollback(d, torch.tensor([0, 2], dtype=torch.int32))
+    ops.lane_rollback(list(d), torch.tensor([0, 2], dtype=torch.int32))
     ops.spectral_update_lanes(d, torch.zeros(2, 2, 2, 4, 8), mask)
     ops.taylor_predict(d, torch.ones(3))
     ops.taylor_update(d, torch.zeros(2, 2, 2, 4, 8))
@@ -264,6 +265,65 @@ def test_rollback_plain_int_leaves_and_clamp():
     out = ops.lane_rollback(torch.from_numpy(chain), wild, lane_axis=0)
     for lane, k in enumerate([0, 3, 1, 3, 0]):
         assert torch.equal(out[lane], torch.from_numpy(chain[k, lane]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("lane_axis", [0, 2])
+def test_rollback_snapshot_list_bitwise_matches_stacked_and_pallas(
+        dtype, lane_axis):
+    """``ops.lane_rollback`` over a list of K+1 snapshots (the chain step's
+    form) is bitwise the restore of the stacked tensor and the JAX
+    package's ``lane_rollback`` on the same numpy inputs; indices below 0
+    and above K clamp to snapshot 0 and K."""
+    K = 3
+    rng = np.random.default_rng(13)
+    feat = (4, 3, 5, 6) if lane_axis == 0 else (2, 3, 4, 5)    # 4 lanes
+    if dtype == torch.int32:
+        chain = rng.integers(-1000, 1000, size=(K + 1,) + feat,
+                             dtype=np.int32)
+        cj, ct = jnp.asarray(chain), torch.from_numpy(chain)
+    else:
+        cj, ct = _both(rng.normal(size=(K + 1,) + feat)
+                       .astype(np.float32), dtype)
+    idx = np.array([-2, 3, 1, 7], np.int32)
+    it = torch.from_numpy(idx)
+    snaps = [ct[k].clone() for k in range(K + 1)]
+    out = ops.lane_rollback(snaps, it, lane_axis=lane_axis)
+    assert out.dtype == dtype and out.shape == ct.shape[1:]
+    assert torch.equal(out, ops.lane_rollback(ct, it, lane_axis=lane_axis))
+    np.testing.assert_array_equal(
+        _np(out), _np(jops.lane_rollback(cj, jnp.asarray(idx),
+                                         lane_axis=lane_axis)))
+    for lane, k in enumerate([0, 3, 1, 3]):
+        assert torch.equal(out.select(lane_axis, lane),
+                           snaps[k].select(lane_axis, lane))
+    # a tuple and a generator are sequences too; one snapshot restores
+    # itself
+    assert torch.equal(ops.lane_rollback(tuple(snaps), it,
+                                         lane_axis=lane_axis), out)
+    assert torch.equal(ops.lane_rollback((t for t in snaps), it,
+                                         lane_axis=lane_axis), out)
+    assert torch.equal(ops.lane_rollback(snaps[:1], it, lane_axis=lane_axis),
+                       snaps[0])
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "empty", "devices",
+                                  "non_contiguous", "not_a_tensor"])
+def test_rollback_snapshot_list_rejects_bad_snapshots(case):
+    """A snapshot sequence must hold at least one tensor, every snapshot
+    of snapshot 0's shape, dtype and device, and contiguous."""
+    x = torch.zeros(3, 2, 4, 5)
+    snaps = {"shape": [x, x, x[:, :, :3]],
+             "dtype": [x, x.to(torch.bfloat16)],
+             "empty": [],
+             "devices": [x, torch.zeros(3, 2, 4, 5, device="meta")],
+             "non_contiguous": [x, x.transpose(2, 3).contiguous()
+                                .transpose(2, 3)],
+             "not_a_tensor": [x, x.numpy()]}[case]
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        ops.lane_rollback(snaps, idx)
 
 
 def test_workload_rollback_int_and_float_leaves():

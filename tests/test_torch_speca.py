@@ -353,6 +353,50 @@ def test_chain_max_step_caps_the_chain(chain_steps):
     assert not bool(flags["full"].any())
 
 
+@pytest.mark.parametrize("kind", ["no_budget", "cold"])
+def test_chain_tick_that_drafts_nothing_restores_nothing(chain_steps,
+                                                         monkeypatch, kind):
+    """A chain tick in which no lane drafts calls no rollback: every index
+    would clamp to snapshot 0, the payload itself. With no closing full
+    either (no lane has budget left) the payload comes back bitwise, as
+    the same tensor, and an engine fill of one lane afterwards changes
+    only that lane. With cold tables every active lane runs the closing
+    full, and the tick is bitwise the depth-1 tick."""
+    wl, legacy, chain = chain_steps
+    calls = []
+    monkeypatch.setattr(wl, "rollback", lambda *a: calls.append(a))
+    if kind == "no_budget":
+        st = _warm(wl, legacy, 7, [1e12] * W, [K] * W)
+        st["max_step"] = st["step"].clone()
+        st["active"] = torch.tensor([True, False, True, True])
+    else:
+        rng = np.random.default_rng(7)
+        st = PLS.init_workload_state(wl, W, {"labels": torch.tensor([0])},
+                                     active=True)
+        st["x"] = torch.from_numpy(rng.normal(size=tuple(st["x"].shape))
+                                   .astype(np.float32))
+    x0 = st["x"].clone()
+    new, flags = chain(st)
+    assert calls == []
+    assert int(flags["n_drafted"].sum()) == 0
+    if kind == "cold":
+        assert bool(flags["full"].all())
+        ref_new, _ = legacy(st)
+        for lane in range(W):
+            _assert_lane_equal(new, ref_new, lane)
+        return
+    assert not bool(flags["full"].any())
+    assert new["x"] is st["x"] and torch.equal(new["x"], x0)
+    assert int(flags["advanced"].abs().sum()) == 0
+    # the engine fills a freed lane in place on the state the step
+    # returned: only that lane changes
+    req = Request(request_id=0, cond={"labels": torch.tensor([3])}, seed=9)
+    new = wl.fill_payload(new, 1, req, wl.num_steps)
+    assert torch.equal(new["x"][1], wl.noise(9)[0])
+    others = [0, 2, 3]
+    assert torch.equal(new["x"][others], x0[others])
+
+
 def _port_reqs(n, policy=None):
     return [Request(request_id=i, cond={"labels": torch.tensor([i + 1])},
                     seed=20 + i, policy=policy) for i in range(n)]
