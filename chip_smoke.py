@@ -7,7 +7,7 @@ CUDA toolkit:  python3 chip_smoke.py
 Phases (any failure ends the run with a non-zero exit):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
-   sources, twelve kernel rows; one nvcc per source, started together) and
+   sources, thirteen kernel rows; one nvcc per source, started together) and
    print what ptxas reports. Both flash kernels must show wgmma
    (``HGMMA``, of TF32 type in the f32 one) and TMA loads (``UTMALDG``) in
    their SASS (``cuobjdump``) and no spills.
@@ -40,7 +40,16 @@ Phases (any failure ends the run with a non-zero exit):
    through the τ-less ``ops.verify_sums`` and ``ops.verify_error`` (rtol
    1e-5; the error one kernel a call, bitwise ``verify_accept``'s err and
    the two-step finish over the sums, and timed beside that finish); each
-   is also checked at the other shapes above.
+   is also checked at the other shapes above. The mixed guided/unguided
+   verify ``ops.verify_accept_mixed`` at the serving planes [4, 294912]
+   and at W = 5 (odd tail) with N = 6149 and 3000 (not multiples of the
+   chunk), in bf16 and f32, paired all-False, all-True and the first pair
+   only, scales 1.5 and 4.0: rtol 1e-5 against its plain version with
+   equal accept bits wherever |e − τ| > 1e-5, one kernel a call, its
+   unpaired rows bitwise ``ops.verify_accept`` on the same planes and its
+   paired rows bitwise ``ops.verify_accept`` on the plain f32 planes; timed
+   in turns with the two-step it replaces (the plain planes, then
+   ``ops.verify_accept``), by events and device time, beside its bound.
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
@@ -79,7 +88,25 @@ Phases (any failure ends the run with a non-zero exit):
    max_draft_depth=4)`` serves 4 depth-4 requests at lanes=4 (the ring
    shift and the chain predict must launch, the rollback as in phase 4)
    and at lanes=1, with identical counters.
-6. ``speca_sample`` at batch 2 on the same model.
+6. Classifier-free guidance (``serve_guided``): 8 requests at lanes=4 —
+   0-3 guided (scales 4.0, 1.5, 4.0, 1.5; request 2 with a negative
+   prompt), 4-7 phase 3's requests 0-3 — queued alternately so that guided
+   pairs and single lanes share ticks. ``verify_accept_mixed``, the lane
+   predict and the refresh must launch and ``verify_accept`` must not;
+   the unguided requests keep phase 3's trajectories, counters and
+   samples (within 1e-5); lanes=2 keeps every counter; some guided draft
+   must be accepted and some rejected (a guided request with more drafted
+   steps than accepted ones). Then the 4 guided requests at draft depth 4
+   on ``SpeCaEngine(max_draft_depth=4)``: the chain predict, the rollback
+   (as in phase 4) and the mixed verify launch, some chain tick must have
+   a paired lane reject a drafted position (its ``n_drafted`` above its
+   ``n_spec``, so the rollback restored an earlier snapshot), the depth-1
+   trajectories hold in fewer ticks, lanes=2 keeps the counters.
+7. ``speca_sample`` at batch 2 on the same model.
+8. ``profiler``: every kernel count and device time above is read from
+   torch.profiler windows; a window with no CUDA event, or with a count
+   that is no multiple of the calls, is recorded again (up to 5
+   windows), and at most one reading in 10 may have needed that.
 
 Each serving phase resets the launch counts just before its run and
 reads them just after, and asserts the kernels of its own path.
@@ -156,22 +183,46 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# windows each profiler reading took (see _cuda_events); held by the
+# ``profiler`` phase
+PROFILE_WINDOWS = []
+
+
+def _cuda_events(torch, fn, iters: int, attempts: int = 5):
+    """The CUDA events torch.profiler records over ``iters`` calls of
+    ``fn`` after one warm call. The profiler now and then loses some or
+    all events of a window, whatever runs in it
+    (``tools/profiler_windows.py``): a window with no CUDA event, or with
+    a count that is no multiple of ``iters`` (every call launches the
+    same kernels), is no reading, so it is recorded again, up to
+    ``attempts`` windows. The windows taken go to ``PROFILE_WINDOWS``;
+    a window recorded again is printed."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for used in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and len(events) % iters == 0:
+            break
+        print(f"profiler: window {used} of {attempts} recorded "
+              f"{len(events)} CUDA events for {iters} calls", flush=True)
+    PROFILE_WINDOWS.append(used)
+    return events
+
+
 def device_spans(torch, fn, iters: int = 1):
     """Device time per call of ``fn`` of each CUDA kernel it runs, in µs,
     by name: the summed spans from torch.profiler over ``iters`` calls
     after one warm call (no host cost between launches)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     spans = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans[e.name] = spans.get(e.name, 0.0) + \
-                (e.time_range.end - e.time_range.start) / iters
+    for e in _cuda_events(torch, fn, iters):
+        spans[e.name] = spans.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / iters
     return spans
 
 
@@ -186,15 +237,7 @@ def device_ms(torch, fn, names, iters: int = 100):
 
 def kernels_per_call(torch, fn, iters: int = 10) -> float:
     """CUDA kernels launched per call of ``fn``, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events()) / iters
+    return len(_cuda_events(torch, fn, iters)) / iters
 
 
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -226,6 +269,18 @@ class Smoke:
         dt = time.perf_counter() - t0
         self.record.setdefault("phase_s", {})[name] = dt
         print(f"[{name}] {status} in {dt:.1f} s", flush=True)
+
+    def profiler(self):
+        """Every profiler reading of the run and the windows it took: a
+        window recorded again must stay rare (at most one reading in 10),
+        or the counts and device times above stand on a profiler that
+        loses windows."""
+        n, again = len(PROFILE_WINDOWS), sum(w > 1 for w in PROFILE_WINDOWS)
+        print(f"profiler: {n} readings, {again} took a second window "
+              f"(windows {sum(PROFILE_WINDOWS)})")
+        self.record["profiler"] = dict(readings=n, readings_retried=again,
+                                       windows=sum(PROFILE_WINDOWS))
+        assert n and again <= n // 10, (n, again)
 
     # --- phase 1 -------------------------------------------------------------
     def build(self):
@@ -348,7 +403,17 @@ class Smoke:
                                                      lane_axis=0), want), \
                     f"snapshot rollback not bitwise on latents {dtype}"
         self.record["kernel_checks"] = checks
+        # the mixed guided/unguided verify: the serving planes, and W = 5
+        # (odd tail) with N not a multiple of the chunk (6149: element
+        # order everywhere; 3000: N % 8 == 4, so a bf16 launch sums its
+        # paired rows in 4-element groups and the others element-wise)
+        mixed = []
+        for W, N in ((LANES, main[4] * main[5]), (5, 6149), (5, 3000)):
+            for dtype in (torch.bfloat16, torch.float32):
+                mixed.append(self._check_mixed_verify(W, N, dtype))
+        self.record["mixed_verify_checks"] = mixed
         self._time_main(main, torch.bfloat16)
+        self._time_mixed_verify(main[4] * main[5], torch.bfloat16)
         self._time_chain_kernels(main, torch.bfloat16)
         self._drive_and_time_scalar(main, torch.bfloat16)
         for name, k in self.kernels.items():
@@ -422,6 +487,124 @@ class Smoke:
         pred = real + scale * torch.randn((W, N), generator=g,
                                           device=self.dev)
         return pred.to(dtype).contiguous(), real.to(dtype).contiguous()
+
+    def _planes(self, W, N, dtype, seed=7):
+        """pred/real verify planes [W, N], each row off by its own
+        scale."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        real = torch.randn((W, N), generator=g, device=self.dev)
+        scale = torch.linspace(0.05, 1.0, W, device=self.dev)[:, None]
+        pred = real + scale * torch.randn((W, N), generator=g,
+                                          device=self.dev)
+        return pred.to(dtype).contiguous(), real.to(dtype).contiguous()
+
+    def _mixed_inputs(self, W):
+        """The masks of the mixed check (all-False, all-True, the first
+        pair only; at odd W the tail lane's flag is set and must be
+        ignored) and the scales (1.5 and 4.0 by pair)."""
+        torch = self.torch
+        masks = {"none": [False] * W, "all": [True] * W,
+                 "first_pair": [True, True] + [False] * (W - 2)}
+        if W % 2:
+            masks["first_pair"][-1] = True
+        gs = torch.tensor([1.5, 1.5, 4.0, 4.0, 1.5][:W] + [1.5] * (W - 5),
+                          device=self.dev)
+        return {k: torch.tensor(v, device=self.dev)
+                for k, v in masks.items()}, gs
+
+    def _check_mixed_verify(self, W, N, dtype):
+        """``ops.verify_accept_mixed`` against its plain version (rtol
+        1e-5, equal accept bits wherever |e − τ| > 1e-5, τ per row
+        straddling its error), one kernel a call, and its two pins
+        bitwise: unpaired rows (the tail of an odd W too) are
+        ``ops.verify_accept`` on the same planes, paired rows
+        ``ops.verify_accept`` on the plain f32 planes."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        pred, real = self._planes(W, N, dtype)
+        masks, gs = self._mixed_inputs(W)
+        out = {"W": W, "N": N, "dtype": str(dtype)}
+        for name, paired in masks.items():
+            eff = paired & (torch.arange(W, device=self.dev)
+                            < 2 * (W // 2))
+            e0, _ = ref.verify_accept_mixed_ref(
+                pred, real, torch.ones(W, device=self.dev), gs, paired)
+            tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9, 1.1][:W],
+                                     device=self.dev)).contiguous()
+            em, am = ops.verify_accept_mixed(pred, real, tau, gs, paired)
+            er, ar = ref.verify_accept_mixed_ref(pred, real, tau, gs,
+                                                 paired)
+            torch.testing.assert_close(em, er, rtol=1e-5, atol=0.0)
+            far = (er - tau).abs() > 1e-5
+            assert torch.equal(am[far], ar[far]), f"mixed accept {name}"
+            ev, av = ops.verify_accept(pred, real, tau)
+            assert torch.equal(em[~eff], ev[~eff]) and \
+                torch.equal(am[~eff], av[~eff]), \
+                f"mixed {name}: unpaired rows != verify_accept ({W}, {N})"
+            p32, r32 = ref.mixed_planes_ref(pred, real, gs, paired)
+            eb, ab = ops.verify_accept(p32, r32, tau)
+            assert torch.equal(em[eff], eb[eff]) and \
+                torch.equal(am[eff], ab[eff]), \
+                f"mixed {name}: paired rows != verify_accept on the f32 " \
+                f"planes ({W}, {N})"
+            per_call = kernels_per_call(torch, lambda: ops.verify_accept_mixed(
+                pred, real, tau, gs, paired))
+            assert per_call == 1, f"verify_accept_mixed: {per_call} a call"
+            out[f"{name}_max_abs_err"] = (em - er).abs().max().item()
+        print(f"verify_accept_mixed == plain, pins bitwise: {out}")
+        return out
+
+    def _time_mixed_verify(self, N, dtype):
+        """The mixed verify at the serving planes [4, N]: the kernel and
+        the two-step it replaces (the plain planes, then
+        ``ops.verify_accept``) in turns, by events and by device time,
+        with each mask's device time beside; the first pair alone paired
+        is the headline (a guided pair beside two unguided lanes)."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        W = LANES
+        pred, real = self._planes(W, N, dtype, seed=9)
+        masks, gs = self._mixed_inputs(W)
+        tau = torch.full((W,), 0.3, device=self.dev)
+        paired = masks["first_pair"]
+        paths = {"kernel": lambda: ops.verify_accept_mixed(pred, real, tau,
+                                                           gs, paired),
+                 "two_step": lambda: ops.verify_accept(
+                     *ref.mixed_planes_ref(pred, real, gs, paired), tau)}
+        turns = {n: {"event_ms": [], "device_ms": [], "kernels_per_call": []}
+                 for n in paths}
+        for n in ("kernel", "two_step", "two_step", "kernel"):
+            fn = paths[n]
+            turns[n]["event_ms"].append(time_ms(torch, fn, iters=100))
+            turns[n]["device_ms"].append(
+                sum(device_spans(torch, fn, iters=100).values()) / 1e3)
+            turns[n]["kernels_per_call"].append(kernels_per_call(torch, fn))
+        assert turns["kernel"]["kernels_per_call"] == [1, 1], turns
+        ek, _ = paths["kernel"]()
+        ep, _ = ref.verify_accept_mixed_ref(pred, real, tau, gs, paired)
+        by_mask = {name: device_ms(torch, lambda m=m: ops.verify_accept_mixed(
+            pred, real, tau, gs, m), ("verify_kernel",))
+            for name, m in masks.items()}
+        plain = time_ms(torch, lambda: ref.verify_accept_mixed_ref(
+            pred, real, tau, gs, paired), iters=100)
+        es = pred.element_size()
+        # both planes read once (a pair's rows once for the pair), τ,
+        # gscale and paired read, err and accept written
+        vb, vf = bound_ms(2 * W * N * es + W * (4 + 4 + 1 + 4 + 1),
+                          7.0 * W * N)
+        mean = {n: {k: sum(v) / len(v) for k, v in t.items()}
+                for n, t in turns.items()}
+        self.kernels["verify_accept_mixed"] = dict(
+            ms=mean["kernel"]["event_ms"],
+            device_ms=mean["kernel"]["device_ms"],
+            kernels_per_call=mean["kernel"]["kernels_per_call"],
+            two_step_ms=mean["two_step"]["event_ms"],
+            two_step_device_ms=mean["two_step"]["device_ms"],
+            two_step_kernels_per_call=mean["two_step"]["kernels_per_call"],
+            device_ms_by_mask=by_mask, turns=turns, plain_ms=plain,
+            library_ms=None, bound_ms=vb, bound_by=vf,
+            max_abs_err=(ek - ep).abs().max().item())
 
     def _time_main(self, shape, dtype):
         torch = self.torch
@@ -1000,8 +1183,9 @@ class Smoke:
     @contextlib.contextmanager
     def _chain_ticks(self):
         """Record each chain tick run inside: the rollback launches it
-        made (the host-side count, no sync) and its ``n_drafted`` flags
-        (device tensors, read after the run)."""
+        made (the host-side count, no sync), its ``n_drafted`` and
+        ``n_spec`` flags and the ``paired`` mask it ran with (device
+        tensors, read after the run)."""
         from repro_torch.core import lane_step as LS
         from repro_torch.kernels import ops
         ticks = []
@@ -1009,9 +1193,10 @@ class Smoke:
 
         def probe(step, state):
             before = ops.LAUNCHES["lane_rollback"]
+            paired = state["paired"].clone() if "paired" in state else None
             new, flags = call(step, state)
             ticks.append((ops.LAUNCHES["lane_rollback"] - before,
-                          flags["n_drafted"]))
+                          flags["n_drafted"], flags["n_spec"], paired))
             return new, flags
         LS.ChainStep.__call__ = probe
         try:
@@ -1022,18 +1207,29 @@ class Smoke:
     def _hold_chain_ticks(self, name, ticks, launches):
         """A chain tick launches the rollback once when some lane drafted
         (one payload leaf, read from its snapshots: no stack) and not at
-        all when none did; returns the counts to record."""
-        per_tick = [n for n, _ in ticks]
-        drafted = [int(f.sum().item()) > 0 for _, f in ticks]
+        all when none did; returns the counts to record, with the ticks
+        on which some lane (some paired lane) had a drafted position
+        rejected, so that the rollback restored a snapshot before it."""
+        per_tick = [n for n, *_ in ticks]
+        drafted = [int(d.sum().item()) > 0 for _, d, _, _ in ticks]
         idle = drafted.count(False)
-        print(f"{name}: {len(ticks)} chain ticks, {idle} drafted nothing; "
-              f"rollback launches {launches['lane_rollback']} (per tick "
-              f"at most {max(per_tick, default=0)})")
+        rejected = [d > a for _, d, a, _ in ticks]
+        n_rejected = sum(bool(r.any().item()) for r in rejected)
+        n_rejected_paired = sum(bool((r & p).any().item())
+                                for r, (*_, p) in zip(rejected, ticks)
+                                if p is not None)
+        print(f"{name}: {len(ticks)} chain ticks, {idle} drafted nothing, "
+              f"{n_rejected} rejected a drafted position ({n_rejected_paired}"
+              f" in a guided pair); rollback launches "
+              f"{launches['lane_rollback']} (per tick at most "
+              f"{max(per_tick, default=0)})")
         assert all(n == int(d) for n, d in zip(per_tick, drafted)), \
             "a chain tick's rollback launches != (some lane drafted)"
         assert launches["lane_rollback"] == sum(per_tick) == \
             len(ticks) - idle, (launches, len(ticks), idle)
         return dict(chain_ticks=len(ticks), ticks_drafted_nothing=idle,
+                    ticks_rejected=n_rejected,
+                    ticks_rejected_paired=n_rejected_paired,
                     rollback_launches=launches["lane_rollback"])
 
     # --- phase 4 -------------------------------------------------------------
@@ -1139,6 +1335,152 @@ class Smoke:
             draft_accept_rate=[r.draft_accept_rate for r in res])
 
     # --- phase 6 -------------------------------------------------------------
+    def _guided_requests(self, depth=None):
+        """Requests 0-3 guided (scales 4.0, 1.5, 4.0, 1.5; request 2 with a
+        negative prompt) and 4-7 phase 3's requests 0-3 (same cond, seed
+        and τ), queued as 0, 4, 1, 5, 2, 6, 3, 7 so that guided pairs and
+        single lanes share ticks. ``depth`` gives the guided ones alone
+        at that draft depth."""
+        torch = self.torch
+        from repro_torch.serving import Request, RequestPolicy
+        n = self.cfg.num_classes
+        guided = []
+        for i, gs in enumerate(GUIDED_SCALES):
+            neg = {"labels": torch.tensor([(37 * i + 500) % n])} \
+                if i == 2 else None
+            guided.append(Request(
+                request_id=i, cond={"labels": torch.tensor(
+                    [(37 * i + 11) % n])}, seed=200 + i,
+                policy=RequestPolicy(guidance_scale=gs, negative_cond=neg,
+                                     draft_depth=depth)))
+        if depth is not None:
+            return guided
+        plain = self._requests(len(GUIDED_SCALES))
+        for i, r in enumerate(plain):
+            r.request_id = len(GUIDED_SCALES) + i
+        return [r for pair in zip(guided, plain) for r in pair]
+
+    def serve_guided(self):
+        """Classifier-free guidance: guided pairs and unguided lanes in one
+        batch through the mixed program and ``ops.verify_accept_mixed``
+        (``verify_accept`` must not launch: a paired session verifies
+        every row through the mixed entry). The unguided requests keep
+        phase 3's trajectories, counters and samples (within 1e-5); lanes
+        2 keep lanes 4's counters; then the guided requests at depth 4
+        keep their depth-1 trajectories in fewer ticks, through the chain
+        predict and the rollback."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import SpeCaEngine
+        scfg = SpeCaConfig(taylor_order=2)
+        S = self.dcfg.num_inference_steps
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg, scfg,
+                             device=self.dev)
+        reqs = self._guided_requests()
+        engine.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=5)
+        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
+                                                             LANES)
+        ticks = max(r.finish_tick for r in res)
+        print(f"guided main path launches: {launches}")
+        assert all(launches[n] > 0 for n in GUIDED_KERNELS), launches
+        assert launches["verify_accept"] == 0, launches
+        for name in GUIDED_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault("launches",
+                                                         launches[name])
+        by_id = {r.request_id: r for r in res}
+        n_g = len(GUIDED_SCALES)
+        guided = [by_id[i] for i in range(n_g)]
+        for r in sorted(res, key=lambda r: r.request_id):
+            kind = f"guided s={GUIDED_SCALES[r.request_id]}" \
+                if r.request_id < n_g else "unguided"
+            print(f"  request {r.request_id}: {kind} alpha {r.alpha:.3f} "
+                  f"full {r.num_full} spec {r.num_spec} drafted "
+                  f"{r.num_drafted} accepts "
+                  f"{''.join('1' if a else '0' for a in r.accepts)}")
+        print(f"served {len(reqs)} requests ({n_g} guided) at lanes="
+              f"{LANES} in {wall:.3f} s: {syncs} host syncs over {ticks} "
+              f"ticks, peak {peak:.2f} GiB")
+        samples = torch.cat([r.sample for r in res])
+        assert torch.isfinite(samples).all(), "non-finite guided samples"
+        assert all(r.completed and r.num_full + r.num_spec == S
+                   for r in res)
+        # not vacuous: a guided draft was accepted, and one was rejected
+        # (drafted and not accepted; a cold full step is no rejection)
+        assert any(r.num_spec > 0 for r in guided), "no guided accept"
+        assert any(r.num_drafted > r.num_spec for r in guided), \
+            "no guided draft rejected"
+        # the unguided requests are phase 3's requests 0-3
+        dmax = 0.0
+        for i, base in enumerate(self.serve_results[:n_g]):
+            r = by_id[n_g + i]
+            assert (r.accepts, r.num_full, r.num_spec) == \
+                (base.accepts, base.num_full, base.num_spec), \
+                f"unguided request {n_g + i} left phase 3's trajectory"
+            dmax = max(dmax, (r.sample - base.sample).abs().max().item())
+        assert dmax <= 1e-5, f"unguided samples moved by {dmax}"
+        narrow = engine.serve_batched(reqs, lanes=2)
+        for a, b in zip(res, narrow):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
+                    a.flops) == (b.accepts, b.num_full, b.num_spec,
+                                 b.num_drafted, b.flops), \
+                f"request {a.request_id}: lanes={LANES} and lanes=2 differ"
+        print(f"guided lanes={LANES} and lanes=2 counters identical; "
+              f"unguided requests == phase 3 (max |sample diff| {dmax})")
+
+        deep_engine = SpeCaEngine(self.cfg, self.params, self.dcfg, scfg,
+                                  max_draft_depth=CHAIN_K, device=self.dev)
+        deep_reqs = self._guided_requests(depth=CHAIN_K)
+        deep_engine.serve_batched(deep_reqs, lanes=LANES, max_ticks=5)
+        with self._chain_ticks() as chain_ticks:
+            deep, dl, dwall, dsyncs, _ = self._timed_serve(
+                deep_engine, deep_reqs, LANES)
+        rollback = self._hold_chain_ticks("serve_guided deep", chain_ticks,
+                                          dl)
+        print(f"guided deep launches: {dl}")
+        assert all(dl[n] > 0 for n in GUIDED_DEEP_KERNELS), dl
+        assert dl["verify_accept"] == 0, dl
+        assert any(r.num_spec > 0 for r in deep), "no deep guided accept"
+        assert rollback["ticks_rejected_paired"] > 0, \
+            "no guided chain position rejected and rolled back"
+        ticks_in_flight = sum(r.timings.finish_tick - r.timings.admit_tick
+                              for r in deep)
+        for a, b in zip(guided, deep):
+            assert (a.accepts, a.num_full, a.num_spec) == \
+                (b.accepts, b.num_full, b.num_spec), \
+                f"guided request {a.request_id}: depth {CHAIN_K} left " \
+                "the depth-1 trajectory"
+        assert ticks_in_flight < n_g * S, "no fewer ticks at depth 4"
+        deep2 = deep_engine.serve_batched(deep_reqs, lanes=2)
+        for a, b in zip(deep, deep2):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"deep guided request {a.request_id}: lanes differ"
+        for r in deep:
+            print(f"  deep guided request {r.request_id}: alpha "
+                  f"{r.alpha:.3f} drafted {r.num_drafted} "
+                  f"draft_accept_rate {r.draft_accept_rate:.3f} ticks "
+                  f"{r.timings.finish_tick - r.timings.admit_tick}")
+        print(f"served {n_g} guided depth-{CHAIN_K} requests at lanes="
+              f"{LANES} in {dwall:.3f} s, {dsyncs} host syncs, "
+              f"{ticks_in_flight} request-ticks (depth 1: {n_g * S})")
+        self.record["serve_guided"] = dict(
+            wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            peak_gib=peak, max_abs_diff_unguided_vs_phase3=dmax,
+            requests=[dict(request_id=r.request_id,
+                           guidance_scale=GUIDED_SCALES[r.request_id]
+                           if r.request_id < n_g else None,
+                           alpha=r.alpha, num_full=r.num_full,
+                           num_spec=r.num_spec, num_drafted=r.num_drafted,
+                           flops=r.flops)
+                      for r in res],
+            deep=dict(wall_s=dwall, host_syncs=dsyncs, launches=dl,
+                      request_ticks=ticks_in_flight, **rollback,
+                      alpha=[r.alpha for r in deep],
+                      num_drafted=[r.num_drafted for r in deep],
+                      draft_accept_rate=[r.draft_accept_rate
+                                         for r in deep]))
+
+    # --- phase 7 -------------------------------------------------------------
     def sample(self):
         torch = self.torch
         from repro_torch.configs import SpeCaConfig
@@ -1175,6 +1517,10 @@ KERNEL_META = {
                             "src/repro/kernels/taylor_predict.py:215"),
     "verify_accept": ("src/repro_torch/kernels/csrc/verify_accept.cu",
                       "src/repro/kernels/verify_error.py:72"),
+    # the guided verify: the reference reaches the same Pallas verify_sums
+    # with tau through ops.verify_accept_mixed (src/repro/kernels/ops.py:320)
+    "verify_accept_mixed": ("src/repro_torch/kernels/csrc/verify_accept.cu",
+                            "src/repro/kernels/verify_error.py:72"),
     "taylor_predict_chain_lanes": ("src/repro_torch/kernels/csrc/"
                                    "taylor_predict_chain.cu",
                                    "src/repro/kernels/taylor_predict.py:117"),
@@ -1210,12 +1556,17 @@ DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
                 "taylor_update_lanes", "verify_accept")
 SPECTRAL_KERNELS = ("spectral_update_lanes", "taylor_predict_chain_lanes",
                     "lane_rollback", "verify_accept")
+GUIDED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
+                  "verify_accept_mixed")
+GUIDED_DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
+                       "verify_accept_mixed")
+GUIDED_SCALES = (4.0, 1.5, 4.0, 1.5)       # serve_guided requests 0-3
 # per-kernel numbers the kernels line carries beside the contract's keys
 ROW_EXTRAS = ("device_ms", "event_ms", "kernels_per_call",
               "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
               "two_step_ms", "two_step_device_ms",
-              "two_step_kernels_per_call")
+              "two_step_kernels_per_call", "device_ms_by_mask")
 # the launch-count keys of the reference's scalar-anchor surface
 SCALAR_KEYS = ("taylor_predict", "taylor_update", "verify_sums",
                "verify_error")
@@ -1250,7 +1601,9 @@ def main() -> int:
     if "serve" not in smoke.failures:
         smoke.phase("serve_deep", smoke.serve_deep)
         smoke.phase("serve_spectral", smoke.serve_spectral)
+        smoke.phase("serve_guided", smoke.serve_guided)
         smoke.phase("speca_sample", smoke.sample)
+    smoke.phase("profiler", smoke.profiler)
     card = smi_line()
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

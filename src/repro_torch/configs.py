@@ -74,6 +74,7 @@ class DiffusionConfig:
     num_inference_steps: int = 50
     schedule: str = "cosine"       # linear | cosine | rectified_flow
     latent_size: int = 32          # spatial latent H=W
+    guidance_scale: float = 1.0    # CFG scale of SpeCaEngine(guidance=True)
 
 
 # DiT-XL/2 — the paper's class-conditional image model [arXiv:2212.09748]:

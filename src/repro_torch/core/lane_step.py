@@ -2,7 +2,7 @@
 
 Both execution paths — the sampler (``repro_torch.core.speca``, where the
 sample batch is the lane batch) and the serving engine — advance their
-state through the step built here, unguided:
+state through the step built here:
 
   1. *Draft* (runs iff ANY lane is warm and under its draft budget): the
      forecaster's fused per-lane predict kernel forecasts every lane's
@@ -31,23 +31,38 @@ device sync per branch; :attr:`LaneStep.host_syncs` counts them (two per
 tick at depth 1, at most K+1 per chain tick). Both branches are never
 computed.
 
+Guidance (``guidance=True`` or ``"mixed"``): lanes (2k, 2k+1) form pair
+slot k, the cond and uncond (or negative) streams of one guided request
+where the per-lane ``paired`` mask is set. A paired slot drafts iff both
+its streams can (a pair-coherent ``want``), verifies ONE decision on the
+guided residual ``u + s·(c − u)`` at the verify layer (s = the slot's
+``gscale``; ``ops.verify_accept_mixed`` on the fused backend), and both
+lanes advance on the guided model output, so ``x``, the counters and the
+anchors stay pair-equal; a rejected pair's full forward refreshes both
+tables. Unpaired lanes — and a trailing odd lane — run the plain
+program's per-lane math. ``True`` starts with every slot paired (even
+W), ``"mixed"`` with none (the engine pairs slots as it fills them).
+
 State (all on the device): ``since`` [W] i32 consecutive accepted drafts,
 ``step`` [W] i32 schedule step, ``active`` [W] bool occupancy, ``tau0``
 [W] f32 per-lane base threshold, ``draft_k`` [W] i32 draft horizon and
 ``max_step`` [W] i32 schedule length (read only by chain steps),
 ``cond`` {k: [W, …]}, the workload payload (diffusion: ``x`` [W, H, W, C]
 f32) and the table (``diffs`` [m+1, L, 2, W, T, D],
-``n_anchors``/``anchor_step``/``gap`` [W]).
+``n_anchors``/``anchor_step``/``gap`` [W]); in the guidance modes also
+``gscale`` [W] f32 and ``paired`` [W] bool.
 
 Flags per tick ([W]): ``attempted``, ``ok``, ``accepted``, ``full``,
 ``err`` (NaN where the lane did not draft), ``tau``, and the counters
 ``n_spec``/``n_drafted``/``advanced``; a chain step adds
 ``chain_attempted``/``chain_accepted``/``chain_err``/``chain_tau``
-[K, W] and reports chain position 0 in the depth-1 keys.
+[K, W] and reports chain position 0 in the depth-1 keys. In a paired slot
+every flag is pair-equal: both lanes report the pair's one decision and
+its guided-residual error.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -56,10 +71,12 @@ from repro_torch.configs import (DiffusionConfig, ModelConfig, SpeCaConfig,
 from repro_torch.core import taylor
 from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.verify import relative_error, threshold_schedule
+from repro_torch.diffusion.pipeline import guided_output
 from repro_torch.kernels import ops
 
 ACCEPT_MODES = ("batch", "per_sample")
 VERIFY_BACKENDS = ("fused", "jnp")
+GUIDANCE_MODES = (False, True, "mixed")
 
 # the per-tick [W] counters the engine's accounting reads
 COUNTER_FLAGS = ("attempted", "accepted", "full",
@@ -83,16 +100,36 @@ def table_dtype(cfg: ModelConfig, scfg: SpeCaConfig) -> torch.dtype:
     return torch_dtype(scfg.table_dtype or cfg.dtype)
 
 
+def _check_guidance(guidance: Union[bool, str], lanes: int) -> None:
+    if guidance not in GUIDANCE_MODES:
+        raise ValueError(f"unknown guidance mode {guidance!r} "
+                         f"(have {GUIDANCE_MODES})")
+    if guidance is True and lanes % 2 != 0:
+        raise ValueError(f"guidance mode packs lane PAIRS: lanes={lanes} "
+                         "must be even")
+
+
+def _check_pairing(wl, guidance: Union[bool, str], lanes: int) -> None:
+    _check_guidance(guidance, lanes)
+    if guidance and not wl.supports_pairing:
+        raise ValueError(f"workload {wl.tag!r} does not support guided "
+                         "lane pairs")
+
+
 def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
                         x: Optional[torch.Tensor] = None,
                         active: bool = False,
+                        guidance: Union[bool, str] = False,
                         forecaster: Any = None) -> State:
     """Fresh lane-batch state on the workload's device. ``cond_template``
     supplies per-key shapes (its leading axis is replaced by ``lanes``);
     pass ``x`` to start from a concrete latent (the sampler) instead of
     zeros (the engine). ``forecaster`` (a name or instance, ``None`` =
-    Taylor) lays out the table."""
+    Taylor) lays out the table. ``guidance=True`` adds ``gscale`` (all
+    ones) and ``paired`` all True and needs an even ``lanes``;
+    ``"mixed"`` starts ``paired`` all False."""
     W, dev = lanes, wl.device
+    _check_pairing(wl, guidance, W)
     fc = get_forecaster(forecaster)
     feat_shape = taylor.feature_shape_for(wl.cfg.num_layers, W,
                                           wl.num_tokens, wl.cfg.d_model)
@@ -102,7 +139,7 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
     for k, v in cond_template.items():
         v = torch.as_tensor(v, device=dev)
         cond[k] = torch.broadcast_to(v, (W,) + tuple(v.shape[1:])).clone()
-    return {
+    state = {
         "since": torch.zeros((W,), dtype=torch.int32, device=dev),
         "step": torch.zeros((W,), dtype=torch.int32, device=dev),
         "active": torch.full((W,), bool(active), device=dev),
@@ -116,6 +153,10 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
         **wl.init_payload(W, x=x),
         **tstate,
     }
+    if guidance:
+        state["gscale"] = torch.ones((W,), dtype=torch.float32, device=dev)
+        state["paired"] = torch.full((W,), guidance is True, device=dev)
+    return state
 
 
 class LaneStep:
@@ -124,14 +165,18 @@ class LaneStep:
 
     def __init__(self, wl, *, lanes: int, draft_mode: str,
                  accept_mode: str, verify_backend: str,
+                 guidance: Union[bool, str] = False,
                  forecaster: Any = None) -> None:
         if accept_mode not in ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
         if verify_backend not in VERIFY_BACKENDS:
             raise ValueError(f"unknown verify_backend {verify_backend!r}")
+        _check_pairing(wl, guidance, lanes)
         if wl.scfg.error_metric != "rel_l2":
             verify_backend = "jnp"   # the fused kernel implements eq. 4 only
         self.wl, self.W = wl, lanes
+        self.NP = lanes // 2             # pair slots (guidance modes)
+        self.pairing = bool(guidance) and self.NP > 0
         self.fc = get_forecaster(forecaster)
         self.draft_mode = draft_mode
         self.accept_mode = accept_mode
@@ -152,6 +197,50 @@ class LaneStep:
         self.host_syncs += 1
         return bool(t.any())
 
+    # --- pair slots (guidance modes) -----------------------------------------
+    def pair_head(self, v: torch.Tensor) -> torch.Tensor:
+        """[W, …] -> [NP, 2, …]: the pair-slot fold of the first 2·NP
+        lanes; a trailing odd lane is left out (it is never paired)."""
+        NP = self.NP
+        return v[:2 * NP].reshape((NP, 2) + tuple(v.shape[1:]))
+
+    def with_tail(self, head2: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+        """[NP, 2, …] -> [W, …], re-attaching ``v``'s trailing odd lane."""
+        out = head2.reshape((2 * self.NP,) + tuple(head2.shape[2:]))
+        if self.W % 2:
+            out = torch.cat([out, v[2 * self.NP:]], dim=0)
+        return out
+
+    def pair_select(self, paired: torch.Tensor, pair_val: torch.Tensor,
+                    lane_val: torch.Tensor) -> torch.Tensor:
+        """Per-lane select between pair-slot and per-lane values."""
+        pm = paired.reshape((self.W,) + (1,) * (lane_val.dim() - 1))
+        return torch.where(pm, pair_val, lane_val)
+
+    def pair_broadcast(self, pair_val: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+        """A per-slot value [NP, …] on both lanes of its slot, as [W, …]
+        with ``v``'s trailing odd lane."""
+        return self.with_tail(torch.broadcast_to(
+            pair_val[:, None], (self.NP, 2) + tuple(pair_val.shape[1:])), v)
+
+    def pair_combine(self, out: torch.Tensor, gscale: torch.Tensor,
+                     paired: torch.Tensor) -> torch.Tensor:
+        """A paired slot's lanes both advance on the guided output
+        ``u + s·(c − u)``; unpaired lanes keep their own."""
+        h = self.pair_head(out)
+        g = guided_output(h[:, 0], h[:, 1], self.pair_head(gscale)[:, 0])
+        return self.pair_select(paired, self.pair_broadcast(g, out), out)
+
+    def pair_want(self, want: torch.Tensor,
+                  paired: torch.Tensor) -> torch.Tensor:
+        """A paired slot drafts iff both its streams can."""
+        h = self.pair_head(want)
+        return torch.where(paired, self.pair_broadcast(h[:, 0] & h[:, 1],
+                                                       want), want)
+
+    # --- verification --------------------------------------------------------
     def verify(self, pred_vl, real_vl, tau):
         """(err [W], ok [W]) — the same math on every execution path."""
         W, scfg = self.W, self.wl.scfg
@@ -163,6 +252,44 @@ class LaneStep:
                              eps=scfg.eps, batch_axis=0)
         return err, err <= tau
 
+    def verify_mixed(self, pred_vl, real_vl, tau, gs, paired):
+        """Slot-width verify: ONE guided-residual decision per paired slot
+        (both lanes report it), per-lane decisions elsewhere. The
+        metric-general path keeps unpaired lanes in the plain program's
+        math and combines pairs in f32, as the fused kernel does."""
+        W, scfg = self.W, self.wl.scfg
+        if self.verify_backend == "fused":
+            return ops.verify_accept_mixed(pred_vl.reshape(W, -1),
+                                           real_vl.reshape(W, -1), tau, gs,
+                                           paired, eps=scfg.eps)
+        err_lane = relative_error(pred_vl, real_vl,
+                                  metric=scfg.error_metric, eps=scfg.eps,
+                                  batch_axis=0)
+        ph = self.pair_head(pred_vl).to(torch.float32)
+        rh = self.pair_head(real_vl).to(torch.float32)
+        gs_p = self.pair_head(gs)[:, 0]
+        err_p = relative_error(guided_output(ph[:, 0], ph[:, 1], gs_p),
+                               guided_output(rh[:, 0], rh[:, 1], gs_p),
+                               metric=scfg.error_metric, eps=scfg.eps,
+                               batch_axis=0)
+        err = torch.where(paired, self.pair_broadcast(err_p, err_lane),
+                          err_lane)
+        return err, err <= tau
+
+    def _verify(self, state, pred_vl, real_vl, tau):
+        if self.pairing:
+            return self.verify_mixed(pred_vl, real_vl, tau, state["gscale"],
+                                     state["paired"])
+        return self.verify(pred_vl, real_vl, tau)
+
+    def _want(self, state, want):
+        return self.pair_want(want, state["paired"]) if self.pairing \
+            else want
+
+    def _out(self, state, out):
+        return self.pair_combine(out, state["gscale"], state["paired"]) \
+            if self.pairing else out
+
     def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
         wl, fc, W = self.wl, self.fc, self.W
         scfg, vl = wl.scfg, wl.verify_layer
@@ -173,7 +300,7 @@ class LaneStep:
         s_eff = torch.clamp(s, max=wl.num_steps - 1)
         ctx = wl.step_context(state, s_eff)
         warm = fc.warm(tstate, scfg)
-        want = active & warm & (since < scfg.max_draft)
+        want = self._want(state, active & warm & (since < scfg.max_draft))
         # per-lane τ_t = τ0·β^((T−t)/T) at each lane's own step
         tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"], scfg.beta)
         nan = self._nan()
@@ -182,7 +309,7 @@ class LaneStep:
             preds = fc.predict_lanes(tstate, s_eff, mode=self.draft_mode)
             out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
             pred_vl = preds[vl][0] + preds[vl][1]
-            err, ok = self.verify(pred_vl, real_vl, tau)
+            err, ok = self._verify(state, pred_vl, real_vl, tau)
             # NaN marks "did not draft": it fails every `err <= tau`
             err, ok = torch.where(want, err, nan), ok & want
         else:
@@ -196,7 +323,7 @@ class LaneStep:
             tstate = fc.update_lanes(tstate, branches, s_eff, full)
         else:
             out_full = wl.zero_out(W)
-        out = wl.select_out(accept, out_spec, out_full)
+        out = self._out(state, wl.select_out(accept, out_spec, out_full))
         dyn = wl.select_dyn(active, wl.advance(dyn, out, ctx, s_eff), dyn)
         since = torch.where(accept, since + 1,
                             torch.where(active, torch.zeros_like(since),
@@ -262,7 +389,8 @@ class ChainStep(LaneStep):
             s_eff = torch.clamp(s, max=S - 1)
             ctx = wl.step_context(state, s_eff)
             budget = (draft_k > j) & (s < max_step)
-            want = alive & budget & warm & (since < scfg.max_draft)
+            want = self._want(state, alive & budget & warm
+                              & (since < scfg.max_draft))
             tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"],
                                      scfg.beta)
             drafting = drafting and self._any(want)
@@ -273,7 +401,7 @@ class ChainStep(LaneStep):
                 preds = preds_chain[j]
                 out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
                 pred_vl = preds[vl][0] + preds[vl][1]
-                err, ok = self.verify(pred_vl, real_vl, tau)
+                err, ok = self._verify(state, pred_vl, real_vl, tau)
                 err, ok = torch.where(want, err, self._nan()), ok & want
             else:
                 err, ok = self._nan(), torch.zeros_like(want)
@@ -282,9 +410,10 @@ class ChainStep(LaneStep):
             # the closing full; one whose budget ran out stops clean
             stop_full = stop_full | (alive & budget & ~acc)
             if drafting:
-                # blind advance: every row steps on the drafted output;
-                # the rollback keeps only accepted prefixes
-                dyn = wl.advance(dyn, out_spec, ctx, s_eff)
+                # blind advance: every row steps on the drafted output
+                # (a paired slot's on the guided one); the rollback keeps
+                # only accepted prefixes
+                dyn = wl.advance(dyn, self._out(state, out_spec), ctx, s_eff)
                 snaps.append(dyn)
             since = torch.where(acc, since + 1, since)
             s = s + acc.to(torch.int32)
@@ -316,6 +445,7 @@ class ChainStep(LaneStep):
             ctx = wl.step_context(state, s_eff)
             out_full, branches = wl.full_forward(dyn, cond, ctx)
             tstate = fc.update_lanes(tstate, branches, s_eff, stop_full)
+            out_full = self._out(state, out_full)
             dyn = wl.select_dyn(stop_full,
                                 wl.advance(dyn, out_full, ctx, s_eff), dyn)
         since = torch.where(stop_full, torch.zeros_like(since), since)
@@ -335,19 +465,23 @@ class ChainStep(LaneStep):
 def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                         accept_mode: str = "per_sample",
                         verify_backend: str = "jnp",
+                        guidance: Union[bool, str] = False,
                         max_draft_depth: int = 1,
                         forecaster: Any = None) -> LaneStep:
-    """Build the unguided lane step for a ``Workload``: the depth-1
+    """Build the lane step for a ``Workload``: the depth-1
     :class:`LaneStep` at ``max_draft_depth=1``, else a :class:`ChainStep`
     of K = ``max_draft_depth`` positions (each lane's horizon is its
     ``draft_k`` state entry). ``draft_mode`` picks the Taylor weights of
-    ``taylor.prediction_weights``; ``forecaster`` is a name or
+    ``taylor.prediction_weights``; ``guidance`` is ``False`` (per-lane),
+    ``True`` (every slot a guided pair) or ``"mixed"`` (the state's
+    ``paired`` mask decides, slot by slot); ``forecaster`` is a name or
     ``Forecaster`` instance (``None`` = Taylor)."""
     if max_draft_depth < 1:
         raise ValueError(f"max_draft_depth must be >= 1, "
                          f"got {max_draft_depth}")
     kw = dict(lanes=lanes, draft_mode=draft_mode, accept_mode=accept_mode,
-              verify_backend=verify_backend, forecaster=forecaster)
+              verify_backend=verify_backend, guidance=guidance,
+              forecaster=forecaster)
     if max_draft_depth == 1:
         return LaneStep(wl, **kw)
     return ChainStep(wl, depth=int(max_draft_depth), **kw)

@@ -41,7 +41,8 @@ class Workload:
     Static attributes: ``tag``, ``cfg``/``scfg``, ``num_steps``,
     ``num_tokens``, ``verify_layer``, ``table_dtype``, ``device``,
     ``dyn_keys`` / ``dyn_axes`` (payload keys and their lane axes),
-    ``full_flops`` / ``verify_flops``. Step hooks: ``t_frac``,
+    ``full_flops`` / ``verify_flops``, ``supports_pairing`` (guided
+    cond/uncond lane pairs). Step hooks: ``t_frac``,
     ``step_context``, ``spec_forward``, ``full_forward``, ``zero_out``,
     ``select_out``, ``advance``, ``rollback``. Host hooks: ``init_payload``,
     ``fill_payload``, ``emit``.
@@ -49,6 +50,7 @@ class Workload:
 
     tag: str = "?"
     dyn_axes: Dict[str, int] = {}
+    supports_pairing: bool = False
 
     def rollback(self, chain: Dict[str, Any], n_acc: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
@@ -71,6 +73,7 @@ class DiffusionWorkload(Workload):
     request's seed, so a request's noise does not depend on the device."""
 
     tag = "diffusion"
+    supports_pairing = True
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DiffusionConfig,
                  scfg: SpeCaConfig, *, device: DeviceLike = "cuda",

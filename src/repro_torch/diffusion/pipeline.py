@@ -85,14 +85,42 @@ def null_cond_like(cfg: ModelConfig,
     return out
 
 
+def guided_output(out_c: torch.Tensor, out_u: torch.Tensor,
+                  guidance_scale) -> torch.Tensor:
+    """Classifier-free guidance combination ``u + s·(c − u)``: ``s = 1``
+    recovers the conditional stream, ``s > 1`` extrapolates away from the
+    unconditional one. ``guidance_scale`` is a number or a tensor whose
+    shape leads ``out_c``'s (one scale per row).
+
+    The reference's type promotion: ``c − u`` in the outputs' dtype, then
+    the product and the sum in f32 (or wider), three IEEE roundings as
+    three eager ops. Neither ``torch.lerp`` nor ``addcmul``: they round
+    differently. The kernel's planes restate it (``kernels.ref.
+    mixed_planes_ref``, the ``verify_accept_mixed`` entry)."""
+    dt = torch.promote_types(torch.promote_types(out_c.dtype, out_u.dtype),
+                             torch.float32)
+    s = torch.as_tensor(guidance_scale, dtype=torch.float32,
+                        device=out_c.device)
+    s = s.reshape(tuple(s.shape) + (1,) * (out_c.dim() - s.dim())).to(dt)
+    return out_u.to(dt) + s * (out_c - out_u).to(dt)
+
+
 def sample_full(cfg: ModelConfig, params: Dict[str, Any],
                 dcfg: DiffusionConfig, cond: Dict[str, torch.Tensor],
                 batch: int, *, generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
+                guidance_scale: Optional[float] = None,
+                null_cond: Optional[Dict[str, torch.Tensor]] = None,
                 device: DeviceLike = "cuda") -> torch.Tensor:
     """Reference sampler: a full forward at every step (the 1.00×
     baseline). The initial latent comes from ``noise`` when given, else
-    from ``generator``."""
+    from ``generator``.
+
+    ``guidance_scale`` switches on two-pass classifier-free guidance:
+    every step runs the denoiser on ``cond`` and on ``null_cond``
+    (:func:`null_cond_like` of ``cond`` when not given) and advances on
+    :func:`guided_output` — the unaccelerated oracle of the paired-lane
+    guided paths."""
     dev = resolve_device(device)
     stepper = make_stepper(dcfg, dev)
     shape = latent_shape(cfg, dcfg, batch)
@@ -100,8 +128,16 @@ def sample_full(cfg: ModelConfig, params: Dict[str, Any],
         gen_dev = generator.device if generator is not None else "cpu"
         noise = torch.randn(shape, generator=generator, device=gen_dev)
     x = noise.to(device=dev, dtype=torch.float32)
+    ncond = None
+    if guidance_scale is not None:
+        ncond = null_cond if null_cond is not None \
+            else null_cond_like(cfg, cond)
     for s in range(stepper.num_steps):
         inputs = model_inputs(cfg, x, stepper.t_model[s], cond)
         out, _ = M.dit_forward(cfg, params, inputs)
+        if ncond is not None:
+            out_u, _ = M.dit_forward(
+                cfg, params, model_inputs(cfg, x, stepper.t_model[s], ncond))
+            out = guided_output(out, out_u, guidance_scale)
         x = stepper.advance(x, out, s)
     return x

@@ -42,6 +42,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # chunk, nchunks, eps, vec, stream, device
         "verify_accept": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I,
                           _F, _I, _P, _I),
+        # pred, ref, tau, gscale, paired, partials, tickets, err, accept,
+        # dtype, W, N, chunk, nchunks, eps, vec, pvec, stream, device
+        "verify_accept_mixed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _LL, _LL, _I, _F, _I, _I, _P, _I),
         # pred, ref, partials, tickets, sums, dtype, W, N, chunk, nchunks,
         # vec, stream, device
         "verify_sums": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P,

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "taylor_update_lanes": 0,
                             "verify_accept": 0,
+                            "verify_accept_mixed": 0,
                             "taylor_predict_chain_lanes": 0,
                             "lane_rollback": 0,
                             "spectral_update_lanes": 0,
@@ -232,6 +233,72 @@ def verify_accept(pred: torch.Tensor, ref_: torch.Tensor,
     build.check("verify_accept", lib, rc)
     LAUNCHES["verify_accept"] += 1
     return err, accept
+
+
+def verify_accept_mixed(pred: torch.Tensor, ref_: torch.Tensor,
+                        tau: torch.Tensor, gscale: torch.Tensor,
+                        paired: torch.Tensor, *, eps: float = 1e-8
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot-width fused verification (mixed guided/unguided serving):
+    pred/ref [W, ...], tau/gscale [W] f32, paired [W] bool -> (err [W] f32,
+    accept [W] bool). Lanes (2k, 2k+1) form pair slot k; a paired row
+    verifies its pair's guided residual ``u + s·(c − u)`` (s =
+    ``gscale[2k]``), so a pair-equal mask gives one decision per pair on
+    both rows; an unpaired row (and the tail lane of an odd W) verifies its
+    own stream. ``tau`` may differ between a pair's rows (each row's
+    accept is against its own), ``gscale`` is read at the even row.
+
+    On the card one launch of the verify kernel's mixed entry, with no
+    host read of ``paired``: bitwise :func:`verify_accept` where
+    ``paired`` is all false, and a paired row bitwise
+    :func:`verify_accept` on the f32 planes of
+    ``ref.mixed_planes_ref``."""
+    W = pred.shape[0]
+    _same_shape(pred, ref_)
+    for name, t in (("tau", tau), ("gscale", gscale)):
+        if tuple(t.shape) != (W,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be a [{W}] float32 tensor")
+    if tuple(paired.shape) != (W,) or paired.dtype != torch.bool:
+        raise ValueError(f"paired must be a [{W}] bool tensor")
+    if _on_cpu(pred, ref_, tau, gscale, paired):
+        return ref.verify_accept_mixed_ref(pred, ref_, tau, gscale, paired,
+                                           eps=eps)
+    _contiguous("tau, gscale and paired", tau, gscale, paired)
+    pred, ref_, W, N = _verify_planes(pred, ref_)
+    err = torch.empty((W,), dtype=torch.float32, device=pred.device)
+    accept = torch.empty((W,), dtype=torch.bool, device=pred.device)
+    lib, args = _verify_args(pred, ref_, W, N)
+    # the paired rows sum in 4-element groups where rows allow such loads
+    pvec = int(N % 4 == 0
+               and (pred.data_ptr() | ref_.data_ptr())
+               % (4 * pred.element_size()) == 0)
+    rc = lib.verify_accept_mixed(*args[:2], tau.data_ptr(),
+                                 gscale.data_ptr(), paired.data_ptr(),
+                                 *args[2:4], err.data_ptr(),
+                                 accept.data_ptr(), *args[4:-3], float(eps),
+                                 args[-3], pvec, *args[-2:])
+    build.check("verify_accept_mixed", lib, rc)
+    LAUNCHES["verify_accept_mixed"] += 1
+    return err, accept
+
+
+def verify_accept_pairs(pred: torch.Tensor, ref_: torch.Tensor,
+                        tau: torch.Tensor, gscale: torch.Tensor, *,
+                        eps: float = 1e-8
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair-reduced verification (the reference's all-paired reduction of
+    :func:`verify_accept_mixed`): pred/ref [W, ...] with cond rows 2k and
+    uncond rows 2k+1 (W even), tau/gscale per PAIR [W/2] -> (err [W/2],
+    accept [W/2]), one τ comparison per pair."""
+    W = pred.shape[0]
+    if W % 2 != 0:
+        raise ValueError(f"pair verification needs interleaved cond/"
+                         f"uncond lane pairs: got odd lane count {W}")
+    tau_l = torch.repeat_interleave(tau.to(torch.float32), 2)
+    gs_l = torch.repeat_interleave(gscale.to(torch.float32), 2)
+    paired = torch.ones((W,), dtype=torch.bool, device=pred.device)
+    err, acc = verify_accept_mixed(pred, ref_, tau_l, gs_l, paired, eps=eps)
+    return err[0::2], acc[0::2]
 
 
 # (device index, stream) -> (tickets int32, partials f32): the verify

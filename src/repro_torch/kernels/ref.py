@@ -103,6 +103,48 @@ def verify_accept_ref(pred: torch.Tensor, ref: torch.Tensor,
     return err, err <= tau.to(torch.float32)
 
 
+def mixed_planes_ref(pred: torch.Tensor, ref: torch.Tensor,
+                     gscale: torch.Tensor, paired: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The verification planes of a mixed guided/unguided batch (the
+    reference's ``kernels.ops._mixed_planes``): pred/ref [W, ...] -> f32
+    [W, N]. Lanes (2k, 2k+1) form pair slot k; a row whose ``paired``
+    flag is set carries its pair's guided residual ``u + s·(c − u)``
+    (c = row 2k, u = row 2k+1, s = ``gscale[2k]``), formed in f32 as three
+    eager ops (three roundings, as ``pipeline.guided_output``); other rows
+    pass through. A trailing odd lane is never paired."""
+    W = pred.shape[0]
+    p = pred.reshape(W, -1).to(torch.float32)
+    r = ref.reshape(W, -1).to(torch.float32)
+    NP = W // 2
+    if NP == 0:
+        return p, r
+    F = p.shape[1]
+    p2 = p[:2 * NP].reshape(NP, 2, F)
+    r2 = r[:2 * NP].reshape(NP, 2, F)
+    s = gscale.to(torch.float32)[0:2 * NP:2].reshape(NP, 1, 1)
+    pg = p2[:, 1:2] + s * (p2[:, 0:1] - p2[:, 1:2])       # [NP, 1, F]
+    rg = r2[:, 1:2] + s * (r2[:, 0:1] - r2[:, 1:2])
+    pm = paired[:2 * NP].to(torch.bool).reshape(NP, 2, 1)
+    pe = torch.where(pm, pg, p2).reshape(2 * NP, F)
+    re = torch.where(pm, rg, r2).reshape(2 * NP, F)
+    if W % 2:
+        pe = torch.cat([pe, p[2 * NP:]], dim=0)
+        re = torch.cat([re, r[2 * NP:]], dim=0)
+    return pe, re
+
+
+def verify_accept_mixed_ref(pred: torch.Tensor, ref: torch.Tensor,
+                            tau: torch.Tensor, gscale: torch.Tensor,
+                            paired: torch.Tensor, *, eps: float = 1e-8
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`verify_accept_ref` on :func:`mixed_planes_ref`'s planes:
+    one guided-residual decision for each paired row, each unpaired row
+    on its own stream."""
+    p, r = mixed_planes_ref(pred, ref, gscale, paired)
+    return verify_accept_ref(p, r, tau, eps=eps)
+
+
 def taylor_predict_ref(diffs: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """Whole-table (scalar-anchor) prediction: diffs [m+1, ...feat],

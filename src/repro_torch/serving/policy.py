@@ -1,26 +1,44 @@
 """Per-request serving policy: the part of ``repro.serving.policy`` the
-port's unguided engine serves."""
+port's engine serves (guidance, negative conditioning, τ, max steps,
+draft depth)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class RequestPolicy:
-    """tau0: the request's base verification threshold (None = the
+    """guidance_scale: ``None`` serves the request unguided on one lane; a
+    float serves it under classifier-free guidance on a cond/uncond lane
+    pair with ONE verify decision per pair. negative_cond: the pair's
+    second stream (``None`` = the engine's ``null_cond``, else
+    ``null_cond_like`` of the request's conditioning); a non-null dict is
+    negative-prompt conditioning, which ``u + s·(c − u)`` steers away
+    from. tau0: the request's base verification threshold (None = the
     engine's ``SpeCaConfig.tau0``); a strict and a permissive request can
     share one batch, each verified against its own τ. max_steps: cap on
     the request's denoising steps (None = the full schedule) — a smaller
     value serves the prefix of the schedule. draft_depth: the request's
-    draft horizon K — its lane drafts up to K steps per scheduler tick
-    before one closing verify/refresh round (None or 1 = depth-1
-    forecast-then-verify); a value above the engine's ``max_draft_depth``
-    is rejected."""
+    draft horizon K — its lane (or pair) drafts up to K steps per
+    scheduler tick before one closing verify/refresh round (None or 1 =
+    depth-1 forecast-then-verify); a value above the engine's
+    ``max_draft_depth`` is rejected."""
 
+    guidance_scale: Optional[float] = None
+    negative_cond: Optional[Dict[str, Any]] = None
     tau0: Optional[float] = None
     max_steps: Optional[int] = None
     draft_depth: Optional[int] = None
+
+    @property
+    def guided(self) -> bool:
+        return self.guidance_scale is not None
+
+    @property
+    def streams(self) -> int:
+        """Lanes this request occupies: 1, or 2 for a guided pair."""
+        return 2 if self.guided else 1
 
     def steps(self, schedule_steps: int) -> int:
         """Resolved step count on a schedule of ``schedule_steps`` steps."""

@@ -14,8 +14,15 @@ accept bits equal wherever |e − τ| > 1e-5, and bitwise the same at every
 lane width; the chain predict like the
 predict and each position bitwise the depth-1 kernel; the rollback (from
 a stacked chain or a list of snapshots) and the ring shift bitwise; the
-τ-less error one kernel a call, bitwise the fused verify's err.
+τ-less error one kernel a call, bitwise the fused verify's err. The
+mixed guided/unguided verify one kernel a call, its unpaired rows
+bitwise ``verify_accept`` on the same planes and its paired rows bitwise
+``verify_accept`` on the plain f32 planes (``ref.mixed_planes_ref``),
+rtol 1e-5 against its plain version; guided serving keeps its counters
+across lane widths.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -72,6 +79,7 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
     assert ops.launch_counts() == {"taylor_predict_lanes": 1,
                                    "taylor_update_lanes": 1,
                                    "verify_accept": 1,
+                                   "verify_accept_mixed": 0,
                                    "taylor_predict_chain_lanes": 0,
                                    "lane_rollback": 0,
                                    "spectral_update_lanes": 0,
@@ -349,17 +357,28 @@ def test_cuda_tensors_never_fall_back(cuda):
     assert calls == [] and all(o.is_cuda for o in outs)
 
 
-def _kernels_per_call(fn, iters: int = 10) -> float:
-    """CUDA kernels launched per call of ``fn``, from torch.profiler."""
+def _kernels_per_call(fn, iters: int = 10, attempts: int = 5) -> float:
+    """CUDA kernels launched per call of ``fn``, from torch.profiler. The
+    profiler now and then loses some or all events of a window, whatever
+    runs in it (``tools/profiler_windows.py``): a window with no CUDA
+    event, or a count that is no multiple of ``iters``, is no reading,
+    so it is measured again, up to ``attempts`` windows, with a warning
+    for each window measured again."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events()) / iters
+    for used in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n and n % iters == 0:
+            break
+        warnings.warn(f"profiler window {used} of {attempts} recorded {n} "
+                      f"CUDA events for {iters} calls")
+    return n / iters
 
 
 @pytest.mark.cuda
@@ -640,3 +659,83 @@ def test_deep_engine_keeps_trajectories_on_card(cuda, forecaster):
                                    atol=1e-5)
     assert sum(r.finish_tick for r in got) < sum(r.finish_tick
                                                  for r in ref1)
+
+
+MIXED_MASKS = {"none": [False] * 5, "all": [True] * 5,
+               "head": [True, True, False, False, False],
+               # rows paired on their own; the tail lane's flag is ignored
+               "rows": [False, True, True, False, True]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [4, 5])
+@pytest.mark.parametrize("N", VERIFY_N + [3000])   # 3000: N % 8 == 4
+@pytest.mark.parametrize("mask", sorted(MIXED_MASKS))
+def test_verify_accept_mixed_pins_on_card(cuda, dtype, W, N, mask):
+    """The mixed entry in one launch: unpaired rows (and an odd W's tail)
+    bitwise ``verify_accept`` on the same planes (pin a), paired rows
+    bitwise ``verify_accept`` on the plain f32 planes (pin b), each row's
+    accept against its own τ; the tickets stay clean for the next call."""
+    pred, real = _verify_planes(cuda, W, N, dtype)
+    paired = torch.tensor(MIXED_MASKS[mask][:W], device=cuda)
+    gs = torch.tensor([1.5, 1.5, 4.0, 4.0, 2.0][:W], device=cuda)
+    eff = paired & (torch.arange(W, device=cuda) < 2 * (W // 2))
+    e0, _ = ref.verify_accept_mixed_ref(pred, real, torch.ones(W,
+                                                               device=cuda),
+                                        gs, paired)
+    tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9, 1.1][:W],
+                             device=cuda)).contiguous()
+    ev, av = ops.verify_accept(pred, real, tau)
+    ops.reset_launch_counts()
+    em, am = ops.verify_accept_mixed(pred, real, tau, gs, paired)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    assert (n["verify_accept_mixed"], n["verify_accept"]) == (1, 0)
+    assert torch.equal(em[~eff], ev[~eff]) and torch.equal(am[~eff],
+                                                           av[~eff])
+    p32, r32 = ref.mixed_planes_ref(pred, real, gs, paired)
+    eb, ab = ops.verify_accept(p32, r32, tau)
+    assert torch.equal(em[eff], eb[eff]) and torch.equal(am[eff], ab[eff])
+    er, ar = ref.verify_accept_mixed_ref(pred, real, tau, gs, paired)
+    torch.testing.assert_close(em, er, rtol=1e-5, atol=0.0)
+    far = (er - tau).abs() > 1e-5
+    assert torch.equal(am[far], ar[far])
+    ev2, av2 = ops.verify_accept(pred, real, tau)
+    assert torch.equal(ev2, ev) and torch.equal(av2, av)
+    assert torch.equal(ops.verify_accept_mixed(pred, real, tau, gs,
+                                               paired)[0], em)
+    assert _kernels_per_call(lambda: ops.verify_accept_mixed(
+        pred, real, tau, gs, paired)) == 1
+
+
+@pytest.mark.cuda
+def test_guided_engine_on_card(cuda):
+    """A mixed guided/unguided batch on a small f32 DiT: every row is
+    verified through the mixed entry (``verify_accept`` never launches in
+    a paired session), and lanes 2 keep lanes 4's counters; unguided-only
+    traffic keeps the plain entry."""
+    from repro_torch.serving import Request, RequestPolicy, SpeCaEngine
+    cfg, params, dcfg = _small_dit(cuda)
+    engine = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), device=cuda)
+    pols = [RequestPolicy(guidance_scale=4.0),
+            RequestPolicy(guidance_scale=1.5,
+                          negative_cond={"labels": torch.tensor([3])}),
+            RequestPolicy(), RequestPolicy(tau0=0.5)]
+    reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i, policy=p) for i, p in enumerate(pols)]
+    ops.reset_launch_counts()
+    r4 = engine.serve_batched(reqs, lanes=4)
+    n = ops.launch_counts()
+    assert n["verify_accept_mixed"] > 0 and n["verify_accept"] == 0
+    assert n["taylor_predict_lanes"] > 0 and n["taylor_update_lanes"] > 0
+    r2 = engine.serve_batched(reqs, lanes=2)
+    for a, b in zip(r4, r2):
+        assert (a.num_full, a.num_spec, a.accepts, a.flops) == \
+            (b.num_full, b.num_spec, b.accepts, b.flops)
+        torch.testing.assert_close(a.sample, b.sample, rtol=1e-4,
+                                   atol=1e-4)
+    ops.reset_launch_counts()
+    engine.serve_batched(reqs[2:], lanes=2)
+    n = ops.launch_counts()
+    assert n["verify_accept"] > 0 and n["verify_accept_mixed"] == 0

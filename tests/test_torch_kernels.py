@@ -138,6 +138,9 @@ def test_cpu_path_does_not_count_launches():
     ops.taylor_predict_lanes(d, torch.ones(3, 2))
     ops.taylor_update_lanes(d, torch.zeros(2, 2, 2, 4, 8), mask)
     ops.verify_accept(torch.ones(2, 8), torch.ones(2, 8), torch.ones(2))
+    ops.verify_accept_mixed(torch.ones(2, 8), torch.ones(2, 8),
+                            torch.ones(2), torch.ones(2),
+                            torch.tensor([True, True]))
     ops.taylor_predict_chain_lanes(d, torch.ones(3, 4, 2))
     ops.lane_rollback(d, torch.tensor([0, 2], dtype=torch.int32))
     ops.lane_rollback(list(d), torch.tensor([0, 2], dtype=torch.int32))
@@ -151,6 +154,7 @@ def test_cpu_path_does_not_count_launches():
     assert ops.launch_counts() == {"taylor_predict_lanes": 0,
                                    "taylor_update_lanes": 0,
                                    "verify_accept": 0,
+                                   "verify_accept_mixed": 0,
                                    "taylor_predict_chain_lanes": 0,
                                    "lane_rollback": 0,
                                    "spectral_update_lanes": 0,

@@ -15,6 +15,15 @@ Draft-K chains and the spectral forecaster: the port's own analogues of
 port's depth-1 step, per-lane depths, frozen lanes, the ``max_step`` cap,
 serving), one chain tick and ``serve_batched`` against the reference
 under the same bars.
+
+Classifier-free guidance (analogues of ``tests/test_serving_cfg.py`` and
+``tests/test_serving_v2.py``), under the same bars: guided
+``speca_sample`` and the two-pass ``sample_full`` oracle against the
+reference's; a mixed guided/unguided ``serve_batched`` batch (two scales,
+a negative prompt, distinct τ) per request against the reference engine
+(accepts, counters, flops, samples), lanes 4 against lanes 2 on the port;
+s = 1 against cond-only; one guided chain tick and a guided deep serve
+against the reference's; pair coherence; the width rule and backfill.
 """
 import dataclasses
 
@@ -28,6 +37,7 @@ from repro.configs import SpeCaConfig as JSpeCaConfig
 from repro.core import lane_step as JLS
 from repro.core.speca import speca_sample as jspeca_sample
 from repro.diffusion.pipeline import latent_shape
+from repro.diffusion.pipeline import sample_full as jsample_full
 from repro.layers import model as JM
 from repro.serving import Request as JRequest
 from repro.serving import RequestPolicy as JRequestPolicy
@@ -37,6 +47,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import lane_step as PLS
 from repro_torch.core.speca import speca_sample
 from repro_torch.core.workload import DiffusionWorkload
+from repro_torch.diffusion.pipeline import sample_full
 from repro_torch.layers import model as PM
 from repro_torch.serving import (Request, RequestPolicy, SpeCaEngine,
                                  allocation_report)
@@ -555,3 +566,322 @@ def test_deep_and_spectral_serve_match_reference(deep_engines, fc, kmax,
                                    **TOL)
     assert sum(r.num_spec for r in pres) > 0
     assert sum(r.num_full for r in pres) > 0
+
+
+# ---------------------------------------------------------------------------
+# Classifier-free guidance: lane pairs and mixed slots
+# ---------------------------------------------------------------------------
+
+GS = 4.0
+
+
+def _assert_sampler_parity(sj, sp, xj, xp):
+    for k in ("accept_b", "spec_step", "spec_attempted",
+              "per_sample_accepts"):
+        np.testing.assert_array_equal(_np(sp[k]), np.asarray(sj[k]), k)
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj), **TOL)
+    ej, ep = np.asarray(sj["err"]), sp["err"].numpy()
+    np.testing.assert_array_equal(np.isnan(ep), np.isnan(ej))
+    drafted = np.isfinite(ej)
+    np.testing.assert_allclose(ep[drafted], ej[drafted], rtol=1e-4)
+
+
+@pytest.mark.parametrize("accept_mode", ["per_sample", "batch"])
+def test_guided_speca_sample_matches_reference(both, accept_mode):
+    """Lane pairs in the sampler: sample k's noise seeds both of its
+    lanes, one decision per pair on the guided residual, stats folded to
+    samples."""
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    jscfg, pscfg = _scfgs(tau0=0.4, max_draft=8)
+    key = jax.random.PRNGKey(17)
+    labels = [1, 5]
+    xj, sj = jax.jit(lambda k: jspeca_sample(
+        cfg, params, dcfg, jscfg, k, {"labels": jnp.asarray(labels)}, 2,
+        accept_mode=accept_mode, guidance_scale=GS))(key)
+    noise = jax.random.normal(key, latent_shape(cfg, dcfg, 2), jnp.float32)
+    xp, sp = speca_sample(pcfg, tp, pdcfg, pscfg,
+                          {"labels": torch.tensor(labels)}, 2,
+                          noise=torch.from_numpy(np.array(noise)),
+                          accept_mode=accept_mode, guidance_scale=GS,
+                          device="cpu")
+    assert tuple(xp.shape) == tuple(np.asarray(xj).shape)
+    assert tuple(sp["accept_b"].shape) == (pdcfg.num_inference_steps, 2)
+    _assert_sampler_parity(sj, sp, xj, xp)
+    acc = sp["accept_b"].numpy()
+    assert acc.any() and not acc.all()       # speculated and rejected
+
+
+def test_guided_sample_full_matches_two_pass_oracle(both):
+    """The two-pass CFG oracle: guided full sampling equals the
+    reference's, steers away from cond-only, and s = 1 recovers it."""
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    key = jax.random.PRNGKey(3)
+    noise = torch.from_numpy(np.array(jax.random.normal(
+        key, latent_shape(cfg, dcfg, 2), jnp.float32)))
+    cond = {"labels": np.array([4, 2])}
+    ncond = {"labels": np.array([7, 0])}     # a negative prompt
+    outs = {}
+    for name, gs, nc in (("g", GS, None), ("neg", 1.5, ncond)):
+        xj, _ = jsample_full(cfg, params, dcfg, key,
+                             {"labels": jnp.asarray(cond["labels"])}, 2,
+                             guidance_scale=gs,
+                             null_cond=None if nc is None else
+                             {"labels": jnp.asarray(nc["labels"])})
+        xp = sample_full(pcfg, tp, pdcfg,
+                         {"labels": torch.from_numpy(cond["labels"])}, 2,
+                         noise=noise, guidance_scale=gs,
+                         null_cond=None if nc is None else
+                         {"labels": torch.from_numpy(nc["labels"])},
+                         device="cpu")
+        np.testing.assert_allclose(xp.numpy(), np.asarray(xj), **TOL)
+        outs[name] = xp
+    xc = sample_full(pcfg, tp, pdcfg, {"labels": torch.tensor([4, 2])}, 2,
+                     noise=noise, device="cpu")
+    x1 = sample_full(pcfg, tp, pdcfg, {"labels": torch.tensor([4, 2])}, 2,
+                     noise=noise, guidance_scale=1.0, device="cpu")
+    np.testing.assert_allclose(x1.numpy(), xc.numpy(), **TOL)
+    assert (outs["g"] - xc).abs().max() > 1e-3
+
+
+def test_guidance_scale_one_matches_unguided(both):
+    """``u + 1·(c − u) = c`` up to rounding: the s = 1 guided sampler
+    follows the cond-only trajectory."""
+    _, (pcfg, pdcfg, tp) = both
+    _, pscfg = _scfgs(tau0=0.4, max_draft=8)
+    noise = torch.from_numpy(np.random.default_rng(23).normal(
+        size=(2, pdcfg.latent_size, pdcfg.latent_size, pcfg.in_channels))
+        .astype(np.float32))
+    cond = {"labels": torch.tensor([2, 6])}
+    x1, s1 = speca_sample(pcfg, tp, pdcfg, pscfg, cond, 2, noise=noise,
+                          guidance_scale=1.0, accept_mode="per_sample",
+                          device="cpu")
+    x0, s0 = speca_sample(pcfg, tp, pdcfg, pscfg, cond, 2, noise=noise,
+                          accept_mode="per_sample", device="cpu")
+    assert torch.equal(s1["accept_b"], s0["accept_b"])
+    np.testing.assert_allclose(x1.numpy(), x0.numpy(), **TOL)
+
+
+def _mixed_batch(n_unguided=2, tau0s=(0.3, 0.6)):
+    """(reference requests, port requests): guided at s = 4 and at s = 1.5
+    with a negative prompt, then unguided requests with distinct τ."""
+    def build(Req, Pol, lab):
+        reqs = [Req(request_id=0, cond={"labels": lab([1])}, seed=50,
+                    policy=Pol(guidance_scale=GS)),
+                Req(request_id=1, cond={"labels": lab([2])}, seed=51,
+                    policy=Pol(guidance_scale=1.5,
+                               negative_cond={"labels": lab([6])}))]
+        reqs += [Req(request_id=2 + i, cond={"labels": lab([3 + i])},
+                     seed=52 + i, policy=Pol(tau0=tau0s[i]))
+                 for i in range(n_unguided)]
+        return reqs
+    return (build(JRequest, JRequestPolicy, jnp.asarray),
+            build(Request, RequestPolicy, torch.tensor))
+
+
+def _assert_results_equal(jres, pres):
+    for a, b in zip(jres, pres):
+        assert a.request_id == b.request_id
+        assert b.accepts == a.accepts, a.request_id
+        assert (b.num_full, b.num_spec, b.num_drafted, b.finish_tick) == \
+            (a.num_full, a.num_spec, a.num_drafted, a.finish_tick)
+        assert b.flops == a.flops and b.completed
+        np.testing.assert_allclose(b.sample.numpy(), np.asarray(a.sample),
+                                   **TOL)
+
+
+def test_mixed_guided_serve_matches_reference(engines):
+    """One batch of guided pairs (two scales, a negative prompt) and
+    unguided lanes with their own τ: per request the reference engine's
+    accepts, counters, flops and samples; lanes 2 keep lanes 4's."""
+    je, pe = engines
+    jreqs, preqs = _mixed_batch()
+    jres = je.serve_batched(jreqs, lanes=4)
+    pres = pe.serve_batched(preqs, lanes=4)
+    _assert_results_equal(jres, pres)
+    # guided flops count both streams
+    assert pres[0].flops == 2 * (pres[0].num_full * pe.workload.full_flops
+                                 + pres[0].num_drafted
+                                 * pe.workload.verify_flops)
+    # not vacuous: each guided request accepted a draft and had one
+    # rejected (a drafted step that was not accepted)
+    for r in pres[:2]:
+        assert 0 < r.num_spec < r.num_drafted, r.request_id
+    narrow = pe.serve_batched(preqs, lanes=2)
+    for a, b in zip(pres, narrow):
+        assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
+                a.flops) == (b.accepts, b.num_full, b.num_spec,
+                             b.num_drafted, b.flops)
+        np.testing.assert_allclose(a.sample.numpy(), b.sample.numpy(),
+                                   **TOL)
+
+
+def test_unguided_requests_keep_their_trajectory_in_a_paired_session(
+        engines):
+    """Unpaired lanes of the mixed program run the plain program's math:
+    unguided requests served beside guided pairs keep the trajectories
+    they have in a plain session."""
+    _, pe = engines
+    _, preqs = _mixed_batch()
+    mixed = pe.serve_batched(preqs, lanes=4)
+    plain = pe.serve_batched(preqs[2:], lanes=2)
+    for a, b in zip(mixed[2:], plain):
+        assert (a.accepts, a.num_full, a.num_spec) == \
+            (b.accepts, b.num_full, b.num_spec)
+        np.testing.assert_allclose(a.sample.numpy(), b.sample.numpy(),
+                                   **TOL)
+
+
+def test_guided_width_rule_and_backfill(both, engines):
+    """The width rounds up to whole pairs as soon as any request is
+    guided; a guided request waiting for a pair never blocks an unguided
+    one behind it, and two requests that both fit keep their order."""
+    (_, (pcfg, pdcfg, tp)) = both
+    _, pe = engines
+    un, gd = RequestPolicy(), RequestPolicy(guidance_scale=2.0)
+    assert pe._width_for(4, [un, un, un]) == 3
+    assert pe._width_for(3, [gd, un]) == 4          # odd rounds up
+    assert pe._width_for(1, [gd]) == 2              # one pair minimum
+    assert pe._width_for(8, [gd, gd]) == 4          # clamp to 2 × 2 lanes
+    legacy = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg, guidance=True,
+                         device="cpu")
+    assert legacy.lane_width(1, 1) == 2 and legacy.lane_width(3, 100) == 4
+    assert legacy.lane_width(8, 2) == 4
+    assert legacy.resolve_policy(Request(request_id=0, cond={})) \
+        .guidance_scale == pdcfg.guidance_scale
+    # the legacy per-request field wins over the policy's scale
+    assert pe.resolve_policy(Request(
+        request_id=0, cond={}, guidance_scale=3.0,
+        policy=RequestPolicy(guidance_scale=1.5))).guidance_scale == 3.0
+    # one pair slot: an unguided request holds lane 0 while a guided one
+    # waits for the whole pair; the unguided request queued behind it
+    # takes the free lane (backfill), and both finish before the guided
+    # one starts
+    S = pdcfg.num_inference_steps
+    reqs = [Request(request_id=0, cond={"labels": torch.tensor([1])},
+                    seed=60, policy=RequestPolicy(max_steps=S // 2)),
+            Request(request_id=1, cond={"labels": torch.tensor([2])},
+                    seed=61, policy=RequestPolicy(guidance_scale=2.0)),
+            Request(request_id=2, cond={"labels": torch.tensor([3])},
+                    seed=62, policy=RequestPolicy(max_steps=S // 2))]
+    res = pe.serve_batched(reqs, lanes=2)
+    assert [r.completed for r in res] == [True] * 3
+    assert res[0].finish_tick == res[2].finish_tick == S // 2
+    assert res[1].finish_tick == S // 2 + S
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_guided_pair_coherence(chain_steps, seed):
+    """From a random pair-coherent state every flag and every
+    pair-shared state entry stays pair-equal after a guided step, at
+    depth 1 and in a chain (as ``test_pair_coherence_property``)."""
+    wl = chain_steps[0]
+    rng = np.random.default_rng(seed)
+    pair = lambda v: np.repeat(v, 2)                       # noqa: E731
+    st = PLS.init_workload_state(wl, W, {"labels": torch.tensor([0])},
+                                 guidance=True)
+    st["x"] = torch.from_numpy(np.repeat(rng.normal(
+        size=(W // 2,) + tuple(st["x"].shape[1:])), 2, axis=0)
+        .astype(np.float32))
+    st["cond"] = {"labels": torch.from_numpy(rng.integers(
+        0, wl.cfg.num_classes + 1, size=W))}
+    st["diffs"] = torch.from_numpy(0.1 * rng.normal(
+        size=tuple(st["diffs"].shape)).astype(np.float32))
+    st["active"] = torch.from_numpy(pair(rng.random(W // 2) < 0.8))
+    st["n_anchors"] = torch.from_numpy(pair(rng.integers(2, 6, W // 2))
+                                       .astype(np.int32))
+    st["since"] = torch.from_numpy(pair(rng.integers(0, 4, W // 2))
+                                   .astype(np.int32))
+    st["step"] = torch.from_numpy(pair(rng.integers(0, 15, W // 2))
+                                  .astype(np.int32))
+    st["anchor_step"] = torch.clamp(st["step"] - 1 - st["since"], min=-1)
+    st["gscale"] = torch.from_numpy(pair(rng.uniform(0.0, 8.0, W // 2))
+                                    .astype(np.float32))
+    for depth in (1, K):
+        step = PLS.build_workload_step(wl, lanes=W, guidance=True,
+                                       max_draft_depth=depth)
+        st["draft_k"] = torch.full((W,), depth, dtype=torch.int32)
+        new, flags = step(dict(st))
+        for k in ("attempted", "ok", "accepted", "full", "tau", "n_spec",
+                  "n_drafted", "advanced"):
+            assert torch.equal(flags[k][0::2], flags[k][1::2]), (depth, k)
+        assert torch.equal(flags["err"][0::2].isnan(),
+                           flags["err"][1::2].isnan())
+        for k in ("since", "step", "n_anchors", "anchor_step", "gap", "x"):
+            assert torch.equal(new[k][0::2], new[k][1::2]), (depth, k)
+
+
+def _guided_reference_state(cfg, dcfg, params, jscfg):
+    """A warmed guided 4-lane state of the reference: two pairs at
+    scales 4 and 1.5, the second stream of pair 1 a negative prompt."""
+    legacy = jax.jit(JLS.build_lane_step(cfg, params, dcfg, jscfg, lanes=W,
+                                         guidance="mixed"))
+    rng = np.random.default_rng(8)
+    js = JLS.init_lane_state(cfg, dcfg, jscfg, W,
+                             {"labels": jnp.asarray([0])}, active=True,
+                             guidance="mixed")
+    x = rng.normal(size=(W // 2,) + tuple(js["x"].shape[1:]))
+    js["x"] = jnp.asarray(np.repeat(x, 2, axis=0), jnp.float32)
+    js["cond"] = {"labels": jnp.asarray([1, cfg.num_classes, 2, 6])}
+    js["tau0"] = jnp.asarray([1e12, 1e12, 0.3, 0.3], jnp.float32)
+    js["gscale"] = jnp.asarray([GS, GS, 1.5, 1.5], jnp.float32)
+    js["paired"] = jnp.ones((W,), bool)
+    js["draft_k"] = jnp.asarray([3, 3, 2, 2], jnp.int32)
+    for _ in range(ORDER + 2):
+        js, _ = legacy(js)
+    return js
+
+
+def test_guided_chain_tick_matches_reference(both, chain_steps):
+    """One guided K=3 chain tick (mixed program, both slots paired) from
+    the same warmed state: the reference's counters and chain decisions,
+    latents within 1e-5, chain errors within rtol 1e-4."""
+    (cfg, dcfg, params), _ = both
+    wl = chain_steps[0]
+    jscfg = JSpeCaConfig(taylor_order=ORDER, max_draft=6, tau0=0.5,
+                         beta=0.9)
+    js = _guided_reference_state(cfg, dcfg, params, jscfg)
+    jchain = jax.jit(JLS.build_lane_step(cfg, params, dcfg, jscfg, lanes=W,
+                                         guidance="mixed",
+                                         max_draft_depth=K))
+    jnew, jf = jax.tree_util.tree_map(np.asarray, jchain(js))
+    chain = PLS.build_workload_step(wl, lanes=W, guidance="mixed",
+                                    max_draft_depth=K)
+    pnew, pf = chain(_to_port_state(js))
+    for k in ("n_spec", "n_drafted", "advanced", "full", "chain_accepted",
+              "chain_attempted"):
+        np.testing.assert_array_equal(pf[k].numpy(), jf[k], k)
+    np.testing.assert_allclose(pnew["x"].numpy(), jnew["x"], **TOL)
+    for k in ("step", "since", "n_anchors", "anchor_step"):
+        np.testing.assert_array_equal(pnew[k].numpy(), jnew[k], k)
+    ej, ep = jf["chain_err"], pf["chain_err"].numpy()
+    np.testing.assert_array_equal(np.isnan(ep), np.isnan(ej))
+    drafted = np.isfinite(ej)
+    np.testing.assert_allclose(ep[drafted], ej[drafted], rtol=1e-4)
+    assert jf["n_spec"].sum() > 0 and jf["full"].any()
+
+
+def test_guided_deep_serve_matches_reference(engines, deep_engines):
+    """Guided requests at draft depths 3 and 1 beside an unguided
+    depth-3 one on max_draft_depth=3 engines: the reference's Results;
+    in both packages the depth-1 trajectories, in fewer ticks."""
+    je, pe = deep_engines["taylor", 3]
+    jreqs, preqs = _mixed_batch(n_unguided=1)
+    shallow = [e.serve_batched(r, lanes=4)
+               for e, r in zip(engines, (jreqs, preqs))]
+    for reqs in (jreqs, preqs):
+        for r, d in zip(reqs, (3, 1, 3)):
+            r.policy = dataclasses.replace(r.policy, draft_depth=d)
+    jres = je.serve_batched(jreqs, lanes=4)
+    pres = pe.serve_batched(preqs, lanes=4)
+    _assert_results_equal(jres, pres)
+    assert sum(r.num_spec for r in pres) > 0
+    assert sum(r.num_full for r in pres) > 0
+    # the depth-3 guided request accepted chain positions and had one
+    # rejected, so its rollback restored an earlier snapshot
+    assert 0 < pres[0].num_spec < pres[0].num_drafted
+    for deep, flat in zip((jres, pres), shallow):
+        for a, b in zip(deep, flat):
+            assert (a.accepts, a.num_full, a.num_spec) == \
+                (b.accepts, b.num_full, b.num_spec), a.request_id
+        assert sum(r.finish_tick for r in deep) < sum(r.finish_tick
+                                                      for r in flat)
