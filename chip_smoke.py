@@ -102,11 +102,34 @@ Phases (any failure ends the run with a non-zero exit):
    a paired lane reject a drafted position (its ``n_drafted`` above its
    ``n_spec``, so the rollback restored an earlier snapshot), the depth-1
    trajectories hold in fewer ticks, lanes=2 keeps the counters.
-7. ``speca_sample`` at batch 2 on the same model.
-8. ``profiler``: every kernel count and device time above is read from
-   torch.profiler windows; a window with no CUDA event, or with a count
-   that is no multiple of the calls, is recorded again (up to 5
-   windows), and at most one reading in 10 may have needed that.
+7. The closed-loop controller (``serve_controller``): 8 requests at
+   lanes=4 on ``SpeCaEngine(controller=True, max_draft_depth=4)``, phase
+   3's requests 0-3 controller-free beside 4-7 under ``ControllerPolicy``
+   (the accept SLO at its defaults, ``target_accept=0.9``, the deadline
+   SLO at 30 ticks with ``tau_max`` 2·τ0, ``order_max=1``), queued
+   alternately. The chain predict and the rollback must launch; the
+   controller-free requests keep phase 3's trajectories and counters
+   (samples within 1e-5); a controlled request needs fewer service ticks
+   than steps (its ``draft_k`` left 1); re-served at lanes=2 every counter
+   holds, no accept-SLO lane holds τ0 above its base at any tick (and one
+   drops below it), and every prediction under an order cap of 1 has
+   zero order-2 weights, request 7's lane among them while warm.
+8. The serving lifecycle (``serve_lifecycle``): ``warmup(mixed=True)``
+   from a cleared library loader must load exactly the step's kernel
+   libraries; then phase 3's 8 requests through ``submit`` and
+   ``stream(previews=True)`` under FIFO at lanes=4 must equal phase 3's
+   Results bitwise (the pair-capable session verifies through
+   ``verify_accept_mixed``), with previews for every request and no
+   library loaded; one slot serves a long request before two short ones
+   with deadlines under FIFO, SJF and EDF (SJF's mean completion tick
+   below FIFO's, EDF's deadline hit rate at least FIFO's, trajectories
+   unchanged); ``QueueFull`` at ``max_queue``; ``shutdown`` reports the
+   requests in flight and queued as dropped.
+9. ``speca_sample`` at batch 2 on the same model.
+10. ``profiler``: every kernel count and device time above is read from
+    torch.profiler windows; a window with no CUDA event, or with a count
+    that is no multiple of the calls, is recorded again (up to 5
+    windows), and at most one reading in 10 may have needed that.
 
 Each serving phase resets the launch counts just before its run and
 reads them just after, and asserts the kernels of its own path.
@@ -1481,6 +1504,250 @@ class Smoke:
                                          for r in deep]))
 
     # --- phase 7 -------------------------------------------------------------
+    def _controller_requests(self):
+        """Phase 3's requests 0-7; 4-7 under ``CONTROLLER_POLICIES`` (the
+        accept SLO at its defaults, a target that backs off, a deadline
+        lane allowed up to 2·τ0, an order-1 cap), queued 0, 4, 1, 5, 2,
+        6, 3, 7 so that controlled and controller-free lanes share
+        ticks."""
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.core.controller import ControllerPolicy
+        from repro_torch.serving import RequestPolicy
+        tau0 = SpeCaConfig().tau0
+        pols = [ControllerPolicy(), ControllerPolicy(target_accept=0.9),
+                ControllerPolicy(slo="deadline", deadline_ticks=30,
+                                 tau_max=2 * tau0),
+                ControllerPolicy(order_max=1)]
+        reqs = self._requests(N_REQUESTS, lambda i: RequestPolicy(
+            controller=pols[i - LANES] if i >= LANES else None))
+        return [r for pair in zip(reqs[:LANES], reqs[LANES:]) for r in pair]
+
+    @contextlib.contextmanager
+    def _controller_probe(self):
+        """Record, on the device and read after the run, each chain tick's
+        controller state after the tick (τ0, its base, the accept-SLO
+        mask) and every capped prediction's weights with the cap, the
+        lane's order bound and its anchor count."""
+        from repro_torch.core import lane_step as LS
+        from repro_torch.core import taylor
+        ticks, weights, cur = [], [], {}
+        call, pw = LS.ChainStep.__call__, taylor.prediction_weights
+
+        def probe(step, state):
+            cur["order_hi"] = state["ctl_order_hi"]
+            cur["n_anchors"] = state["n_anchors"]
+            new, flags = call(step, state)
+            ticks.append((new["tau0"].clone(), new["ctl_tau_base"].clone(),
+                          (new["ctl_on"] & ~new["ctl_dl"]).clone()))
+            return new, flags
+
+        def weights_probe(*a, order_cap=None, **k):
+            w = pw(*a, order_cap=order_cap, **k)
+            if order_cap is not None:
+                weights.append((w.clone(), order_cap.clone(),
+                                cur["order_hi"].clone(),
+                                cur["n_anchors"].clone()))
+            return w
+        LS.ChainStep.__call__, taylor.prediction_weights = probe, \
+            weights_probe
+        try:
+            yield ticks, weights
+        finally:
+            LS.ChainStep.__call__, taylor.prediction_weights = call, pw
+
+    def serve_controller(self):
+        """The closed-loop controller: ``SpeCaEngine(controller=True,
+        max_draft_depth=4)`` at lanes=4 serves phase 3's requests 0-3
+        controller-free beside 4-7 under controller policies. The
+        controller-free requests keep phase 3's trajectories (phase 4's
+        bar); a controlled lane speculates deeper (fewer service ticks
+        than steps) through the chain predict and the rollback; no
+        accept-SLO lane ever holds τ0 above its base; request 7's lane
+        (its order bound 1) predicts with order-2 weights 0; lanes=2 keeps
+        every request's counters."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import SpeCaEngine
+        S = self.dcfg.num_inference_steps
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                             SpeCaConfig(taylor_order=2), controller=True,
+                             max_draft_depth=CHAIN_K, device=self.dev)
+        reqs = self._controller_requests()
+        engine.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=5)
+        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs,
+                                                             LANES)
+        ticks = max(r.finish_tick for r in res)
+        print(f"controller main path launches: {launches}")
+        assert all(launches[n] > 0 for n in CONTROLLER_KERNELS), launches
+        for name in CONTROLLER_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault("launches",
+                                                         launches[name])
+        by_id = {r.request_id: r for r in res}
+        for r in sorted(res, key=lambda r: r.request_id):
+            print(f"  request {r.request_id}: "
+                  f"{'controlled' if r.request_id >= LANES else 'static'} "
+                  f"alpha {r.alpha:.3f} full {r.num_full} spec {r.num_spec} "
+                  f"drafted {r.num_drafted} service ticks "
+                  f"{r.timings.service_ticks}")
+        print(f"served {N_REQUESTS} requests (4 controlled) at lanes={LANES}"
+              f" in {wall:.3f} s: {syncs} host syncs over {ticks} ticks "
+              f"({syncs / ticks:.2f} a tick), peak {peak:.2f} GiB")
+        samples = torch.cat([r.sample for r in res])
+        assert torch.isfinite(samples).all(), "non-finite samples"
+        assert all(r.completed and r.num_full + r.num_spec == S
+                   for r in res)
+        dmax = 0.0
+        for base in self.serve_results[:LANES]:
+            r = by_id[base.request_id]
+            assert (r.accepts, r.num_full, r.num_spec) == \
+                (base.accepts, base.num_full, base.num_spec), \
+                f"controller-free request {r.request_id} left phase 3's " \
+                "trajectory"
+            dmax = max(dmax, (r.sample - base.sample).abs().max().item())
+        assert dmax <= 1e-5, f"controller-free samples moved by {dmax}"
+        controlled = [by_id[i] for i in range(LANES, N_REQUESTS)]
+        assert any(r.timings.service_ticks < S for r in controlled), \
+            "no controlled lane's draft_k left 1"
+        with self._controller_probe() as (probe_ticks, weights):
+            narrow = engine.serve_batched(reqs, lanes=2)
+        for a, b in zip(res, narrow):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"request {a.request_id}: lanes={LANES} and lanes=2 differ"
+        above = sum(bool((m & (t > base)).any().item())
+                    for t, base, m in probe_ticks)
+        moved = sum(bool((m & (t < base)).any().item())
+                    for t, base, m in probe_ticks)
+        capped = [(w, hi, n) for w, _, hi, n in weights]
+        order1 = sum(bool(((hi == 1) & (n > 2)).any().item())
+                     for _, hi, n in capped)
+        for w, cap, hi, _ in weights:
+            assert bool((cap[hi == 1] <= 1).all().item()), "cap above 1"
+            assert bool((w[2][..., cap <= 1] == 0).all().item()), \
+                "an order-2 weight under a cap of 1"
+        print(f"controller (lanes=2 run): {len(probe_ticks)} ticks, "
+              f"{moved} with an accept-SLO lane's τ0 below its base, "
+              f"{above} above it; {len(weights)} capped predictions, "
+              f"{order1} with request 7's lane warm at its order-1 cap; "
+              f"lanes={LANES} and lanes=2 counters identical; "
+              f"controller-free requests == phase 3 (max |sample diff| "
+              f"{dmax})")
+        assert above == 0, "an accept-SLO lane held τ0 above its base"
+        assert moved > 0 and order1 > 0, (moved, order1)
+        self.record["serve_controller"] = dict(
+            wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            peak_gib=peak, max_abs_diff_static_vs_phase3=dmax,
+            ticks_tau_below_base=moved, capped_predictions=len(weights),
+            requests=[dict(request_id=r.request_id, alpha=r.alpha,
+                           num_full=r.num_full, num_spec=r.num_spec,
+                           num_drafted=r.num_drafted,
+                           service_ticks=r.timings.service_ticks)
+                      for r in res])
+
+    # --- phase 8 -------------------------------------------------------------
+    def serve_lifecycle(self):
+        """The serving lifecycle: after ``warmup`` (which must load every
+        kernel library the step launches, from a cleared loader), phase
+        3's 8 requests through ``submit`` and ``stream(previews=True)``
+        under FIFO give phase 3's Results bitwise and load no library;
+        SJF lowers the mean completion tick against FIFO and EDF's
+        deadline hit rate is at least FIFO's on a mixed-``max_steps`` set;
+        ``QueueFull`` at ``max_queue``; ``shutdown`` reports queued and
+        in-flight requests dropped."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.kernels import build, ops
+        from repro_torch.serving import (Preview, QueueFull, RequestPolicy,
+                                         SpeCaEngine)
+        S = self.dcfg.num_inference_steps
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                             SpeCaConfig(taylor_order=2), lanes=LANES,
+                             device=self.dev)
+        reqs = self._requests(N_REQUESTS)
+        build._loaded.clear()            # as a fresh process finds it
+        t0 = time.perf_counter()
+        engine.warmup(reqs[0].cond, lanes=LANES, mixed=True)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        loaded = set(build._loaded)
+        assert loaded == set(engine.kernel_sources()), loaded
+        syncs0 = engine.host_syncs
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(r) for r in reqs]
+        finals, previews = {}, {}
+        for item in engine.stream(previews=True):
+            if isinstance(item, Preview):
+                previews.setdefault(item.ticket_id, []).append(item.step)
+            else:
+                finals[item.ticket_id] = item
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        syncs = engine.host_syncs - syncs0
+        res = [finals[t.ticket_id] for t in tickets]
+        ticks = max(r.finish_tick for r in res)
+        print(f"lifecycle main path launches: {launches}")
+        print(f"streamed {N_REQUESTS} requests at lanes={LANES} in "
+              f"{wall:.3f} s (warmup {warm_s:.3f} s): {syncs} host syncs "
+              f"over {ticks} ticks ({syncs / ticks:.2f} a tick), "
+              f"{sum(map(len, previews.values()))} previews")
+        assert all(launches[n] > 0 for n in LIFECYCLE_KERNELS), launches
+        assert set(build._loaded) == loaded, "the timed serve loaded a kernel"
+        for a, b in zip(self.serve_results, res):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"request {a.request_id}: lifecycle and phase 3 differ"
+            assert torch.equal(a.sample, b.sample), \
+                f"request {a.request_id}: sample differs from phase 3's"
+        for t in tickets:
+            steps = previews.get(t.ticket_id, [])
+            assert steps and steps == sorted(set(steps)) and steps[-1] < S
+            assert engine.status(t) == "done"
+        # schedulers on one slot: a long request queued before two short
+        # ones with deadlines
+        mixed = [self._requests(1)[0]] + self._requests(
+            3, lambda i: RequestPolicy(max_steps=S // 4,
+                                       deadline=float(i * S)))[1:]
+        by = {name: engine.serve_batched(mixed, lanes=1, scheduler=name)
+              for name in ("fifo", "sjf", "edf")}
+        mean = {k: sum(r.finish_tick for r in v) / len(v)
+                for k, v in by.items()}
+        hit = {k: sum(bool(r.deadline_met) for r in v[1:]) / 2
+               for k, v in by.items()}
+        print(f"one slot: mean completion tick {mean}, deadline hit rate "
+              f"{hit}")
+        assert mean["sjf"] < mean["fifo"], mean
+        assert hit["edf"] >= hit["fifo"], hit
+        for name in ("sjf", "edf"):
+            for a, b in zip(by["fifo"], by[name]):
+                assert a.accepts == b.accepts, (name, a.request_id)
+        # backpressure and shutdown: four in flight, two queued
+        held = [engine.submit(r) for r in reqs[:LANES]]
+        engine.tick()                                   # admits all four
+        engine.max_queue = 2
+        held += [engine.submit(r) for r in reqs[LANES:LANES + 2]]
+        try:
+            engine.submit(reqs[-1])
+            raise AssertionError("no QueueFull at max_queue")
+        except QueueFull:
+            pass
+        engine.tick(2)
+        drained = engine.shutdown()
+        assert {r.ticket_id for r in drained} == \
+            {t.ticket_id for t in held}
+        assert all(engine.status(t) == "dropped" for t in held)
+        assert all(not r.completed for r in drained)
+        assert sum(r.sample is None for r in drained) == 2
+        print(f"QueueFull at max_queue=2; shutdown dropped {LANES} in "
+              "flight and 2 queued")
+        self.record["serve_lifecycle"] = dict(
+            wall_s=wall, warmup_s=warm_s, host_syncs=syncs, ticks=ticks,
+            launches=launches, previews=sum(map(len, previews.values())),
+            loaded=sorted(loaded), mean_completion_tick=mean,
+            deadline_hit_rate=hit)
+
+    # --- phase 9 -------------------------------------------------------------
     def sample(self):
         torch = self.torch
         from repro_torch.configs import SpeCaConfig
@@ -1561,6 +1828,12 @@ GUIDED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
 GUIDED_DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
                        "verify_accept_mixed")
 GUIDED_SCALES = (4.0, 1.5, 4.0, 1.5)       # serve_guided requests 0-3
+CONTROLLER_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
+                      "taylor_update_lanes", "verify_accept")
+# the lifecycle session is pair-capable: every row verifies through the
+# mixed entry
+LIFECYCLE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
+                     "verify_accept_mixed")
 # per-kernel numbers the kernels line carries beside the contract's keys
 ROW_EXTRAS = ("device_ms", "event_ms", "kernels_per_call",
               "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
@@ -1602,6 +1875,8 @@ def main() -> int:
         smoke.phase("serve_deep", smoke.serve_deep)
         smoke.phase("serve_spectral", smoke.serve_spectral)
         smoke.phase("serve_guided", smoke.serve_guided)
+        smoke.phase("serve_controller", smoke.serve_controller)
+        smoke.phase("serve_lifecycle", smoke.serve_lifecycle)
         smoke.phase("speca_sample", smoke.sample)
     smoke.phase("profiler", smoke.profiler)
     card = smi_line()

@@ -14,11 +14,16 @@ the reference:
     metadata as the Taylor table (row 0 = the newest anchor). Its refresh
     is the ring-shift kernel; its predictions run the Taylor predict
     kernels with other weight columns (:func:`spectral_weights`).
+
+``order_cap`` (both forecasters): an optional per-lane [B] i32 tensor that
+caps the forecast order — Taylor trusts only Δ⁰..Δ^cap, spectral keeps only
+the bands ν_k ≤ cap. ``None`` leaves the weights as they are; the
+controller (``repro_torch.core.controller``) passes its per-lane order.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,12 +49,14 @@ class Forecaster:
         """[B] bool — lanes whose table holds enough anchors to draft."""
         raise NotImplementedError
 
-    def predict_lanes(self, tstate, step, *,
-                      mode: str = "taylor") -> torch.Tensor:
+    def predict_lanes(self, tstate, step, *, mode: str = "taylor",
+                      order_cap: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         raise NotImplementedError
 
-    def predict_chain_lanes(self, tstate, steps, *,
-                            mode: str = "taylor") -> torch.Tensor:
+    def predict_chain_lanes(self, tstate, steps, *, mode: str = "taylor",
+                            order_cap: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
         raise NotImplementedError
 
     def update_lanes(self, tstate, feats, step, mask
@@ -68,11 +75,14 @@ class TaylorForecaster(Forecaster):
     def warm(self, tstate, scfg):
         return tstate["n_anchors"] > scfg.taylor_order
 
-    def predict_lanes(self, tstate, step, *, mode="taylor"):
-        return taylor.predict_lanes(tstate, step, mode=mode)
+    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None):
+        return taylor.predict_lanes(tstate, step, mode=mode,
+                                    order_cap=order_cap)
 
-    def predict_chain_lanes(self, tstate, steps, *, mode="taylor"):
-        return taylor.predict_chain_lanes(tstate, steps, mode=mode)
+    def predict_chain_lanes(self, tstate, steps, *, mode="taylor",
+                            order_cap=None):
+        return taylor.predict_chain_lanes(tstate, steps, mode=mode,
+                                          order_cap=order_cap)
 
     def update_lanes(self, tstate, feats, step, mask):
         return taylor.update_lanes(tstate, feats, step, mask)
@@ -80,7 +90,9 @@ class TaylorForecaster(Forecaster):
 
 def spectral_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
                      n_anchors: torch.Tensor, *,
-                     band_decay: float = 0.85) -> torch.Tensor:
+                     band_decay: float = 0.85,
+                     order_cap: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Per-ring-row spectral extrapolation weights with validity masking.
 
     The rows are the last M = order+1 anchor snapshots at relative
@@ -93,7 +105,8 @@ def spectral_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
     each band damped by ``band_decay`` ρ per gap of extrapolation times
     its folded frequency; at τ = 0 the weights are δ_{j0}. ``d``/``gap``/
     ``n_anchors`` may be scalars, [B] or [K, B] (weights [m+1, ...]);
-    rows with no anchor behind them (j ≥ n_anchors) get 0. The operations
+    rows with no anchor behind them (j ≥ n_anchors) get 0; ``order_cap``
+    [B] (the controller's) zeroes the bands with ν_k > cap. The operations
     follow the reference's order; ``cos`` and ``pow`` are PyTorch's, so
     the weights agree with the reference's to f32 rounding, not bitwise.
     """
@@ -110,6 +123,9 @@ def spectral_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
         for k in range(M):
             nu = min(k, M - k)
             damp = rho ** (nu * tau)
+            if order_cap is not None:
+                damp = torch.where(nu <= order_cap, damp,
+                                   torch.zeros_like(damp))
             acc = acc + damp * torch.cos((2.0 * math.pi * k / M)
                                          * (tau + j))
         ws.append(acc / M)
@@ -139,20 +155,21 @@ class SpectralForecaster(Forecaster):
         # every ring row filled: the same gate as the Taylor table
         return tstate["n_anchors"] > scfg.taylor_order
 
-    def _weights(self, tstate, steps):
+    def _weights(self, tstate, steps, order_cap):
         d = (steps.to(torch.int32) - tstate["anchor_step"]).to(torch.float32)
         order = tstate["diffs"].shape[0] - 1
         w = spectral_weights(order, d, tstate["gap"], tstate["n_anchors"],
-                             band_decay=self.band_decay)
+                             band_decay=self.band_decay, order_cap=order_cap)
         return w.to(torch.float32).contiguous()
 
-    def predict_lanes(self, tstate, step, *, mode="taylor"):
-        return ops.spectral_predict_lanes(tstate["diffs"],
-                                          self._weights(tstate, step))
+    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None):
+        return ops.spectral_predict_lanes(
+            tstate["diffs"], self._weights(tstate, step, order_cap))
 
-    def predict_chain_lanes(self, tstate, steps, *, mode="taylor"):
+    def predict_chain_lanes(self, tstate, steps, *, mode="taylor",
+                            order_cap=None):
         return ops.spectral_predict_chain_lanes(
-            tstate["diffs"], self._weights(tstate, steps))
+            tstate["diffs"], self._weights(tstate, steps, order_cap))
 
     def update_lanes(self, tstate, feats, step, mask):
         diffs = ops.spectral_update_lanes(tstate["diffs"], feats, mask)

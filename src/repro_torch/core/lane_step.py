@@ -59,6 +59,13 @@ Flags per tick ([W]): ``attempted``, ``ok``, ``accepted``, ``full``,
 [K, W] and reports chain position 0 in the depth-1 keys. In a paired slot
 every flag is pair-equal: both lanes report the pair's one decision and
 its guided-residual error.
+
+Controller (``controller=True``): the state also carries the
+``repro_torch.core.controller`` [W] tensors (``ctl_*``); each lane's
+forecast weights are capped at its ``ctl_order``, and after every tick the
+controller update adapts the controller-on lanes' ``tau0``, ``draft_k`` and
+``ctl_order`` from their own counters, on the device (no host sync).
+``controller=False`` adds no key and no operation.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ import torch
 
 from repro_torch.configs import (DiffusionConfig, ModelConfig, SpeCaConfig,
                                  torch_dtype)
+from repro_torch.core import controller as CT
 from repro_torch.core import taylor
 from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.verify import relative_error, threshold_schedule
@@ -120,14 +128,16 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
                         x: Optional[torch.Tensor] = None,
                         active: bool = False,
                         guidance: Union[bool, str] = False,
-                        forecaster: Any = None) -> State:
+                        forecaster: Any = None,
+                        controller: bool = False) -> State:
     """Fresh lane-batch state on the workload's device. ``cond_template``
     supplies per-key shapes (its leading axis is replaced by ``lanes``);
     pass ``x`` to start from a concrete latent (the sampler) instead of
     zeros (the engine). ``forecaster`` (a name or instance, ``None`` =
     Taylor) lays out the table. ``guidance=True`` adds ``gscale`` (all
     ones) and ``paired`` all True and needs an even ``lanes``;
-    ``"mixed"`` starts ``paired`` all False."""
+    ``"mixed"`` starts ``paired`` all False. ``controller=True`` adds the
+    controller's all-off ``ctl_*`` tensors."""
     W, dev = lanes, wl.device
     _check_pairing(wl, guidance, W)
     fc = get_forecaster(forecaster)
@@ -156,6 +166,8 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
     if guidance:
         state["gscale"] = torch.ones((W,), dtype=torch.float32, device=dev)
         state["paired"] = torch.full((W,), guidance is True, device=dev)
+    if controller:
+        state.update(CT.init_controller_state(W, wl.scfg.taylor_order, dev))
     return state
 
 
@@ -166,7 +178,7 @@ class LaneStep:
     def __init__(self, wl, *, lanes: int, draft_mode: str,
                  accept_mode: str, verify_backend: str,
                  guidance: Union[bool, str] = False,
-                 forecaster: Any = None) -> None:
+                 forecaster: Any = None, controller: bool = False) -> None:
         if accept_mode not in ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
         if verify_backend not in VERIFY_BACKENDS:
@@ -181,6 +193,7 @@ class LaneStep:
         self.draft_mode = draft_mode
         self.accept_mode = accept_mode
         self.verify_backend = verify_backend
+        self.controller = bool(controller)
         self.host_syncs = 0
 
     def _nan(self) -> torch.Tensor:
@@ -306,7 +319,8 @@ class LaneStep:
         nan = self._nan()
 
         if self._any(want):
-            preds = fc.predict_lanes(tstate, s_eff, mode=self.draft_mode)
+            preds = fc.predict_lanes(tstate, s_eff, mode=self.draft_mode,
+                                     order_cap=self._order_cap(state))
             out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
             pred_vl = preds[vl][0] + preds[vl][1]
             err, ok = self._verify(state, pred_vl, real_vl, tau)
@@ -336,7 +350,21 @@ class LaneStep:
                  "n_spec": accept.to(torch.int32),
                  "n_drafted": want.to(torch.int32),
                  "advanced": active.to(torch.int32)}
+        self._adapt(state, new_state, flags)
         return new_state, flags
+
+    def _order_cap(self, state: State) -> Optional[torch.Tensor]:
+        return state["ctl_order"] if self.controller else None
+
+    def _adapt(self, state: State, new_state: State,
+               flags: Dict[str, Any]) -> None:
+        """The controller tick: adapt ``new_state``'s controlled knobs from
+        the old state and this tick's counters."""
+        if self.controller:
+            new_state.update(CT.controller_update(
+                state, step_new=new_state["step"], n_spec=flags["n_spec"],
+                n_drafted=flags["n_drafted"], advanced=flags["advanced"],
+                active=state["active"]))
 
 
 class ChainStep(LaneStep):
@@ -397,7 +425,8 @@ class ChainStep(LaneStep):
             if drafting:
                 if preds_chain is None:
                     preds_chain = fc.predict_chain_lanes(
-                        tstate, steps_chain, mode=self.draft_mode)
+                        tstate, steps_chain, mode=self.draft_mode,
+                        order_cap=self._order_cap(state))
                 preds = preds_chain[j]
                 out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
                 pred_vl = preds[vl][0] + preds[vl][1]
@@ -459,6 +488,7 @@ class ChainStep(LaneStep):
                  "n_spec": n_acc, "n_drafted": n_drafted,
                  "advanced": advanced,
                  **{f"chain_{k}": torch.stack(v) for k, v in rows.items()}}
+        self._adapt(state, new_state, flags)
         return new_state, flags
 
 
@@ -467,7 +497,8 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                         verify_backend: str = "jnp",
                         guidance: Union[bool, str] = False,
                         max_draft_depth: int = 1,
-                        forecaster: Any = None) -> LaneStep:
+                        forecaster: Any = None,
+                        controller: bool = False) -> LaneStep:
     """Build the lane step for a ``Workload``: the depth-1
     :class:`LaneStep` at ``max_draft_depth=1``, else a :class:`ChainStep`
     of K = ``max_draft_depth`` positions (each lane's horizon is its
@@ -475,13 +506,15 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
     ``taylor.prediction_weights``; ``guidance`` is ``False`` (per-lane),
     ``True`` (every slot a guided pair) or ``"mixed"`` (the state's
     ``paired`` mask decides, slot by slot); ``forecaster`` is a name or
-    ``Forecaster`` instance (``None`` = Taylor)."""
+    ``Forecaster`` instance (``None`` = Taylor); ``controller=True`` builds
+    the closed-loop step (state from ``init_workload_state(...,
+    controller=True)``)."""
     if max_draft_depth < 1:
         raise ValueError(f"max_draft_depth must be >= 1, "
                          f"got {max_draft_depth}")
     kw = dict(lanes=lanes, draft_mode=draft_mode, accept_mode=accept_mode,
               verify_backend=verify_backend, guidance=guidance,
-              forecaster=forecaster)
+              forecaster=forecaster, controller=controller)
     if max_draft_depth == 1:
         return LaneStep(wl, **kw)
     return ChainStep(wl, depth=int(max_draft_depth), **kw)

@@ -170,25 +170,33 @@ def predict(state: State, step, mode: str = "taylor") -> torch.Tensor:
 
 
 def predict_lanes(state: State, step: torch.Tensor,
-                  mode: str = "taylor") -> torch.Tensor:
+                  mode: str = "taylor", *,
+                  order_cap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-lane forecast: each lane extrapolates its own table to ``step``
-    (scalar or per-lane [B]) through the fused predict kernel."""
+    (scalar or per-lane [B]) through the fused predict kernel.
+    ``order_cap`` [B] (the controller's) zeroes each lane's orders above
+    it."""
     d = (step.to(torch.int32) - state["anchor_step"]).to(torch.float32)
     order = state["diffs"].shape[0] - 1
-    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode)
+    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode,
+                           order_cap=order_cap)
     return ops.taylor_predict_lanes(state["diffs"],
                                     w.to(torch.float32).contiguous())
 
 
 def predict_chain_lanes(state: State, steps: torch.Tensor,
-                        mode: str = "taylor") -> torch.Tensor:
+                        mode: str = "taylor", *,
+                        order_cap: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Per-lane forecast of a whole drafted chain: ``steps`` [K, B] (chain
     position k of lane b extrapolates to step ``steps[k, b]``) ->
     [K, ...feat] from one read of the table; position k is bitwise
-    :func:`predict_lanes` called with ``steps[k]``."""
+    :func:`predict_lanes` called with ``steps[k]`` (and the same
+    ``order_cap``)."""
     d = (steps.to(torch.int32) - state["anchor_step"]).to(torch.float32)
     order = state["diffs"].shape[0] - 1
-    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode)
+    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode,
+                           order_cap=order_cap)
     return ops.taylor_predict_chain_lanes(state["diffs"],
                                           w.to(torch.float32).contiguous())
 

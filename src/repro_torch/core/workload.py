@@ -44,8 +44,8 @@ class Workload:
     ``full_flops`` / ``verify_flops``, ``supports_pairing`` (guided
     cond/uncond lane pairs). Step hooks: ``t_frac``,
     ``step_context``, ``spec_forward``, ``full_forward``, ``zero_out``,
-    ``select_out``, ``advance``, ``rollback``. Host hooks: ``init_payload``,
-    ``fill_payload``, ``emit``.
+    ``select_out``, ``advance``, ``rollback``. Host hooks:
+    ``validate_request``, ``init_payload``, ``fill_payload``, ``emit``.
     """
 
     tag: str = "?"
@@ -64,6 +64,12 @@ class Workload:
     def select_dyn(self, mask, new, cur):
         return {k: _axis_where(mask, self.dyn_axes[k], new[k], v)
                 for k, v in cur.items()}
+
+    def validate_request(self, request, steps: int) -> None:
+        """Reject (``ValueError``) a request whose payload this workload
+        cannot serve. The engine calls it before any side effect of
+        admission (session start, ticket, queue push). Default: accept
+        everything."""
 
 
 class DiffusionWorkload(Workload):

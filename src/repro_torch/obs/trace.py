@@ -9,12 +9,15 @@ from typing import Optional
 class Timings:
     """Lifecycle timestamps (engine-clock seconds) and tick indices of one
     request. ``first_tick_s`` is None when the request was drained before
-    any scheduler tick dispatched it."""
+    any scheduler tick dispatched it. The ticks are the owning session's:
+    ``submit_tick`` when it was queued, ``admit_tick`` when it entered its
+    lanes, ``finish_tick`` after which it completed."""
 
     submit_s: float
     admit_s: float
     finish_s: float
     first_tick_s: Optional[float] = None
+    submit_tick: int = 0
     admit_tick: int = 0
     finish_tick: int = 0
 

@@ -11,52 +11,67 @@ scheduler tick:
     verify kernel; rejected lanes are served by a full forward whose
     refresh kernel updates ONLY their table slices — when every lane
     accepts, the full forward is skipped;
-  * when a lane finishes, the FIFO queue refills it immediately
-    (continuous batching), with backfill: the first queued request that
-    fits the free slot shape is admitted, so a guided request waiting for
-    a whole pair never blocks an unguided one.
+  * when a lane finishes, the admission queue refills it immediately
+    (continuous batching) in the order its ``Scheduler`` decides (FIFO,
+    SJF, EDF or WFQ, ``repro_torch.serving.scheduler``), with backfill: a
+    guided request waiting for a whole pair never blocks an unguided one
+    that fits the free lane.
 
 Slot-width scheduling: the lane batch is organised in pair slots of two
 adjacent lanes (2k, 2k+1). An unguided request takes one lane; a guided
 request (``RequestPolicy.guidance_scale``) takes a whole pair — cond
 stream at 2k, uncond or negative stream at 2k+1 — and sets the slot's
 ``paired`` mask, which switches verification to ONE guided-residual
-decision per pair. A session is paired (the lane step's ``"mixed"``
-program, ``ops.verify_accept_mixed``) iff some request of its batch is
-guided; unguided-only traffic keeps the plain program and
-``ops.verify_accept``.
+decision per pair. A ``serve_batched`` session is paired (the lane step's
+``"mixed"`` program, ``ops.verify_accept_mixed``) iff some request of its
+batch is guided; unguided-only batches keep the plain program and
+``ops.verify_accept``. The lifecycle session is always paired.
 
-The port serves diffusion requests through ``serve_batched`` / ``serve``
-/ ``run_request``, guided and unguided in one batch, at depth 1 or in
-draft-K chains (``max_draft_depth`` with ``RequestPolicy.draft_depth``),
-with the Taylor or the spectral forecaster. The reference's lifecycle
-API, its other schedulers (SJF, EDF, WFQ), the controller,
-observability and meshes are not ported yet.
+Request lifecycle: ``submit() -> Ticket``, ``poll``/``result``/``results``,
+``stream()`` (``previews=True`` adds per-tick snapshots of the running
+requests), ``tick()``, ``release()``, ``status()`` and ``shutdown()``;
+requests are admitted continuously into free slots, and a bounded queue
+(``max_queue``) raises ``QueueFull``. Every ticket walks queued → running →
+done | dropped (→ released). ``serve_batched``/``serve``/``run_request``
+serve a fixed list through private sessions and never touch the lifecycle
+queue.
 
-Host/device discipline: while every in-flight request is depth-1, lane
-completion is host-predictable (an active lane advances one step per
-tick), so per-tick flags stay on the device until a request completes.
-With a deep request in flight a lane moves 0..K steps per tick, so the
-tick's ``advanced`` counters are fetched. The lane step itself syncs to
-decide its branches. ``SpeCaEngine.host_syncs`` counts both.
+Closed loop (``SpeCaEngine(controller=True)``): a request whose policy
+carries a ``ControllerPolicy`` has its lane's τ0, draft depth and forecast
+order adapted after every tick on the device
+(``repro_torch.core.controller``); controller-free requests in the same
+batch keep their trajectories bitwise.
+
+Host/device discipline: while every in-flight request is depth-1 and
+controller-free, lane completion is host-predictable (an active lane
+advances one step per tick), so per-tick flags stay on the device until a
+request completes. With a deep or controlled request in flight a lane
+moves 0..K steps per tick, so the tick's ``advanced`` counters are
+fetched. The lane step itself syncs to decide its branches.
+``SpeCaEngine.host_syncs`` counts both. The reference's observability and
+meshes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import (Any, Dict, Iterator, List, Optional, Set, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
+from repro_torch.core import controller as CT
 from repro_torch.core import lane_step as LS
 from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.workload import DiffusionWorkload, NoiseFn
 from repro_torch.device import DeviceLike
 from repro_torch.diffusion.pipeline import null_cond_like
-from repro_torch.obs import MonotonicClock, Timings
-from repro_torch.serving.policy import RequestPolicy
+from repro_torch.obs import Clock, Timings, resolve_clock
+from repro_torch.serving.policy import QueueFull, RequestPolicy, Ticket
+from repro_torch.serving.scheduler import (QueueItem, Scheduler,
+                                           fresh_scheduler, make_scheduler)
 
 
 @dataclasses.dataclass
@@ -87,9 +102,14 @@ class Result:
     accepts: Optional[List[bool]] = None   # per-step accept trajectory
     num_drafted: int = 0
     # False when the engine drained the lane before the request reached
-    # its final step (tick budget) or never started it
+    # its final step (tick budget, shutdown) or never started it
     completed: bool = True
+    # the session tick after which the request completed (None if it never
+    # started) and the policy's deadline tick
     finish_tick: Optional[int] = None
+    deadline: Optional[float] = None
+    ticket_id: Optional[int] = None
+    tenant: str = "default"
     timings: Optional[Timings] = None
 
     @property
@@ -105,30 +125,30 @@ class Result:
         request never drafted."""
         return self.num_spec / max(self.num_drafted, 1)
 
-
-@dataclasses.dataclass
-class QueueItem:
-    """One queued request with its resolved policy and schedule length;
-    ``seq`` is its arrival index and the key its Result is returned
-    under."""
-    seq: int
-    request: Request
-    policy: RequestPolicy
-    steps: int
-    submit_s: float
-
     @property
-    def streams(self) -> int:
-        return self.policy.streams
+    def deadline_met(self) -> Optional[bool]:
+        """Whether the request finished by its policy deadline; None when
+        it had no deadline or never finished."""
+        if self.deadline is None or self.finish_tick is None \
+                or not self.completed:
+            return None
+        return self.finish_tick <= self.deadline
 
 
-def _pop_fitting(queue: List[QueueItem], fits) -> Optional[QueueItem]:
-    """FIFO with backfill: remove and return the first queued item (in
-    arrival order) that ``fits``, or None."""
-    for i, item in enumerate(queue):
-        if fits(item):
-            return queue.pop(i)
-    return None
+@dataclasses.dataclass(frozen=True)
+class Preview:
+    """One per-tick snapshot of a RUNNING request
+    (``SpeCaEngine.stream(previews=True)``): ``sample`` is its current
+    partially denoised latent, a pure read of the lane state (the final
+    ``Result.sample`` is bitwise a preview-free run's); ``step`` the
+    schedule steps done (always below the request's schedule length);
+    ``tick`` the session's scheduler tick."""
+
+    ticket_id: int
+    request_id: int
+    tick: int
+    step: int
+    sample: Any
 
 
 @dataclasses.dataclass(eq=False)       # identity: one entry may span two
@@ -154,8 +174,8 @@ class _Session:
     slot-width (``"mixed"``) program and admit guided requests into pair
     slots; plain sessions run the per-lane program. Each tick adds its
     device syncs to the engine's ``host_syncs`` as they happen: the lane
-    step's branches and the ``advanced`` fetch while a deep request is in
-    flight."""
+    step's branches and the ``advanced`` fetch while a deep or controlled
+    request is in flight."""
 
     def __init__(self, engine: "SpeCaEngine", width: int, *,
                  paired: bool) -> None:
@@ -232,7 +252,7 @@ class _Session:
         if self.state is None:
             self.state = LS.init_workload_state(
                 wl, self.W, cond, guidance="mixed" if self.paired else False,
-                forecaster=e.forecaster)
+                forecaster=e.forecaster, controller=e.controller)
         tau0 = float(wl.scfg.tau0 if pol.tau0 is None else pol.tau0)
         lane0 = entry.lanes[0]
         # draft_k is pair-equal: a guided pair drafts pair-coherently
@@ -261,6 +281,14 @@ class _Session:
         st["step"][lane] = 0
         st["active"][lane] = True
         st["tau0"][lane] = tau0
+        if self.e.controller:
+            # a controlled lane starts at the request's resolved knobs; a
+            # controller-free lane gets the all-off row (bitwise inert)
+            cv = CT.lane_values(entry.item.policy.controller, tau0=tau0,
+                                order=wl.scfg.taylor_order,
+                                max_draft_depth=self.e.max_draft_depth)
+            for k, v in cv.items():
+                st[k][lane] = v
         for k, v in st["cond"].items():
             v[lane] = torch.as_tensor(cond[k])[0]
         self.state = wl.fill_payload(st, lane, entry.item.request,
@@ -269,7 +297,8 @@ class _Session:
     def advance(self) -> List[Tuple[_Entry, Result]]:
         """One scheduler tick: run the lane step, then complete every
         entry whose schedule finished. With a deep entry in flight a lane
-        moves 0..K steps per tick, so the tick's ``advanced`` counters are
+        moves 0..K steps per tick, and a controlled entry adapts its
+        ``draft_k`` on the device, so the tick's ``advanced`` counters are
         fetched (one host sync). Returns the completions."""
         now = self.e.clock.now()
         before = self.step_fn.host_syncs
@@ -278,7 +307,8 @@ class _Session:
         self._flag_log.append(flags)
         self.tick += 1
         adv = None
-        if any(e.draft_k > 1 for e in self.entries()):
+        if any(e.draft_k > 1 or e.item.policy.controller is not None
+               for e in self.entries()):
             adv = flags["advanced"].cpu().numpy()
             self.e._host_syncs += 1
         completed: List[Tuple[_Entry, Result]] = []
@@ -334,8 +364,8 @@ class _Session:
         finish_s = self.e.clock.now()
         timings = Timings(
             submit_s=item.submit_s, admit_s=entry.t0, finish_s=finish_s,
-            first_tick_s=entry.first_tick_s, admit_tick=entry.start_tick,
-            finish_tick=self.tick)
+            first_tick_s=entry.first_tick_s, submit_tick=item.submit_tick,
+            admit_tick=entry.start_tick, finish_tick=self.tick)
         return Result(
             request_id=item.request.request_id,
             sample=self.wl.emit(self.state, lane, entry.done),
@@ -344,7 +374,9 @@ class _Session:
             flops=n_full * k * self.wl.full_flops
             + n_drafted * k * self.wl.verify_flops,
             wall_s=finish_s - entry.t0, accepts=accepts,
-            completed=completed, finish_tick=self.tick, timings=timings)
+            completed=completed, finish_tick=self.tick,
+            deadline=item.policy.deadline, ticket_id=item.ticket_id,
+            tenant=item.policy.tenant, timings=timings)
 
     def drain(self) -> List[Tuple[_Entry, Result]]:
         """Tick-budget shutdown: harvest every in-flight entry as
@@ -357,10 +389,24 @@ class _Session:
 
 
 def _dropped_result(item: QueueItem) -> Result:
-    """A queued request that never started (tick-budget shutdown)."""
+    """A queued request that never started (shutdown, tick budget)."""
     return Result(request_id=item.request.request_id, sample=None,
                   num_full=0, num_spec=0, flops=0.0, wall_s=0.0,
-                  accepts=[], completed=False)
+                  accepts=[], completed=False,
+                  deadline=item.policy.deadline, ticket_id=item.ticket_id,
+                  tenant=item.policy.tenant)
+
+
+def _admit_into(sess: _Session, sched: Scheduler) -> List[_Entry]:
+    """Pop fitting requests into the session's free slots until nothing
+    fits (the scheduler decides the order, the session the placement)."""
+    placed: List[_Entry] = []
+    while len(sched):
+        item = sched.pop(sess.fits)
+        if item is None:
+            break
+        placed.append(sess.place(item))
+    return placed
 
 
 class SpeCaEngine:
@@ -380,7 +426,16 @@ class SpeCaEngine:
     all-guided mode — a request without a scale is served guided at
     ``dcfg.guidance_scale``. null_cond: the default second stream of a
     guided pair (``None`` = ``null_cond_like`` of the request's
-    conditioning).
+    conditioning). controller: ``True`` builds the closed-loop step, so
+    requests may carry a ``RequestPolicy.controller``; the default
+    ``False`` builds the controller-free step and rejects such requests.
+    scheduler: the admission order — ``"fifo"`` (default), ``"sjf"``,
+    ``"edf"``, ``"wfq"`` or a ``Scheduler`` class, factory or instance.
+    max_queue: bound on the lifecycle queue (``submit`` raises
+    ``QueueFull`` beyond it; ``None`` = unbounded). default_policy: the
+    policy of a request that carries none. lanes: the width of the
+    lifecycle session the first ``submit`` starts. clock: the serving
+    clock (``None`` = ``time.monotonic``; tests pass a ``FakeClock``).
     """
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DiffusionConfig,
@@ -390,7 +445,12 @@ class SpeCaEngine:
                  noise_fn: Optional[NoiseFn] = None,
                  guidance: bool = False,
                  null_cond: Optional[Dict[str, Any]] = None,
-                 max_draft_depth: int = 1, forecaster: Any = None,
+                 scheduler: Any = "fifo",
+                 max_queue: Optional[int] = None,
+                 default_policy: Optional[RequestPolicy] = None,
+                 max_draft_depth: int = 1, lanes: int = 4,
+                 forecaster: Any = None, controller: bool = False,
+                 clock: Optional[Clock] = None,
                  device: DeviceLike = "cuda"):
         if accept_mode not in LS.ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
@@ -399,6 +459,7 @@ class SpeCaEngine:
                              f"got {max_draft_depth}")
         if verify_backend not in LS.VERIFY_BACKENDS:
             raise ValueError(f"unknown verify_backend {verify_backend!r}")
+        self._sched: Scheduler = make_scheduler(scheduler)   # fails fast
         self.workload = DiffusionWorkload(cfg, params, dcfg, scfg,
                                           device=device, noise_fn=noise_fn)
         self.draft_mode = draft_mode
@@ -406,26 +467,45 @@ class SpeCaEngine:
         self.verify_backend = verify_backend
         self.guidance = bool(guidance)
         self.null_cond = null_cond
+        self.scheduler_spec = scheduler
+        self.max_queue = max_queue
+        self.default_policy = default_policy
         self.max_draft_depth = int(max_draft_depth)
+        self.default_lanes = lanes
         # resolved now, so a bad name fails at construction
         self.forecaster = get_forecaster(forecaster)
-        self.clock = MonotonicClock()
-        self._lane_fns: Dict[Tuple[int, Any], LS.LaneStep] = {}
+        self.controller = bool(controller)
+        self.clock = resolve_clock(clock)
+        self._lane_fns: Dict[Tuple[int, Any, bool], LS.LaneStep] = {}
         self._host_syncs = 0
+        # lifecycle state: one long-lived session (serve_batched keeps
+        # private ones), the Results by ticket and the ticket states
+        self._session: Optional[_Session] = None
+        self._seq = 0
+        self._results: Dict[int, Result] = {}
+        self._completion_order: List[int] = []
+        self._ticket_status: Dict[int, str] = {}
+        # tickets whose Result was release()d: not unknown, consumed
+        self._released: Set[int] = set()
 
     @property
     def host_syncs(self) -> int:
         """Device syncs this engine's sessions have made so far: the lane
         step's branches (two per depth-1 tick, up to K+1 per chain tick)
-        and one ``advanced`` fetch per tick with a deep request in
-        flight."""
+        and one ``advanced`` fetch per tick with a deep or controlled
+        request in flight. Result and preview reads are not counted."""
         return self._host_syncs
 
-    def resolve_policy(self, req: Request) -> RequestPolicy:
-        """The request's policy (or the default) with the legacy
+    def resolve_policy(self, req: Request,
+                       base: Optional[RequestPolicy] = None
+                       ) -> RequestPolicy:
+        """The request's effective policy — ``base`` (``submit(policy=)``),
+        else its own, else the engine default — with the legacy
         ``Request.guidance_scale`` and the ``guidance=True`` engine mode
         folded in, validated against this engine."""
-        pol = req.policy or RequestPolicy()
+        pol = base if base is not None \
+            else req.policy if req.policy is not None \
+            else (self.default_policy or RequestPolicy())
         if req.guidance_scale is not None:
             pol = dataclasses.replace(
                 pol, guidance_scale=float(req.guidance_scale))
@@ -439,20 +519,34 @@ class SpeCaEngine:
                 f"draft_depth={dk} outside this engine's compiled chain "
                 f"(1..max_draft_depth={self.max_draft_depth}); construct "
                 "SpeCaEngine(max_draft_depth=K) to serve deeper drafts")
+        if pol.controller is not None:
+            if not isinstance(pol.controller, CT.ControllerPolicy):
+                raise TypeError(
+                    "RequestPolicy.controller must be a "
+                    "repro_torch.core.controller.ControllerPolicy, got "
+                    f"{type(pol.controller).__name__}")
+            if not self.controller:
+                raise ValueError(
+                    "this engine built the controller-free step; construct "
+                    "SpeCaEngine(controller=True) to serve closed-loop "
+                    "requests")
+        if not pol.weight > 0:
+            raise ValueError(
+                f"RequestPolicy.weight must be > 0, got {pol.weight}")
         return pol
 
     def _lane_step(self, W: int, mode: Any = False) -> LS.LaneStep:
         """The W-lane step (built once per width and program): ``mode``
         ``False`` is the plain per-lane program, ``"mixed"`` the
         slot-width pair-mask program."""
-        key = (W, mode)
+        key = (W, mode, self.controller)
         if key not in self._lane_fns:
             self._lane_fns[key] = LS.build_workload_step(
                 self.workload, lanes=W, draft_mode=self.draft_mode,
                 accept_mode=self.accept_mode,
                 verify_backend=self.verify_backend, guidance=mode,
                 max_draft_depth=self.max_draft_depth,
-                forecaster=self.forecaster)
+                forecaster=self.forecaster, controller=self.controller)
         return self._lane_fns[key]
 
     def lane_width(self, lanes: int, n_requests: int) -> int:
@@ -471,13 +565,220 @@ class SpeCaEngine:
         W = max(min(lanes, total), widest)
         return -(-W // widest) * widest
 
+    # --- lifecycle -----------------------------------------------------------
+    @property
+    def current_tick(self) -> int:
+        return self._session.tick if self._session is not None else 0
+
+    def pending(self) -> int:
+        """Queued (not yet admitted) requests."""
+        return len(self._sched)
+
+    def in_flight(self) -> int:
+        """Admitted, not yet completed requests."""
+        return len(self._session.entries()) if self._session else 0
+
+    def start(self, *, lanes: Optional[int] = None) -> None:
+        """Start the lifecycle session (else the first ``submit`` starts it
+        at the engine's ``lanes``). It is always pair-capable: the width
+        rounds up to whole pairs, so guided and unguided submissions
+        mix."""
+        if self._session is not None:
+            raise RuntimeError("serving session already started; "
+                               "shutdown() first to resize")
+        W = max(lanes if lanes is not None else self.default_lanes, 2)
+        self._session = _Session(self, -(-W // 2) * 2, paired=True)
+
+    def submit(self, req: Request,
+               policy: Optional[RequestPolicy] = None) -> Ticket:
+        """Queue one request; returns a ``Ticket`` to poll or stream on.
+        ``policy`` overrides ``req.policy`` (the legacy guidance fields
+        still fold in). Raises ``QueueFull`` at ``max_queue``. A rejected
+        request leaves no trace: the policy and the payload are validated
+        before the session starts or a ticket is issued."""
+        if self.max_queue is not None and len(self._sched) >= self.max_queue:
+            raise QueueFull(f"admission queue at max_queue={self.max_queue}")
+        pol = self.resolve_policy(req, base=policy)
+        steps = pol.steps(self.workload.num_steps)
+        self.workload.validate_request(req, steps)
+        if self._session is None:
+            self.start()
+        item = QueueItem(seq=self._seq, request=req, policy=pol, steps=steps,
+                         submit_tick=self._session.tick, ticket_id=self._seq,
+                         submit_s=self.clock.now())
+        self._seq += 1
+        self._sched.push(item)
+        self._ticket_status[item.ticket_id] = "queued"
+        return Ticket(ticket_id=item.ticket_id, request_id=req.request_id,
+                      submit_tick=item.submit_tick)
+
+    def tick(self, n: int = 1) -> List[Result]:
+        """Advance the lifecycle session up to ``n`` scheduler ticks
+        (admission, then one lane step); returns the Results completed on
+        the way. Stops early when the engine is idle."""
+        done: List[Result] = []
+        for _ in range(n):
+            sess = self._session
+            if sess is None:
+                break
+            for entry in _admit_into(sess, self._sched):
+                self._ticket_status[entry.item.ticket_id] = "running"
+            if not sess.busy():
+                break
+            for _entry, res in sess.advance():
+                self._record(res)
+                done.append(res)
+        return done
+
+    def _record(self, res: Result) -> None:
+        self._results[res.ticket_id] = res
+        self._completion_order.append(res.ticket_id)
+        # "dropped" for a request the engine did not finish; its Result
+        # stays pollable and releasable
+        self._ticket_status[res.ticket_id] = \
+            "done" if res.completed else "dropped"
+
+    @staticmethod
+    def _tid(ticket: Union[Ticket, int]) -> int:
+        return ticket.ticket_id if isinstance(ticket, Ticket) else ticket
+
+    def poll(self, ticket: Union[Ticket, int]) -> Optional[Result]:
+        """The ticket's Result if it has completed, else None; never
+        advances the engine and never evicts the Result."""
+        return self._results.get(self._tid(ticket))
+
+    def release(self, *tickets: Union[Ticket, int]) -> None:
+        """Drop completed tickets' Results (samples included) and status;
+        a long-lived engine releases each ticket once consumed, or host
+        memory grows by one sample per request."""
+        tids = {self._tid(t) for t in tickets}
+        undone = [t for t in tids if t not in self._results]
+        if undone:
+            raise KeyError(f"tickets {sorted(undone)} have no completed "
+                           "Result to release")
+        for tid in tids:
+            self._results.pop(tid)
+            self._ticket_status.pop(tid, None)
+            self._released.add(tid)
+        # _completion_order keeps its entries so an open stream() cursor
+        # stays valid; streams skip released tickets
+
+    def status(self, ticket: Union[Ticket, int]) -> str:
+        """``"queued"``, ``"running"``, ``"done"``, ``"dropped"`` (drained
+        unfinished or never started at ``shutdown()``; Result pollable
+        with ``completed=False``), ``"released"`` or ``"unknown"``."""
+        tid = self._tid(ticket)
+        if tid in self._released:
+            return "released"
+        return self._ticket_status.get(tid, "unknown")
+
+    def result(self, ticket: Union[Ticket, int],
+               max_ticks: Optional[int] = None) -> Result:
+        """Run scheduler ticks until the ticket completes and return its
+        Result; raises ``KeyError`` if the engine goes idle first (an
+        unknown ticket) and ``TimeoutError`` when ``max_ticks`` runs
+        out."""
+        tid = self._tid(ticket)
+        budget = max_ticks
+        while tid not in self._results:
+            if budget is not None and budget <= 0:
+                raise TimeoutError(f"ticket {tid} incomplete after the "
+                                   "tick budget")
+            if self._idle():
+                raise KeyError(f"ticket {tid} is not pending on this "
+                               "engine")
+            self.tick()
+            if budget is not None:
+                budget -= 1
+        return self._results[tid]
+
+    def _idle(self) -> bool:
+        return not (len(self._sched)
+                    or (self._session is not None and self._session.busy()))
+
+    def results(self, tickets: List[Union[Ticket, int]]) -> List[Result]:
+        """``result`` over a ticket list, in its order."""
+        return [self.result(t) for t in tickets]
+
+    def _previews(self, want: Optional[Set[int]]) -> List[Preview]:
+        """Snapshots of the wanted running entries: pure reads of their
+        lanes' state. A deep entry that has not advanced yet has
+        nothing to show."""
+        sess = self._session
+        if sess is None:
+            return []
+        return [Preview(ticket_id=e.item.ticket_id,
+                        request_id=e.item.request.request_id, tick=sess.tick,
+                        step=min(e.done, e.item.steps),
+                        sample=sess.wl.emit(sess.state, e.lanes[0], e.done))
+                for e in sess.entries()
+                if (want is None or e.item.ticket_id in want) and e.done > 0]
+
+    def stream(self, tickets: Optional[List[Union[Ticket, int]]] = None,
+               *, previews: bool = False
+               ) -> Iterator[Union[Result, Preview]]:
+        """Yield Results in completion order as the engine runs.
+        ``tickets=None`` streams the completions from this call on until
+        the engine is idle; a ticket list streams exactly those tickets,
+        already completed ones included, and raises ``KeyError`` up front
+        for a ticket this engine never issued. A released ticket counts
+        as consumed. Submissions made while streaming are admitted.
+        ``previews=True`` also yields a :class:`Preview` of each wanted
+        running request after every tick; final Results are bitwise the
+        same either way."""
+        want = None if tickets is None else {self._tid(t) for t in tickets}
+        if want is not None:
+            unknown = [t for t in want if t not in self._ticket_status
+                       and t not in self._released]
+            if unknown:
+                raise KeyError(f"tickets {sorted(unknown)} are not known "
+                               "to this engine")
+        emitted = len(self._completion_order) if want is None else 0
+        while True:
+            while emitted < len(self._completion_order):
+                tid = self._completion_order[emitted]
+                emitted += 1
+                if (want is None or tid in want) and tid in self._results:
+                    yield self._results[tid]
+            if want is not None and all(
+                    t in self._results or t in self._released
+                    for t in want):
+                return
+            if self._idle():
+                return
+            self.tick()
+            if previews:
+                # entries still in flight after the tick; its completions
+                # are yielded as Results by the loop above
+                yield from self._previews(want)
+
+    def shutdown(self) -> List[Result]:
+        """Stop the lifecycle session now: in-flight requests come back
+        ``completed=False`` with partial counters, queued ones never
+        started; the session is discarded (the next ``submit`` starts a
+        new one). Returns the drained Results."""
+        out: List[Result] = []
+        if self._session is not None:
+            for _entry, res in self._session.drain():
+                self._record(res)
+                out.append(res)
+        for item in self._sched.drain():
+            res = _dropped_result(item)
+            self._record(res)
+            out.append(res)
+        self._session = None
+        return out
+
+    # --- one-shot serving ----------------------------------------------------
     def serve_batched(self, requests: List[Request], *, lanes: int = 4,
-                      max_ticks: Optional[int] = None) -> List[Result]:
-        """Serve a request list to completion through one private session.
+                      max_ticks: Optional[int] = None,
+                      scheduler: Any = None) -> List[Result]:
+        """Serve a request list to completion through one private session
+        and a fresh queue of the engine's scheduler (or ``scheduler``).
 
         Packs up to ``lanes`` concurrent lanes per lane step (a guided
         request takes a pair of them); finished slots are refilled from
-        the FIFO queue immediately, with backfill. Per-request accept
+        the queue immediately, with backfill. Per-request accept
         trajectories are identical at every lane width — only the packing
         differs. ``max_ticks`` bounds the scheduler ticks: requests still
         in flight come back ``completed=False`` with partial counters,
@@ -487,38 +788,81 @@ class SpeCaEngine:
             return []
         S = self.workload.num_steps
         pols = [self.resolve_policy(r) for r in requests]
-        queue = [QueueItem(seq=i, request=r, policy=p, steps=p.steps(S),
-                           submit_s=self.clock.now())
-                 for i, (r, p) in enumerate(zip(requests, pols))]
+        for req, pol in zip(requests, pols):
+            self.workload.validate_request(req, pol.steps(S))
         sess = _Session(self, self._width_for(max(lanes, 1), pols),
                         paired=any(p.guided for p in pols))
+        sched = fresh_scheduler(self.scheduler_spec if scheduler is None
+                                else scheduler)
+        # keyed on queue position, so duplicate ids get their own Result
+        for i, (r, p) in enumerate(zip(requests, pols)):
+            sched.push(QueueItem(seq=i, request=r, policy=p, steps=p.steps(S),
+                                 ticket_id=i, submit_s=self.clock.now()))
         results: Dict[int, Result] = {}
-        while queue or sess.busy():
+        while len(sched) or sess.busy():
             if max_ticks is not None and sess.tick >= max_ticks:
                 break
-            while True:
-                item = _pop_fitting(queue, sess.fits)
-                if item is None:
-                    break
-                sess.place(item)
+            _admit_into(sess, sched)
             for entry, res in sess.advance():
                 results[entry.item.seq] = res
         for entry, res in sess.drain():
             results[entry.item.seq] = res
-        for item in queue:
+        for item in sched.drain():
             results[item.seq] = _dropped_result(item)
         return [results[i] for i in range(len(requests))]
 
     def serve(self, requests: List[Request], *, lanes: int = 1,
               max_ticks: Optional[int] = None) -> List[Result]:
         """``serve_batched`` at the reference's ``serve`` default width."""
-        return self.serve_batched(requests, lanes=lanes,
+        return self.serve_batched(requests, lanes=max(lanes, 1),
                                   max_ticks=max_ticks)
 
     def run_request(self, req: Request) -> Result:
         """Serve one request alone: on one lane, or one pair if guided (the
         per-sample reference)."""
         return self.serve_batched([req], lanes=1)[0]
+
+    def kernel_sources(self) -> Tuple[str, ...]:
+        """The kernel sources (``kernels/build.py``) this engine's lane
+        step launches."""
+        refresh = "spectral_update_lanes" \
+            if self.forecaster.name == "spectral" else "taylor_update_lanes"
+        if self.max_draft_depth > 1:
+            return ("taylor_predict_chain", "lane_rollback", "verify_accept",
+                    refresh)
+        return ("taylor_predict_lanes", "verify_accept", refresh)
+
+    def warmup(self, cond: Dict[str, Any], *, lanes: int = 1,
+               mixed: bool = False) -> None:
+        """Prepare the serving step for ``lanes`` outside any timed window:
+        on the card, build and load every kernel the step launches (one
+        nvcc per missing source, in parallel); then serve dummy requests
+        end to end at that width (the allocator, cuBLAS and both branches
+        warm up). ``cond`` is a conditioning template with leading axis 1.
+        The default warms the engine-mode program (plain, or all-guided
+        pairs under ``guidance=True``); ``mixed=True`` warms only the
+        slot-width program, with a guided + unguided dummy mix — the one
+        the lifecycle session and mixed ``serve_batched`` batches run."""
+        if self.workload.device.type == "cuda":
+            from repro_torch.kernels import build
+            names = list(self.kernel_sources())
+            build.build_all(names)
+            for name in names:
+                build.library(name)
+        lanes = max(lanes, 1)
+        streams = 2 if self.guidance else 1
+        if not mixed or self.guidance:
+            n = max(-(-lanes // streams), 1)
+            self.serve([Request(request_id=-1 - i, cond=cond,
+                                seed=90_000 + i) for i in range(n)],
+                       lanes=lanes)
+        if mixed and not self.guidance:
+            gs = float(self.workload.dcfg.guidance_scale) or 1.0
+            greqs = [Request(request_id=-100, cond=cond, seed=90_100,
+                             policy=RequestPolicy(guidance_scale=gs))] \
+                + [Request(request_id=-101 - i, cond=cond, seed=90_101 + i)
+                   for i in range(max(lanes - 2, 0))]
+            self.serve_batched(greqs, lanes=lanes)
 
 
 def allocation_report(results: List[Result],

@@ -1,10 +1,12 @@
-"""Per-request serving policy: the part of ``repro.serving.policy`` the
-port's engine serves (guidance, negative conditioning, τ, max steps,
-draft depth)."""
+"""Per-request serving policy (counterpart of ``repro.serving.policy``):
+what one request decides for itself, the ticket ``SpeCaEngine.submit``
+returns and the backpressure error of a full admission queue."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
+
+from repro_torch.core.controller import ControllerPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,13 +25,28 @@ class RequestPolicy:
     draft horizon K — its lane (or pair) drafts up to K steps per
     scheduler tick before one closing verify/refresh round (None or 1 =
     depth-1 forecast-then-verify); a value above the engine's
-    ``max_draft_depth`` is rejected."""
+    ``max_draft_depth`` is rejected. priority: higher pops first within a
+    scheduler's ordering class (FIFO orders by (priority, arrival); SJF
+    and EDF use it as a tie-break). deadline: the scheduler tick by which
+    the request should complete (EDF's key; ``Result.deadline_met``);
+    ``None`` sorts last under EDF. tenant: the request's fair-queueing
+    class under WFQ (other schedulers ignore it). weight: the tenant's
+    WFQ share, > 0. controller: a ``ControllerPolicy`` makes the request's
+    τ0, draft depth and forecast order starting points that the
+    controller adapts in flight toward its accept-rate or deadline SLO
+    (needs ``SpeCaEngine(controller=True)``); ``None`` serves it
+    statically."""
 
     guidance_scale: Optional[float] = None
     negative_cond: Optional[Dict[str, Any]] = None
     tau0: Optional[float] = None
     max_steps: Optional[int] = None
     draft_depth: Optional[int] = None
+    priority: int = 0
+    deadline: Optional[float] = None
+    tenant: str = "default"
+    weight: float = 1.0
+    controller: Optional[ControllerPolicy] = None
 
     @property
     def guided(self) -> bool:
@@ -45,3 +62,18 @@ class RequestPolicy:
         if self.max_steps is None:
             return schedule_steps
         return max(1, min(int(self.max_steps), schedule_steps))
+
+
+@dataclasses.dataclass(frozen=True)
+class Ticket:
+    """Handle returned by ``SpeCaEngine.submit``: poll it, stream on it, or
+    exchange it for the request's ``Result``."""
+
+    ticket_id: int
+    request_id: int
+    submit_tick: int
+
+
+class QueueFull(RuntimeError):
+    """Bounded-queue backpressure: the engine's admission queue is at
+    ``max_queue``; the caller retries later or sheds load."""

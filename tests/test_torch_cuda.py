@@ -19,7 +19,9 @@ mixed guided/unguided verify one kernel a call, its unpaired rows
 bitwise ``verify_accept`` on the same planes and its paired rows bitwise
 ``verify_accept`` on the plain f32 planes (``ref.mixed_planes_ref``),
 rtol 1e-5 against its plain version; guided serving keeps its counters
-across lane widths.
+across lane widths; so does serving under the controller, and ``warmup``
+loads every kernel library the step launches, so that serving after it
+loads none.
 """
 import warnings
 
@@ -739,3 +741,71 @@ def test_guided_engine_on_card(cuda):
     engine.serve_batched(reqs[2:], lanes=2)
     n = ops.launch_counts()
     assert n["verify_accept"] > 0 and n["verify_accept_mixed"] == 0
+
+
+@pytest.mark.cuda
+def test_controller_engine_keeps_counters_on_card(cuda):
+    """Controlled and controller-free requests on ``SpeCaEngine(
+    controller=True, max_draft_depth=3)`` on the card: lanes 4 and 2 keep
+    every request's counters, through the chain predict and the rollback;
+    the controller-free request keeps its static trajectory; a controlled
+    request speculates deeper than one step a tick."""
+    from repro_torch.serving import (ControllerPolicy, Request,
+                                     RequestPolicy, SpeCaEngine)
+    cfg, params, dcfg = _small_dit(cuda)
+    scfg = PC.SpeCaConfig()
+    ctls = [None, ControllerPolicy(), ControllerPolicy(target_accept=0.9),
+            ControllerPolicy(slo="deadline", deadline_ticks=8,
+                             tau_max=2 * scfg.tau0),
+            ControllerPolicy(order_max=1)]
+    reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i, policy=RequestPolicy(controller=c))
+            for i, c in enumerate(ctls)]
+    engine = SpeCaEngine(cfg, params, dcfg, scfg, controller=True,
+                         max_draft_depth=3, device=cuda)
+    ops.reset_launch_counts()
+    r4 = engine.serve_batched(reqs, lanes=4)
+    n = ops.launch_counts()
+    assert n["taylor_predict_chain_lanes"] > 0 and n["lane_rollback"] > 0
+    r2 = engine.serve_batched(reqs, lanes=2)
+    for a, b in zip(r4, r2):
+        assert (a.num_full, a.num_spec, a.num_drafted, a.accepts) == \
+            (b.num_full, b.num_spec, b.num_drafted, b.accepts)
+        torch.testing.assert_close(a.sample, b.sample, rtol=1e-4,
+                                   atol=1e-4)
+    static = SpeCaEngine(cfg, params, dcfg, scfg, device=cuda) \
+        .serve_batched(reqs[:1], lanes=1)[0]
+    assert (static.num_full, static.num_spec, static.accepts) == \
+        (r4[0].num_full, r4[0].num_spec, r4[0].accepts)
+    S = dcfg.num_inference_steps
+    assert any(r.timings.service_ticks < S for r in r4[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"max_draft_depth": 2,
+                                     "forecaster": "spectral"}])
+def test_warmup_leaves_nothing_to_build_on_card(cuda, kw):
+    """From a cleared library loader, ``warmup(mixed=True)`` loads exactly
+    the step's kernel libraries, and lifecycle serving after it loads no
+    other."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import Request, RequestPolicy, SpeCaEngine
+    cfg, params, dcfg = _small_dit(cuda)
+    engine = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), lanes=2,
+                         device=cuda, **kw)
+    saved = dict(build._loaded)
+    build._loaded.clear()
+    try:
+        engine.warmup({"labels": torch.tensor([1])}, lanes=2, mixed=True)
+        loaded = set(build._loaded)
+        assert loaded == set(engine.kernel_sources())
+        depth = kw.get("max_draft_depth")
+        tickets = [engine.submit(Request(
+            request_id=i, cond={"labels": torch.tensor([i])}, seed=i,
+            policy=RequestPolicy(guidance_scale=2.0 if i == 0 else None,
+                                 draft_depth=depth)))
+            for i in range(3)]
+        assert all(r.completed for r in engine.results(tickets))
+        assert set(build._loaded) == loaded
+    finally:
+        build._loaded.update(saved)

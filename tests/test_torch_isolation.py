@@ -21,7 +21,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py",
         REPO / "tools" / "flash_ab.py", REPO / "tools" / "verify_ab.py",
-        REPO / "tools" / "rollback_ab.py"]
+        REPO / "tools" / "rollback_ab.py",
+        REPO / "tools" / "profiler_windows.py"]
 
 
 def _imported_roots(path: pathlib.Path):

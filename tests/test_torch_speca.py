@@ -34,22 +34,27 @@ import pytest
 import torch
 
 from repro.configs import SpeCaConfig as JSpeCaConfig
+from repro.core import controller as JCT
 from repro.core import lane_step as JLS
 from repro.core.speca import speca_sample as jspeca_sample
 from repro.diffusion.pipeline import latent_shape
 from repro.diffusion.pipeline import sample_full as jsample_full
 from repro.layers import model as JM
+from repro.serving import Preview as JPreview
+from repro.serving import QueueFull as JQueueFull
 from repro.serving import Request as JRequest
 from repro.serving import RequestPolicy as JRequestPolicy
 from repro.serving import SpeCaEngine as JEngine
 from repro_torch import configs as PC
 from repro_torch.convert import params_from_jax
+from repro_torch.core import controller as CT
 from repro_torch.core import lane_step as PLS
 from repro_torch.core.speca import speca_sample
 from repro_torch.core.workload import DiffusionWorkload
 from repro_torch.diffusion.pipeline import sample_full
 from repro_torch.layers import model as PM
-from repro_torch.serving import (Request, RequestPolicy, SpeCaEngine,
+from repro_torch.serving import (ControllerPolicy, Preview, QueueFull,
+                                 Request, RequestPolicy, SpeCaEngine,
                                  allocation_report)
 
 torch.set_num_threads(2)
@@ -885,3 +890,448 @@ def test_guided_deep_serve_matches_reference(engines, deep_engines):
                 (b.accepts, b.num_full, b.num_spec), a.request_id
         assert sum(r.finish_tick for r in deep) < sum(r.finish_tick
                                                       for r in flat)
+
+
+# ---------------------------------------------------------------------------
+# The closed-loop controller (analogues of tests/test_controller_properties.py
+# and the engine's controller path) against the reference
+# ---------------------------------------------------------------------------
+
+def _controller_batch(guided=False):
+    """(reference requests, port requests): a controller-free request,
+    then the accept SLO at its defaults, a target that backs off, a
+    deadline lane allowed above its base τ and an order-1 cap; with
+    ``guided`` the accept-SLO request is a guided pair."""
+    def build(Req, Pol, Ctl, lab):
+        ctls = [None, Ctl(), Ctl(target_accept=0.9),
+                Ctl(slo="deadline", deadline_ticks=10, tau_max=0.8),
+                Ctl(order_max=1)]
+        return [Req(request_id=i, cond={"labels": lab([i + 1])},
+                    seed=30 + i,
+                    policy=Pol(controller=c,
+                               guidance_scale=GS if guided and i == 1
+                               else None))
+                for i, c in enumerate(ctls)]
+    return (build(JRequest, JRequestPolicy, JCT.ControllerPolicy,
+                  jnp.asarray),
+            build(Request, RequestPolicy, ControllerPolicy, torch.tensor))
+
+
+CONTROLLER_CASES = [("taylor", 1, False), ("taylor", 3, True),
+                    ("spectral", 3, False)]
+
+
+@pytest.fixture(scope="module")
+def controller_engines(both, engines):
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    jscfg, pscfg = _scfgs(tau0=0.4, max_draft=8)
+    _, pe = engines
+    return {(fc, kmax): (
+        JEngine(cfg, params, dcfg, jscfg, max_draft_depth=kmax,
+                forecaster=fc, controller=True),
+        SpeCaEngine(pcfg, tp, pdcfg, pscfg, noise_fn=pe.workload.noise_fn,
+                    max_draft_depth=kmax, forecaster=fc, controller=True,
+                    device="cpu"))
+        for fc, kmax, _ in CONTROLLER_CASES}
+
+
+@pytest.mark.parametrize("fc, kmax, guided", CONTROLLER_CASES)
+def test_controller_serve_matches_reference(controller_engines, engines, fc,
+                                            kmax, guided):
+    """Controlled and controller-free requests in one batch on
+    ``SpeCaEngine(controller=True)``: per request the reference engine's
+    accepts, counters, finish ticks, flops and samples, at depth 1 and in
+    chains, Taylor and spectral, with a guided pair under a controller."""
+    je, pe = controller_engines[fc, kmax]
+    jreqs, preqs = _controller_batch(guided)
+    jres = je.serve_batched(jreqs, lanes=4)
+    pres = pe.serve_batched(preqs, lanes=4)
+    _assert_results_equal(jres, pres)
+    assert sum(r.num_spec for r in pres) > 0
+    assert sum(r.num_full for r in pres) > 0
+    if kmax > 1:
+        # a controlled lane's draft_k left 1: it drafted past a rejection-
+        # free tick's single position, finishing in fewer ticks
+        assert any(r.timings.service_ticks < r.num_full + r.num_spec
+                   for r in pres[1:])
+    if fc == "taylor" and kmax == 1:
+        # the controller changed something: the static engine serves the
+        # controlled requests' twins differently
+        _, plain = engines
+        static = plain.serve_batched(
+            [dataclasses.replace(r, policy=RequestPolicy()) for r in preqs],
+            lanes=4)
+        assert static[0].accepts == pres[0].accepts
+        assert any(a.accepts != b.accepts
+                   for a, b in zip(static[1:], pres[1:]))
+
+
+def test_controller_off_lanes_bitwise_inert(both, controller_engines):
+    """As ``test_mixed_batch_controller_off_bitwise_inert``: at the same
+    width, request 0 served beside a controller-free twin and beside a
+    controlled request keeps its sample, accepts and counters bit for bit,
+    while the controlled neighbour really adapts."""
+    _, pe = controller_engines["taylor", 3]
+    cpol = RequestPolicy(controller=ControllerPolicy(
+        target_accept=0.5, gain=0.5, ema=0.5))
+
+    def run(second):
+        return pe.serve_batched(
+            [Request(request_id=0, cond={"labels": torch.tensor([3])},
+                     seed=7),
+             Request(request_id=1, cond={"labels": torch.tensor([5])},
+                     seed=8, policy=second)], lanes=2)
+
+    a, b = run(RequestPolicy()), run(cpol)
+    assert torch.equal(a[0].sample, b[0].sample)
+    assert (a[0].accepts, a[0].num_full, a[0].num_spec, a[0].num_drafted,
+            a[0].flops) == (b[0].accepts, b[0].num_full, b[0].num_spec,
+                            b[0].num_drafted, b[0].flops)
+    assert (b[1].finish_tick < a[1].finish_tick
+            or b[1].num_drafted != a[1].num_drafted
+            or b[1].accepts != a[1].accepts)
+    assert all(r.completed for r in a + b)
+
+
+def test_controller_free_engine_builds_todays_step(both, engines):
+    """``controller=False`` builds no ``ctl_*`` state; a controller engine
+    serving only controller-free requests gives the controller-free
+    engine's Results bitwise with the same host syncs; a
+    ``ControllerPolicy`` on a controller-free engine is rejected."""
+    _, (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    reqs = _port_reqs(3)
+    syncs = pe.host_syncs
+    ref = pe.serve_batched(reqs, lanes=2)
+    syncs = pe.host_syncs - syncs
+    ctl = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                      noise_fn=pe.workload.noise_fn, controller=True,
+                      device="cpu")
+    got = ctl.serve_batched(reqs, lanes=2)
+    assert ctl.host_syncs == syncs
+    for a, b in zip(ref, got):
+        assert (a.accepts, a.num_full, a.num_spec, a.flops) == \
+            (b.accepts, b.num_full, b.num_spec, b.flops)
+        assert torch.equal(a.sample, b.sample)
+    st = PLS.init_workload_state(pe.workload, 2, {"labels": torch.tensor([0])})
+    assert not any(k.startswith("ctl_") for k in st)
+    with pytest.raises(ValueError, match="controller=True"):
+        pe.resolve_policy(Request(request_id=0, cond={}, policy=RequestPolicy(
+            controller=ControllerPolicy())))
+    with pytest.raises(TypeError, match="ControllerPolicy"):
+        ctl.resolve_policy(Request(request_id=0, cond={}, policy=RequestPolicy(
+            controller={"slo": "accept"})))
+
+
+def test_guided_pair_controller_state_stays_pair_equal(controller_engines):
+    """A guided pair's two lanes see equal counters, so their controller
+    state stays pair-equal tick after tick."""
+    _, pe = controller_engines["taylor", 3]
+    t = pe.submit(Request(request_id=0, cond={"labels": torch.tensor([2])},
+                          seed=5, policy=RequestPolicy(
+                              guidance_scale=GS,
+                              controller=ControllerPolicy(ema=0.5))))
+    st0 = None
+    for _ in range(8):
+        pe.tick()
+        st = pe._session.state
+        for k in CT.CONTROLLER_KEYS + ("tau0", "draft_k"):
+            assert torch.equal(st[k][0], st[k][1]), k
+        st0 = st0 or {k: st[k][0].clone() for k in ("tau0", "draft_k")}
+    assert any(not torch.equal(st[k][0], st0[k]) for k in st0)
+    assert pe.result(t).completed
+    pe.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The serving lifecycle (analogues of tests/test_serving_lifecycle.py and
+# tests/test_serving_v2.py) against the reference, ticket by ticket
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def life_engines(both, engines):
+    """(reference, port) lifecycle engines at lanes 2: one pair slot."""
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    jscfg, pscfg = _scfgs(tau0=0.4, max_draft=8)
+    _, pe = engines
+    return (JEngine(cfg, params, dcfg, jscfg, lanes=2),
+            SpeCaEngine(pcfg, tp, pdcfg, pscfg, noise_fn=pe.workload.noise_fn,
+                        lanes=2, device="cpu"))
+
+
+def _life_reqs(n, guided=(), **pol):
+    def build(Req, Pol, lab):
+        return [Req(request_id=i, cond={"labels": lab([i % 8])},
+                    seed=100 + i,
+                    policy=Pol(guidance_scale=3.0 if i in guided else None,
+                               **pol))
+                for i in range(n)]
+    return (build(JRequest, JRequestPolicy, jnp.asarray),
+            build(Request, RequestPolicy, torch.tensor))
+
+
+def _both_do(engines, fn):
+    """``fn(engine, package index)`` on the reference, then the port."""
+    return [fn(e, i) for i, e in enumerate(engines)]
+
+
+def _assert_life_results_equal(jres, pres):
+    for a, b in zip(jres, pres):
+        assert (a.ticket_id, a.request_id, a.completed) == \
+            (b.ticket_id, b.request_id, b.completed)
+        assert b.accepts == a.accepts, a.ticket_id
+        assert (b.num_full, b.num_spec, b.num_drafted, b.finish_tick,
+                b.flops, b.deadline, b.tenant) == \
+            (a.num_full, a.num_spec, a.num_drafted, a.finish_tick, a.flops,
+             a.deadline, a.tenant)
+        if a.sample is None:
+            assert b.sample is None
+        else:
+            np.testing.assert_allclose(b.sample.numpy(),
+                                       np.asarray(a.sample), **TOL)
+        if a.timings is not None:
+            assert (b.timings.submit_tick, b.timings.admit_tick,
+                    b.timings.finish_tick) == \
+                (a.timings.submit_tick, a.timings.admit_tick,
+                 a.timings.finish_tick)
+
+
+def test_lifecycle_status_walk_and_results_match_reference(life_engines):
+    """queued → running → done → released, per ticket in both packages,
+    with one guided request among them; Results equal the reference's."""
+    reqs = _life_reqs(3, guided=(1,))
+    tickets = _both_do(life_engines, lambda e, i: [e.submit(r)
+                                                   for r in reqs[i]])
+    stat = lambda: [[e.status(t) for t in ts]              # noqa: E731
+                    for e, ts in zip(life_engines, tickets)]
+    assert stat() == [["queued"] * 3] * 2
+    for e in life_engines:
+        assert e.poll(0) is None and e.pending() == 3
+        e.tick()
+    # the guided request waits for the whole pair; request 2 backfills
+    assert stat()[0] == stat()[1] == ["running", "queued", "running"]
+    res = _both_do(life_engines, lambda e, i: e.results(tickets[i]))
+    _assert_life_results_equal(*res)
+    assert stat() == [["done"] * 3] * 2
+    for e, ts in zip(life_engines, tickets):
+        e.release(ts[0])
+        assert e.status(ts[0]) == "released" and e.poll(ts[0]) is None
+        assert e.status(987654) == "unknown"
+        with pytest.raises(KeyError):
+            e.release(ts[0])
+        with pytest.raises(KeyError):
+            e.result(987654)
+        e.shutdown()
+
+
+def test_lifecycle_shutdown_reports_dropped_and_resubmits(life_engines):
+    """Shutdown after two ticks: the in-flight request comes back partial
+    and the queued ones never started, all "dropped", as in the
+    reference; a later submit serves on a fresh session."""
+    reqs = _life_reqs(4)
+    tickets = _both_do(life_engines, lambda e, i: [e.submit(r)
+                                                   for r in reqs[i]])
+    for e in life_engines:
+        e.tick(2)
+    drained = _both_do(life_engines, lambda e, i: sorted(
+        e.shutdown(), key=lambda r: r.ticket_id))
+    _assert_life_results_equal(*drained)
+    pres = drained[1]
+    assert sum(r.finish_tick is not None for r in pres) == 2
+    assert all(not r.completed for r in pres)
+    for e, ts in zip(life_engines, tickets):
+        assert [e.status(t) for t in ts] == ["dropped"] * 4
+        e.release(*ts)
+    again = _both_do(life_engines, lambda e, i: e.result(
+        e.submit(reqs[i][0])))
+    _assert_life_results_equal(*[[r] for r in again])
+    assert again[1].completed
+    for e in life_engines:
+        e.shutdown()
+
+
+def test_lifecycle_rejected_submit_leaves_no_trace(life_engines):
+    """A draft depth beyond the engine, a non-positive WFQ weight, a
+    controller on a controller-free engine and a controller that is no
+    ``ControllerPolicy`` raise at submit — as in the reference — and leave
+    no session, ticket or queue entry behind."""
+    pe = life_engines[1]
+    pe.shutdown()
+    seq = pe._seq
+    bad = [(ValueError, "draft_depth", RequestPolicy(draft_depth=3)),
+           (ValueError, "weight", RequestPolicy(weight=0.0)),
+           (ValueError, "controller=True",
+            RequestPolicy(controller=ControllerPolicy())),
+           (TypeError, "ControllerPolicy",
+            RequestPolicy(controller="accept"))]
+    jbad = [JRequestPolicy(draft_depth=3), JRequestPolicy(weight=0.0),
+            JRequestPolicy(controller=JCT.ControllerPolicy()),
+            JRequestPolicy(controller="accept")]
+    for (exc, match, pol), jpol in zip(bad, jbad):
+        with pytest.raises(exc, match=match.split("=")[0]):
+            life_engines[0].submit(JRequest(request_id=0, cond={}),
+                                   policy=jpol)
+        with pytest.raises(exc, match=match):
+            pe.submit(Request(request_id=0, cond={}), policy=pol)
+        assert pe._session is None and pe.pending() == 0
+        assert pe._seq == seq
+    assert set(pe._ticket_status) <= set(range(seq))
+
+
+def test_lifecycle_stream_previews_and_bitwise_finals(both, life_engines):
+    """``stream(previews=True)``: progressive snapshots of each running
+    request, final Results bitwise a preview-free run's and equal to the
+    reference's stream; an injected submit is admitted mid-stream."""
+    reqs = _life_reqs(3, guided=(1,))
+    streamed, previews = [], {}
+    for i, e in enumerate(life_engines):
+        for r in reqs[i][:2]:
+            e.submit(r)
+        out, injected = [], False
+        for item in e.stream(previews=True):
+            if isinstance(item, (JPreview, Preview)):
+                previews.setdefault(i, []).append(
+                    (item.ticket_id, item.step))
+                continue
+            out.append(item)
+            if not injected:
+                e.submit(reqs[i][2])
+                injected = True
+        assert len(out) == 3
+        streamed.append(out)
+    _assert_life_results_equal(*streamed)
+    assert previews[0] == previews[1]
+    pe = life_engines[1]
+    tids = [r.ticket_id for r in streamed[1]]
+    assert {t for t, _ in previews[1]} == set(tids)
+    for tid in tids:
+        steps = [s for t, s in previews[1] if t == tid]
+        assert steps == sorted(set(steps))
+        assert steps[-1] < pe.workload.num_steps
+    for e in life_engines:
+        e.shutdown()
+    # bitwise against a preview-free run on a fresh port engine
+    _, (pcfg, pdcfg, tp) = both
+    fresh = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                        noise_fn=pe.workload.noise_fn, lanes=2, device="cpu")
+    plain = fresh.results([fresh.submit(r) for r in reqs[1][:2]])
+    for a, b in zip(streamed[1][:2], plain):
+        assert a.accepts == b.accepts and torch.equal(a.sample, b.sample)
+
+
+def test_lifecycle_release_mid_stream_timeout_and_queue_full(life_engines):
+    """A release mid-stream keeps the cursor valid (and a fresh stream
+    over the list skips it), ``result(max_ticks=)`` raises
+    ``TimeoutError`` and leaves the request running, and a bounded queue
+    raises ``QueueFull`` until a tick admits its head — ticket for ticket
+    as in the reference."""
+    reqs = _life_reqs(3)
+    seen = []
+    for i, e in enumerate(life_engines):
+        ts = [e.submit(r) for r in reqs[i]]
+        gen = e.stream(ts)
+        first = next(gen)
+        e.release(first.ticket_id)
+        rest = [r.ticket_id for r in gen]
+        assert first.ticket_id not in rest and len(rest) == 2
+        assert [r.ticket_id for r in e.stream(ts)] == rest
+        t = e.submit(reqs[i][0])
+        with pytest.raises(TimeoutError):
+            e.result(t, max_ticks=3)
+        assert e.status(t) == "running"
+        res = e.result(t)
+        assert e.result(t, max_ticks=0) is res
+        e.max_queue = 2
+        e.submit(reqs[i][0])
+        e.submit(reqs[i][1])
+        full = (JQueueFull, QueueFull)[i]
+        with pytest.raises(full):
+            e.submit(reqs[i][2])
+        e.tick()
+        e.submit(reqs[i][2])
+        e.max_queue = None
+        seen.append([res] + [r for r in e.stream()])
+        e.shutdown()
+    _assert_life_results_equal(*seen)
+    assert len(seen[1]) == 4
+
+
+def _length_workload(S):
+    """One long request in front of two short ones with deadlines: FIFO
+    serves the long one first."""
+    def build(Req, Pol, lab):
+        return [Req(request_id=0, cond={"labels": lab([0])}, seed=90)] + [
+            Req(request_id=1 + i, cond={"labels": lab([1 + i])},
+                seed=91 + i, policy=Pol(max_steps=max(S // 4, 1),
+                                        deadline=float((i + 1) * S)))
+            for i in range(2)]
+    return (build(JRequest, JRequestPolicy, jnp.asarray),
+            build(Request, RequestPolicy, torch.tensor))
+
+
+def test_sjf_and_edf_against_fifo_match_reference(both, engines):
+    """On one slot, SJF lowers the mean completion tick and EDF meets
+    every deadline where FIFO misses, with the reference's Results per
+    scheduler; scheduling never changes a request's trajectory."""
+    (_, dcfg, _), _ = both
+    S = dcfg.num_inference_steps
+    jreqs, preqs = _length_workload(S)
+    out = {}
+    for name in ("fifo", "sjf", "edf"):
+        jres = engines[0].serve_batched(jreqs, lanes=1, scheduler=name)
+        pres = engines[1].serve_batched(preqs, lanes=1, scheduler=name)
+        _assert_life_results_equal(jres, pres)
+        out[name] = pres
+    mean = {k: np.mean([r.finish_tick for r in v]) for k, v in out.items()}
+    hit = {k: np.mean([bool(r.deadline_met) for r in v
+                       if r.deadline is not None]) for k, v in out.items()}
+    assert mean["sjf"] < mean["fifo"]
+    assert hit["edf"] > hit["fifo"] and hit["edf"] == 1.0
+    for name in ("sjf", "edf"):
+        for a, b in zip(out["fifo"], out[name]):
+            assert a.accepts == b.accepts
+
+
+def test_serve_batched_never_drains_the_lifecycle_queue(both, engines):
+    _, (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    from repro_torch.serving import SJFScheduler
+    life = SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                       noise_fn=pe.workload.noise_fn,
+                       scheduler=SJFScheduler(), lanes=2, device="cpu")
+    t = life.submit(Request(request_id=7, cond={"labels": torch.tensor([1])},
+                            seed=77))
+    got = life.serve_batched([Request(request_id=8, cond={
+        "labels": torch.tensor([2])}, seed=88)], lanes=1)
+    assert [r.request_id for r in got] == [8]
+    assert life.status(t) == "queued" and life.pending() == 1
+    life.shutdown()
+
+
+def test_lifecycle_timings_on_fake_clocks_match_reference(life_engines):
+    """With a scripted clock (one second a read) the port reads the clock
+    where the reference does: every ``Timings`` field and ``wall_s``
+    equal the reference's, and the lifecycle order holds."""
+    from repro.obs import FakeClock as JFakeClock
+    from repro_torch.obs import FakeClock, resolve_clock
+    reqs = _life_reqs(3, guided=(1,))
+    clocks = (JFakeClock(auto_tick=1.0), FakeClock(auto_tick=1.0))
+    out = []
+    for i, (e, clock) in enumerate(zip(life_engines, clocks)):
+        saved, e.clock = e.clock, clock
+        try:
+            out.append(e.results([e.submit(r) for r in reqs[i]]))
+        finally:
+            e.clock = saved
+            e.shutdown()
+    _assert_life_results_equal(*out)
+    for a, b in zip(*out):
+        assert b.timings == port_record(type(b.timings), a.timings)
+        assert b.wall_s == a.wall_s
+        t = b.timings
+        assert t.submit_s < t.admit_s <= t.first_tick_s < t.finish_s
+    assert clocks[1].reads == clocks[0].reads
+    with pytest.raises(TypeError, match="now"):
+        resolve_clock(object())
+    with pytest.raises(ValueError, match="backwards"):
+        FakeClock().advance(-1.0)
