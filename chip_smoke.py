@@ -125,8 +125,28 @@ Phases (any failure ends the run with a non-zero exit):
    below FIFO's, EDF's deadline hit rate at least FIFO's, trajectories
    unchanged); ``QueueFull`` at ``max_queue``; ``shutdown`` reports the
    requests in flight and queued as dropped.
-9. ``speca_sample`` at batch 2 on the same model.
-10. ``profiler``: every kernel count and device time above is read from
+9. Observability (``serve_obs``): phase 8's traffic on fresh lifecycle
+   engines, obs off, on, on, off in turns: each run equals phase 3's
+   Results bitwise with phase 8's host syncs; on the first ``obs=True``
+   run the snapshot's ``speca_obs_ticks_total`` equals the ticks,
+   ``speca_n_spec_total``/``speca_full_total``/``speca_n_drafted_total``
+   the Results' sums, the ``speca_chain_err`` count Σ ``num_drafted``
+   (unguided: one lane per request), ``speca_requests_completed_total``
+   8; ``speca_queue_depth`` has one point per tick, the first 8; each
+   ``trace(ticket)`` has ``service_ticks`` tick spans; ``chrome_trace``
+   and ``prometheus`` render (``chiprun_out/serve_obs_trace.json``,
+   ``serve_obs_metrics.prom``) and the JSON loads back. Then phase 7's
+   traffic on ``SpeCaEngine(controller=True, max_draft_depth=4,
+   obs=True)``: phase 7's Results bitwise and its host syncs, the same
+   totals, ``chain_err`` [4, 4], some tick span named ``rollback``.
+   Every ``LaneAccumulator.update`` of these runs runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (shown live first: an
+   ``.item()`` under it raises). Printed, not gated: one update's
+   stream operations (kernel launches and copies) and device µs
+   (torch.profiler) for a depth-1 and a chain tick's flags, and the
+   lifecycle walls on and off.
+10. ``speca_sample`` at batch 2 on the same model.
+11. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
     windows), and at most one reading in 10 may have needed that.
@@ -1634,6 +1654,7 @@ class Smoke:
               f"{dmax})")
         assert above == 0, "an accept-SLO lane held τ0 above its base"
         assert moved > 0 and order1 > 0, (moved, order1)
+        self.controller_results, self.controller_syncs = res, syncs
         self.record["serve_controller"] = dict(
             wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
             peak_gib=peak, max_abs_diff_static_vs_phase3=dmax,
@@ -1741,6 +1762,7 @@ class Smoke:
         assert sum(r.sample is None for r in drained) == 2
         print(f"QueueFull at max_queue=2; shutdown dropped {LANES} in "
               "flight and 2 queued")
+        self.life_syncs, self.life_wall = syncs, wall
         self.record["serve_lifecycle"] = dict(
             wall_s=wall, warmup_s=warm_s, host_syncs=syncs, ticks=ticks,
             launches=launches, previews=sum(map(len, previews.values())),
@@ -1748,6 +1770,227 @@ class Smoke:
             deadline_hit_rate=hit)
 
     # --- phase 9 -------------------------------------------------------------
+    def _stream_lifecycle(self, obs):
+        """Phase 8's traffic on a fresh lifecycle engine (``obs`` on or
+        off): 8 requests at lanes=4 under FIFO through ``submit`` and
+        ``stream(previews=True)``, launch counts set to 0 just before and
+        read just after. Returns (engine, tickets, results, launches, wall
+        s); each Result must equal phase 3's bitwise."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.kernels import ops
+        from repro_torch.serving import Preview, SpeCaEngine
+        engine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                             SpeCaConfig(taylor_order=2), lanes=LANES,
+                             obs=obs, device=self.dev)
+        reqs = self._requests(N_REQUESTS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(r) for r in reqs]
+        finals = {item.ticket_id: item
+                  for item in engine.stream(previews=True)
+                  if not isinstance(item, Preview)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        res = [finals[t.ticket_id] for t in tickets]
+        assert all(launches[n] > 0 for n in LIFECYCLE_KERNELS), launches
+        self._hold_bitwise(self.serve_results, res, "phase 3")
+        return engine, tickets, res, launches, wall
+
+    def _hold_bitwise(self, base, res, what):
+        for a, b in zip(base, res):
+            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
+                f"request {a.request_id}: obs run and {what} differ"
+            assert self.torch.equal(a.sample, b.sample), \
+                f"request {a.request_id}: sample differs from {what}'s"
+
+    @contextlib.contextmanager
+    def _sync_checked_updates(self):
+        """Run every ``LaneAccumulator.update`` inside under
+        ``torch.cuda.set_sync_debug_mode("error")`` — a synchronizing CUDA
+        call in it raises — and record the flags each received."""
+        torch = self.torch
+        from repro_torch.obs.lane_metrics import LaneAccumulator
+        update, seen = LaneAccumulator.update, []
+
+        def checked(acc, flags):
+            seen.append(flags)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return update(acc, flags)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        LaneAccumulator.update = checked
+        try:
+            yield seen
+        finally:
+            LaneAccumulator.update = update
+
+    @staticmethod
+    def _metric(snap, name, key="value"):
+        rows = [r for r in snap if r["name"] == name]
+        assert rows, f"no metric {name}"
+        return sum(r[key] for r in rows)
+
+    def _hold_snapshot(self, snap, res, ticks, what):
+        """Lane totals and request counters against the Results (unguided
+        traffic: one lane per request)."""
+        m = self._metric
+        got = dict(ticks=m(snap, "speca_obs_ticks_total"),
+                   n_spec=m(snap, "speca_n_spec_total"),
+                   full=m(snap, "speca_full_total"),
+                   n_drafted=m(snap, "speca_n_drafted_total"),
+                   chain_err=m(snap, "speca_chain_err", "count"),
+                   completed=m(snap, "speca_requests_completed_total"))
+        want = dict(ticks=ticks, n_spec=sum(r.num_spec for r in res),
+                    full=sum(r.num_full for r in res),
+                    n_drafted=sum(r.num_drafted for r in res),
+                    chain_err=sum(r.num_drafted for r in res),
+                    completed=len(res))
+        assert got == want, (what, got, want)
+        return got
+
+    def _update_cost(self, flags, iters: int = 100):
+        """What one ``LaneAccumulator.update`` of ``flags`` costs, from one
+        torch.profiler window of ``iters`` calls after a warm one: the
+        operations it puts on the stream (the runtime's kernel-launch,
+        copy and memset calls, counted on the host side, where none is
+        lost), the CUDA events the window recorded, and their device µs,
+        each a call. Not a ``_cuda_events`` reading: late in a long
+        process the profiler's windows lost a few of this function's
+        device events, so the count never came out a multiple of the
+        calls."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.obs import LaneAccumulator
+        acc = LaneAccumulator()
+        acc.update(flags)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                acc.update(flags)
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        ops_ = sum(e.device_type != cuda and e.name.startswith(
+            ("cudaLaunchKernel", "cudaMemcpy", "cudaMemset"))
+            for e in prof.events())
+        dev = [e for e in prof.events() if e.device_type == cuda]
+        assert ops_ and dev, "the profiler saw no update"
+        us = sum(e.time_range.end - e.time_range.start for e in dev)
+        return ops_ / iters, len(dev) / iters, us / iters
+
+    def serve_obs(self):
+        """Observability on the card: phase 8's traffic on an ``obs=True``
+        engine serves phase 3's Results bitwise with phase 8's host syncs,
+        its lane totals equal the Results' sums, its queue-depth series
+        has one point per tick, each trace one span per service tick, and
+        the exporters render; phase 7's traffic on an ``obs=True``
+        controller engine keeps phase 7's Results and host syncs and
+        names rollback spans. Every accumulator update of both runs runs
+        under sync-debug mode "error". Printed, not gated: the update's
+        stream operations and device µs a tick, and the obs-on/off walls
+        (in turns off, on, on, off: host-noisy)."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import SpeCaEngine
+        probe = torch.ones(1, device=self.dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            probe.item()
+            raise AssertionError("sync-debug mode let a sync through")
+        except RuntimeError:
+            pass
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs, flags = [], []
+        for obs in (False, True, True, False):
+            with self._sync_checked_updates() as seen:
+                runs.append((obs, self._stream_lifecycle(obs)))
+            flags.append(seen)
+        engine, tickets, res, launches, _ = runs[1][1]
+        life_flags = flags[1]
+        walls = {o: [r[4] for oo, r in runs if oo == o]
+                 for o in (False, True)}
+        syncs = {o: [r[0].host_syncs for oo, r in runs if oo == o]
+                 for o in (False, True)}
+        assert all(n == self.life_syncs for v in syncs.values() for n in v), \
+            (syncs, self.life_syncs)
+        ticks = max(r.finish_tick for r in res)
+        snap = engine.metrics_snapshot()
+        totals = self._hold_snapshot(snap, res, ticks, "lifecycle")
+        assert len(life_flags) == ticks
+        qd = engine.obs.metrics.series("speca_queue_depth")
+        assert len(qd) == engine._tick_count == ticks, (len(qd), ticks)
+        assert qd.points()[0][1] == N_REQUESTS, qd.points()[:2]
+        for t, r in zip(tickets, res):
+            tr = engine.trace(t)
+            assert len(tr.tick_spans()) == r.timings.service_ticks, t
+        doc = engine.obs.chrome_trace()
+        text = json.dumps(doc)
+        assert json.loads(text) == doc
+        prom = engine.obs.prometheus()
+        assert "speca_chain_err_bucket" in prom
+        OUT.mkdir(exist_ok=True)
+        (OUT / "serve_obs_trace.json").write_text(text)
+        (OUT / "serve_obs_metrics.prom").write_text(prom)
+        print(f"serve_obs lifecycle: obs on == phase 3 bitwise, host syncs "
+              f"on {syncs[True]} off {syncs[False]} (phase 8 "
+              f"{self.life_syncs}), totals {totals}, {len(qd)} queue-depth "
+              f"points (first {qd.points()[0][1]}), {len(doc['traceEvents'])}"
+              f" trace events, {len(prom.splitlines())} prometheus lines")
+        # phase 7's controller traffic
+        cengine = SpeCaEngine(self.cfg, self.params, self.dcfg,
+                              SpeCaConfig(taylor_order=2), controller=True,
+                              max_draft_depth=CHAIN_K, obs=True,
+                              device=self.dev)
+        with self._sync_checked_updates() as chain_flags:
+            cres, claunches, cwall, csyncs, _ = self._timed_serve(
+                cengine, self._controller_requests(), LANES)
+        assert all(claunches[n] > 0 for n in CONTROLLER_KERNELS), claunches
+        self._hold_bitwise(self.controller_results, cres, "phase 7")
+        assert csyncs == self.controller_syncs, (csyncs,
+                                                 self.controller_syncs)
+        cticks = max(r.finish_tick for r in cres)
+        ctotals = self._hold_snapshot(cengine.obs.snapshot(), cres, cticks,
+                                      "controller")
+        assert len(chain_flags) == cticks
+        assert tuple(chain_flags[0]["chain_err"].shape) == (CHAIN_K, LANES)
+        names = {s.name for tr in cengine.obs.recorder.traces()
+                 for s in tr.tick_spans()}
+        assert any("rollback" in n for n in names), names
+        print(f"serve_obs controller: obs on == phase 7 bitwise, "
+              f"{csyncs} host syncs (phase 7 {self.controller_syncs}), "
+              f"totals {ctotals}, span names {sorted(names)}")
+        # what one update costs on the device (not gated)
+        n1, e1, us1 = self._update_cost(life_flags[0])
+        nk, ek, usk = self._update_cost(chain_flags[0])
+        on, off = (sum(walls[o]) / len(walls[o]) for o in (True, False))
+        print(f"LaneAccumulator.update: {n1} stream operations ({e1} CUDA "
+              f"events), {us1:.2f} µs on the device a depth-1 tick; {nk} "
+              f"({ek}), {usk:.2f} µs a chain tick (K {CHAIN_K}); lifecycle "
+              f"wall obs on {walls[True]} off {walls[False]} s (mean on/off "
+              f"{on / off:.3f}, host-noisy)")
+        self.record["serve_obs"] = dict(
+            update_stream_ops_depth1=n1, update_cuda_events_depth1=e1,
+            update_device_us_depth1=us1, update_stream_ops_chain=nk,
+            update_cuda_events_chain=ek, update_device_us_chain=usk,
+            lifecycle_wall_s_on=walls[True], lifecycle_wall_s_off=walls[False],
+            lifecycle_host_syncs_on=syncs[True],
+            lifecycle_host_syncs_off=syncs[False],
+            lifecycle_host_syncs_phase8=self.life_syncs,
+            lifecycle_ticks=ticks, lifecycle_totals=totals,
+            lifecycle_launches=launches,
+            controller_wall_s=cwall, controller_host_syncs=csyncs,
+            controller_host_syncs_phase7=self.controller_syncs,
+            controller_ticks=cticks, controller_totals=ctotals,
+            controller_launches=claunches, span_names=sorted(names),
+            sync_checked_updates=sum(map(len, flags)) + len(chain_flags))
+
+    # --- phase 10 ------------------------------------------------------------
     def sample(self):
         torch = self.torch
         from repro_torch.configs import SpeCaConfig
@@ -1877,6 +2120,7 @@ def main() -> int:
         smoke.phase("serve_guided", smoke.serve_guided)
         smoke.phase("serve_controller", smoke.serve_controller)
         smoke.phase("serve_lifecycle", smoke.serve_lifecycle)
+        smoke.phase("serve_obs", smoke.serve_obs)
         smoke.phase("speca_sample", smoke.sample)
     smoke.phase("profiler", smoke.profiler)
     card = smi_line()

@@ -1,5 +1,7 @@
 """The SpeCa serving engine (counterpart of ``repro.serving``)."""
 from repro_torch.core.controller import ControllerPolicy
+from repro_torch.obs import (Clock, FakeClock, MonotonicClock, Observability,
+                             Span, Timings, Trace)
 from repro_torch.serving.engine import (Preview, Request, Result,
                                         SpeCaEngine, allocation_report)
 from repro_torch.serving.policy import QueueFull, RequestPolicy, Ticket
@@ -8,7 +10,9 @@ from repro_torch.serving.scheduler import (EDFScheduler, FIFOScheduler,
                                            SJFScheduler, WFQScheduler,
                                            make_scheduler)
 
-__all__ = ["ControllerPolicy", "EDFScheduler", "FIFOScheduler", "Preview",
+__all__ = ["Clock", "ControllerPolicy", "EDFScheduler", "FIFOScheduler",
+           "FakeClock", "MonotonicClock", "Observability", "Preview",
            "QueueFull", "QueueItem", "Request", "RequestPolicy", "Result",
-           "SJFScheduler", "Scheduler", "SpeCaEngine", "Ticket",
-           "WFQScheduler", "allocation_report", "make_scheduler"]
+           "SJFScheduler", "Scheduler", "Span", "SpeCaEngine", "Ticket",
+           "Timings", "Trace", "WFQScheduler", "allocation_report",
+           "make_scheduler"]

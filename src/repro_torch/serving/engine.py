@@ -48,8 +48,18 @@ advances one step per tick), so per-tick flags stay on the device until a
 request completes. With a deep or controlled request in flight a lane
 moves 0..K steps per tick, so the tick's ``advanced`` counters are
 fetched. The lane step itself syncs to decide its branches.
-``SpeCaEngine.host_syncs`` counts both. The reference's observability and
-meshes are not ported yet.
+``SpeCaEngine.host_syncs`` counts both. The reference's meshes are not
+ported yet.
+
+Observability (``SpeCaEngine(obs=True)`` or an ``Observability``): the
+flight recorder's submit/admit/finish/drop/compile events, per-request
+span traces (``trace(ticket)``), request counters and accept-rate
+and latency histograms, the per-tick ``speca_queue_depth``/
+``speca_in_flight`` series, and each session's on-device
+``LaneAccumulator`` of the step's flags, flushed by
+``metrics_snapshot()``. It adds no host sync and never touches the lane
+step: an observed engine serves bitwise what an unobserved one serves.
+``obs=False`` runs no observability code.
 """
 from __future__ import annotations
 
@@ -68,10 +78,18 @@ from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.workload import DiffusionWorkload, NoiseFn
 from repro_torch.device import DeviceLike
 from repro_torch.diffusion.pipeline import null_cond_like
-from repro_torch.obs import Clock, Timings, resolve_clock
+from repro_torch.obs import (Clock, Observability, Timings, Trace,
+                             build_trace, resolve_clock)
 from repro_torch.serving.policy import QueueFull, RequestPolicy, Ticket
 from repro_torch.serving.scheduler import (QueueItem, Scheduler,
                                            fresh_scheduler, make_scheduler)
+
+# histogram bucket grids of the per-request observability metrics: rates
+# live in [0, 1]; latency seconds get a coarse log grid
+_RATE_EDGES = tuple(i / 20.0 for i in range(1, 21))
+_SECONDS_EDGES = tuple(float(x) for x in
+                       (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3,
+                        1.0, 3.0, 10.0, 30.0, 100.0, 300.0))
 
 
 @dataclasses.dataclass
@@ -191,6 +209,12 @@ class _Session:
         self.tick = 0
         self._flag_log: List[Optional[Dict[str, torch.Tensor]]] = []
         self._flag_np: Dict[int, Dict[str, np.ndarray]] = {}
+        # host clock stamp at the start of each tick, index-aligned with
+        # _flag_log and gc'd with it: trace spans read these
+        self._tick_s: List[Optional[float]] = []
+        # the on-device flag accumulator (None when obs is off)
+        self._acc = engine._obs.lane_accumulator() \
+            if engine._obs is not None else None
 
     def busy(self) -> bool:
         return any(e is not None for e in self.lane_entry)
@@ -238,6 +262,13 @@ class _Session:
         for lane in lanes:
             self.lane_entry[lane] = entry
         self._fill(entry)
+        obs = self.e._obs
+        if obs is not None:
+            obs.recorder.record(
+                "admit", entry.t0, ticket=item.ticket_id,
+                request=item.request.request_id, workload=self.wl.tag,
+                tenant=item.policy.tenant, tick=entry.start_tick,
+                lanes=list(entry.lanes))
         return entry
 
     def _fill(self, entry: _Entry) -> None:
@@ -301,11 +332,14 @@ class _Session:
         ``draft_k`` on the device, so the tick's ``advanced`` counters are
         fetched (one host sync). Returns the completions."""
         now = self.e.clock.now()
+        self._tick_s.append(now)
         before = self.step_fn.host_syncs
         self.state, flags = self.step_fn(self.state)
         self.e._host_syncs += self.step_fn.host_syncs - before
         self._flag_log.append(flags)
         self.tick += 1
+        if self._acc is not None:
+            self._acc.update(flags)         # device ops only, no sync
         adv = None
         if any(e.draft_k > 1 or e.item.policy.controller is not None
                for e in self.entries()):
@@ -346,6 +380,7 @@ class _Session:
         for t in range(horizon):
             self._flag_np.pop(t, None)
             self._flag_log[t] = None
+            self._tick_s[t] = None
 
     def harvest(self, entry: _Entry, completed: bool) -> Result:
         """Materialise one entry's Result from its accumulated flags (the
@@ -353,20 +388,27 @@ class _Session:
         are read at the entry's first lane: a guided pair's are
         pair-equal, its one decision."""
         item, lane, k = entry.item, entry.lanes[0], entry.streams
+        obs = self.e._obs
         accepts: List[bool] = []
+        per_tick: List[Dict[str, int]] = []
         n_drafted, n_full = 0, 0
         for t in range(entry.start_tick, self.tick):
             f = self._fetch(t)
             ns, nf = int(f["n_spec"][lane]), int(f["full"][lane])
+            nd = int(f["n_drafted"][lane])
             accepts.extend([True] * ns + [False] * nf)
             n_full += nf
-            n_drafted += int(f["n_drafted"][lane])
+            n_drafted += nd
+            if obs is not None:
+                # the trace's rows are the rows fetched above: no read
+                per_tick.append({"n_spec": ns, "full": nf, "n_drafted": nd,
+                                 "advanced": int(f["advanced"][lane])})
         finish_s = self.e.clock.now()
         timings = Timings(
             submit_s=item.submit_s, admit_s=entry.t0, finish_s=finish_s,
             first_tick_s=entry.first_tick_s, submit_tick=item.submit_tick,
             admit_tick=entry.start_tick, finish_tick=self.tick)
-        return Result(
+        res = Result(
             request_id=item.request.request_id,
             sample=self.wl.emit(self.state, lane, entry.done),
             num_full=n_full, num_spec=entry.done - n_full,
@@ -377,6 +419,46 @@ class _Session:
             completed=completed, finish_tick=self.tick,
             deadline=item.policy.deadline, ticket_id=item.ticket_id,
             tenant=item.policy.tenant, timings=timings)
+        if obs is not None:
+            self._observe_done(entry, res, timings, per_tick)
+        return res
+
+    def _observe_done(self, entry: _Entry, res: Result, timings: Timings,
+                      per_tick: List[Dict[str, int]]) -> None:
+        """Record one harvested request: its span Trace, the finish (or
+        drop) event and the per-request metrics — host values only."""
+        obs = self.e._obs
+        item = entry.item
+        wl, tenant = self.wl.tag, item.policy.tenant
+        deep = entry.draft_k > 1 or item.policy.controller is not None
+        obs.recorder.put_trace(build_trace(
+            ticket_id=item.ticket_id, request_id=item.request.request_id,
+            workload=wl, tenant=tenant, completed=res.completed,
+            timings=timings, per_tick=per_tick, tick_times=self._tick_s,
+            deep=deep))
+        obs.recorder.record(
+            "finish" if res.completed else "drop", timings.finish_s,
+            ticket=item.ticket_id, request=item.request.request_id,
+            workload=wl, tenant=tenant, tick=timings.finish_tick,
+            num_full=res.num_full, num_spec=res.num_spec,
+            num_drafted=res.num_drafted)
+        m = obs.metrics
+        kind = "completed" if res.completed else "dropped"
+        m.counter(f"speca_requests_{kind}_total",
+                  workload=wl, tenant=tenant).inc()
+        # service in schedule-step decisions: the WFQ ledger's unit
+        m.counter("speca_service_steps_total",
+                  workload=wl, tenant=tenant).inc(res.num_full + res.num_spec)
+        m.histogram("speca_accept_rate", edges=_RATE_EDGES,
+                    workload=wl).observe(res.alpha)
+        if res.num_drafted:
+            m.histogram("speca_request_draft_accept_rate",
+                        edges=_RATE_EDGES, workload=wl).observe(
+                            res.draft_accept_rate)
+        m.histogram("speca_queue_wait_s", edges=_SECONDS_EDGES,
+                    workload=wl).observe(timings.queue_wait_s)
+        m.histogram("speca_service_s", edges=_SECONDS_EDGES,
+                    workload=wl).observe(timings.service_s)
 
     def drain(self) -> List[Tuple[_Entry, Result]]:
         """Tick-budget shutdown: harvest every in-flight entry as
@@ -436,6 +518,9 @@ class SpeCaEngine:
     policy of a request that carries none. lanes: the width of the
     lifecycle session the first ``submit`` starts. clock: the serving
     clock (``None`` = ``time.monotonic``; tests pass a ``FakeClock``).
+    obs: ``False`` (default) runs no observability code; ``True`` builds
+    an ``Observability`` on the engine clock; an ``Observability`` is
+    adopted as-is and supplies the clock when ``clock`` is None.
     """
 
     def __init__(self, cfg: ModelConfig, params, dcfg: DiffusionConfig,
@@ -450,6 +535,7 @@ class SpeCaEngine:
                  default_policy: Optional[RequestPolicy] = None,
                  max_draft_depth: int = 1, lanes: int = 4,
                  forecaster: Any = None, controller: bool = False,
+                 obs: Union[bool, Observability] = False,
                  clock: Optional[Clock] = None,
                  device: DeviceLike = "cuda"):
         if accept_mode not in LS.ACCEPT_MODES:
@@ -475,7 +561,14 @@ class SpeCaEngine:
         # resolved now, so a bad name fails at construction
         self.forecaster = get_forecaster(forecaster)
         self.controller = bool(controller)
-        self.clock = resolve_clock(clock)
+        if isinstance(obs, Observability):
+            self._obs: Optional[Observability] = obs
+            self.clock: Clock = resolve_clock(
+                clock if clock is not None else obs.clock)
+        else:
+            self.clock = resolve_clock(clock)
+            self._obs = Observability(clock=self.clock) if obs else None
+        self._tick_count = 0    # engine-level tick index (series x-axis)
         self._lane_fns: Dict[Tuple[int, Any, bool], LS.LaneStep] = {}
         self._host_syncs = 0
         # lifecycle state: one long-lived session (serve_batched keeps
@@ -547,6 +640,13 @@ class SpeCaEngine:
                 verify_backend=self.verify_backend, guidance=mode,
                 max_draft_depth=self.max_draft_depth,
                 forecaster=self.forecaster, controller=self.controller)
+            if self._obs is not None:
+                tag = self.workload.tag
+                self._obs.metrics.counter("speca_programs_built_total",
+                                          workload=tag).inc()
+                self._obs.recorder.record("compile", self.clock.now(),
+                                          workload=tag, width=W,
+                                          mode=str(mode))
         return self._lane_fns[key]
 
     def lane_width(self, lanes: int, n_requests: int) -> int:
@@ -609,6 +709,11 @@ class SpeCaEngine:
         self._seq += 1
         self._sched.push(item)
         self._ticket_status[item.ticket_id] = "queued"
+        if self._obs is not None:
+            self._obs.recorder.record(
+                "submit", item.submit_s, ticket=item.ticket_id,
+                request=req.request_id, workload=self.workload.tag,
+                tenant=pol.tenant, steps=steps)
         return Ticket(ticket_id=item.ticket_id, request_id=req.request_id,
                       submit_tick=item.submit_tick)
 
@@ -621,14 +726,24 @@ class SpeCaEngine:
             sess = self._session
             if sess is None:
                 break
+            if self._obs is not None:
+                # before admission, so a burst shows at its full height
+                self._obs_tick_sample()
             for entry in _admit_into(sess, self._sched):
                 self._ticket_status[entry.item.ticket_id] = "running"
             if not sess.busy():
                 break
+            self._tick_count += 1
             for _entry, res in sess.advance():
                 self._record(res)
                 done.append(res)
         return done
+
+    def _obs_tick_sample(self) -> None:
+        """One sample of the queue state per engine tick (host integers)."""
+        m, t = self._obs.metrics, self._tick_count
+        m.series("speca_queue_depth").append(t, len(self._sched))
+        m.series("speca_in_flight").append(t, self.in_flight())
 
     def _record(self, res: Result) -> None:
         self._results[res.ticket_id] = res
@@ -766,8 +881,46 @@ class SpeCaEngine:
             res = _dropped_result(item)
             self._record(res)
             out.append(res)
+            if self._obs is not None:
+                self._obs.recorder.record(
+                    "drop", self.clock.now(), ticket=item.ticket_id,
+                    request=item.request.request_id,
+                    workload=self.workload.tag, tenant=item.policy.tenant,
+                    started=False)
+        if self._obs is not None:
+            # the session owns its accumulator: flush before discarding it
+            self._flush_lane_metrics(self._session)
         self._session = None
         return out
+
+    # --- observability -------------------------------------------------------
+    @property
+    def obs(self) -> Optional[Observability]:
+        """The engine's observability bundle (None when obs is off)."""
+        return self._obs
+
+    def _flush_lane_metrics(self, sess: Optional[_Session]) -> None:
+        if sess is not None:
+            sess._acc.flush_into(self._obs.metrics, workload=sess.wl.tag)
+
+    def metrics_snapshot(self) -> List[Dict[str, Any]]:
+        """Flush the lifecycle session's lane accumulator (the one device
+        read observability adds, paid only here) and return the metrics
+        snapshot. Raises ``RuntimeError`` when obs is off."""
+        if self._obs is None:
+            raise RuntimeError("engine constructed with obs=False — "
+                               "pass SpeCaEngine(obs=True) for metrics")
+        self._flush_lane_metrics(self._session)
+        return self._obs.metrics.snapshot()
+
+    def trace(self, ticket: Union[Ticket, int]) -> Optional[Trace]:
+        """The completed ticket's span Trace from the flight recorder
+        (None when unknown, evicted or still in flight). Raises
+        ``RuntimeError`` when obs is off."""
+        if self._obs is None:
+            raise RuntimeError("engine constructed with obs=False — "
+                               "pass SpeCaEngine(obs=True) for traces")
+        return self._obs.recorder.trace(self._tid(ticket))
 
     # --- one-shot serving ----------------------------------------------------
     def serve_batched(self, requests: List[Request], *, lanes: int = 4,
@@ -809,6 +962,9 @@ class SpeCaEngine:
             results[entry.item.seq] = res
         for item in sched.drain():
             results[item.seq] = _dropped_result(item)
+        if self._obs is not None:
+            # the private session reports before it is discarded
+            self._flush_lane_metrics(sess)
         return [results[i] for i in range(len(requests))]
 
     def serve(self, requests: List[Request], *, lanes: int = 1,

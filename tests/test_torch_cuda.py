@@ -809,3 +809,103 @@ def test_warmup_leaves_nothing_to_build_on_card(cuda, kw):
         assert set(build._loaded) == loaded
     finally:
         build._loaded.update(saved)
+
+
+def _acc_flags(W, K, seed):
+    """One tick's seeded flags: counters, and errors [K, W] with NaN, ±Inf
+    and values exactly on an edge of the default grid."""
+    from repro_torch.obs.lane_metrics import DEFAULT_ERR_EDGES
+    rng = np.random.default_rng(seed)
+    err = rng.lognormal(-2.5, 2.0, (K, W)).astype(np.float32)
+    pick = rng.random((K, W))
+    edges = np.asarray(DEFAULT_ERR_EDGES, np.float32)
+    err = np.where(pick < 0.2, edges[rng.integers(0, len(edges), (K, W))],
+                   err)
+    err = np.where((pick >= 0.2) & (pick < 0.3), np.nan, err)
+    err = np.where((pick >= 0.3) & (pick < 0.35), np.inf, err)
+    err = np.where((pick >= 0.35) & (pick < 0.4), -np.inf, err)
+    n_drafted = rng.integers(0, K + 1, W).astype(np.int32)
+    n_spec = np.minimum(n_drafted, rng.integers(0, K + 1, W)).astype(
+        np.int32)
+    full = n_spec < np.maximum(n_drafted, 1)
+    flags = {"attempted": n_drafted > 0, "n_spec": n_spec,
+             "n_drafted": n_drafted, "full": full,
+             "advanced": (n_spec + full).astype(np.int32)}
+    flags["chain_err" if K > 1 else "err"] = err if K > 1 else err[0]
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in flags.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_lane_accumulator_sync_free_and_equal_to_cpu_on_card(cuda, K):
+    """``LaneAccumulator.update`` on the card, its first call (the buffer's
+    allocation) included, raises nothing under sync-debug mode "error";
+    its flush equals the CPU accumulator's on the same flags (counts and
+    totals exact, the f32 error sum within rtol 1e-6)."""
+    from repro_torch.obs import LaneAccumulator, MetricsRegistry
+    ticks = [_acc_flags(8, K, seed) for seed in range(6)]
+    gpu, cpu = LaneAccumulator(), LaneAccumulator()
+    on_card = [{k: v.to(cuda) for k, v in f.items()} for f in ticks]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in on_card:
+            gpu.update(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for f in ticks:
+        cpu.update(f)
+    regs = MetricsRegistry(), MetricsRegistry()
+    gpu.flush_into(regs[0], workload="diffusion")
+    cpu.flush_into(regs[1], workload="diffusion")
+    for a, b in zip(*(r.snapshot() for r in regs)):
+        inexact = ("sum", "mean")
+        assert {k: v for k, v in a.items() if k not in inexact} == \
+            {k: v for k, v in b.items() if k not in inexact}
+        for k in inexact:
+            if k in b:
+                assert a[k] == pytest.approx(b[k], rel=1e-6)
+    h = regs[0].histogram("speca_chain_err", workload="diffusion")
+    key = "chain_err" if K > 1 else "err"
+    assert h.count == sum(int(torch.isfinite(f[key]).sum()) for f in ticks)
+    assert gpu._acc.device.type == "cuda"
+    assert not bool(gpu._acc.any())          # flushed: reset in place
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"controller": True,
+                                     "max_draft_depth": 3}])
+def test_obs_engine_bitwise_inert_on_card(cuda, kw):
+    """On the card an ``obs=True`` engine serves bitwise what an
+    ``obs=False`` one serves, with the same host syncs; its lane totals
+    equal the Results' sums."""
+    from repro_torch.serving import (ControllerPolicy, Request,
+                                     RequestPolicy, SpeCaEngine)
+    cfg, params, dcfg = _small_dit(cuda)
+    deep = bool(kw)
+    reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i, policy=RequestPolicy(
+                        draft_depth=3 if deep else None,
+                        controller=ControllerPolicy() if deep and i == 1
+                        else None))
+            for i in range(4)]
+    out = []
+    for obs in (False, True):
+        engine = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), lanes=2,
+                             obs=obs, device=cuda, **kw)
+        res = engine.results([engine.submit(r) for r in reqs])
+        out.append((engine, res))
+    (off, roff), (on, ron) = out
+    assert on.host_syncs == off.host_syncs > 0
+    for a, b in zip(roff, ron):
+        assert torch.equal(a.sample, b.sample)
+        assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
+            (b.accepts, b.num_full, b.num_spec, b.num_drafted)
+    snap = {r["name"]: r for r in on.metrics_snapshot()}
+    assert snap["speca_n_spec_total"]["value"] == sum(r.num_spec
+                                                      for r in ron)
+    assert snap["speca_n_drafted_total"]["value"] == sum(r.num_drafted
+                                                         for r in ron)
+    assert snap["speca_chain_err"]["count"] == sum(r.num_drafted
+                                                   for r in ron)
+    assert snap["speca_requests_completed_total"]["value"] == 4

@@ -26,6 +26,8 @@ s = 1 against cond-only; one guided chain tick and a guided deep serve
 against the reference's; pair coherence; the width rule and backfill.
 """
 import dataclasses
+import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -53,9 +55,9 @@ from repro_torch.core.speca import speca_sample
 from repro_torch.core.workload import DiffusionWorkload
 from repro_torch.diffusion.pipeline import sample_full
 from repro_torch.layers import model as PM
-from repro_torch.serving import (ControllerPolicy, Preview, QueueFull,
-                                 Request, RequestPolicy, SpeCaEngine,
-                                 allocation_report)
+from repro_torch.serving import (ControllerPolicy, Observability, Preview,
+                                 QueueFull, Request, RequestPolicy,
+                                 SpeCaEngine, allocation_report)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1335,3 +1337,243 @@ def test_lifecycle_timings_on_fake_clocks_match_reference(life_engines):
         resolve_clock(object())
     with pytest.raises(ValueError, match="backwards"):
         FakeClock().advance(-1.0)
+
+
+# ---------------------------------------------------------------------------
+# Observability (analogues of the engine half of tests/test_obs.py) against
+# the reference, and obs on against obs off
+# ---------------------------------------------------------------------------
+
+OBS_CASES = ("depth1", "chain_controller", "mixed")
+
+
+def _obs_reqs(case, n=4, first=0):
+    """(reference requests, port requests) of one observability case: at
+    depth 1 (tenants alternate); at depth 3 with one request under a
+    ``ControllerPolicy``; or with guided request 1 beside unguided
+    ones."""
+    def build(Req, Pol, Ctl, lab):
+        out = []
+        for i in range(first, first + n):
+            kw = {"tenant": "gold" if i % 2 else "default"}
+            if case == "chain_controller":
+                kw["draft_depth"] = 3 if i % 2 == 0 else 2
+                kw["controller"] = Ctl(ema=0.5) if i == 1 else None
+            if case == "mixed" and i == 1:
+                kw["guidance_scale"] = 3.0
+            out.append(Req(request_id=i, cond={"labels": lab([i % 8])},
+                           seed=200 + i, policy=Pol(**kw)))
+        return out
+    return (build(JRequest, JRequestPolicy, JCT.ControllerPolicy,
+                  jnp.asarray),
+            build(Request, RequestPolicy, ControllerPolicy, torch.tensor))
+
+
+def _obs_engine_kw(case):
+    return dict(lanes=2, max_draft_depth=3 if case == "chain_controller"
+                else 1, controller=case == "chain_controller")
+
+
+def _port_obs_engine(both, engines, case, **kw):
+    _, (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    return SpeCaEngine(pcfg, tp, pdcfg, pe.workload.scfg,
+                       noise_fn=pe.workload.noise_fn, device="cpu",
+                       **_obs_engine_kw(case), **kw)
+
+
+def _drive_life(engine, reqs):
+    """submit, then tick and release to idle; Results in request order."""
+    tickets = [engine.submit(r) for r in reqs]
+    out = {}
+    while engine.pending() or engine.in_flight():
+        for res in engine.tick():
+            out[res.ticket_id] = res
+            engine.release(res.ticket_id)
+    return tickets, [out[t.ticket_id] for t in tickets]
+
+
+@pytest.mark.parametrize("case", OBS_CASES)
+def test_obs_on_is_bitwise_inert(both, engines, case, monkeypatch):
+    """An ``obs=True`` engine serves bitwise what an ``obs=False`` one
+    serves — samples, accepts, every counter — with the same host syncs
+    and the same number of ``_Session._fetch`` reads, at depth 1, at K=3
+    under the controller and with a guided pair; its lane totals agree
+    with the Results (a guided pair's flags count on both lanes)."""
+    from repro_torch.serving import engine as PE
+    _, preqs = _obs_reqs(case)
+    fetch = PE._Session._fetch
+    out = {}
+    for obs in (False, True):
+        n = [0]
+
+        def counted(sess, t, n=n):
+            n[0] += 1
+            return fetch(sess, t)
+        monkeypatch.setattr(PE._Session, "_fetch", counted)
+        eng = _port_obs_engine(both, engines, case, obs=obs)
+        _, res = _drive_life(eng, preqs)
+        out[obs] = (eng, res, eng.host_syncs, n[0])
+        monkeypatch.setattr(PE._Session, "_fetch", fetch)
+    (off, roff, soff, foff), (on, ron, son, fon) = out[False], out[True]
+    assert son == soff and fon == foff and foff > 0
+    for a, b in zip(roff, ron):
+        assert torch.equal(a.sample, b.sample), a.request_id
+        assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
+                a.finish_tick, a.flops) == \
+            (b.accepts, b.num_full, b.num_spec, b.num_drafted,
+             b.finish_tick, b.flops)
+    assert sum(r.num_spec for r in ron) > 0
+    assert off.obs is None and isinstance(on.obs, Observability)
+    streams = [1 + (p.guidance_scale is not None)
+               for p in (r.policy for r in preqs)]
+    snap = {(r["name"], tuple(sorted(r["labels"].items()))): r
+            for r in on.metrics_snapshot()}
+    lab = (("workload", "diffusion"),)
+    for key, attr in (("n_spec", "num_spec"), ("n_drafted", "num_drafted"),
+                      ("full", "num_full")):
+        assert snap[f"speca_{key}_total", lab]["value"] == sum(
+            getattr(r, attr) * k for r, k in zip(ron, streams)), key
+    # one queue-depth point and one accumulator update per engine tick
+    assert snap["speca_obs_ticks_total", lab]["value"] == on._tick_count \
+        == len(on.obs.metrics.series("speca_queue_depth")) > 0
+    assert snap["speca_chain_err", lab]["count"] > 0
+    for eng in (off, on):
+        eng.shutdown()
+    with pytest.raises(RuntimeError, match="obs=True"):
+        off.metrics_snapshot()
+    with pytest.raises(RuntimeError, match="obs=True"):
+        off.trace(0)
+
+
+def _record_reference_errors(monkeypatch):
+    """Every error the reference's accumulators fold in, as numpy."""
+    from repro.obs import lane_metrics as JLM
+    seen = []
+    update = JLM.LaneAccumulator.update
+
+    def spy(acc, flags):
+        seen.append(np.asarray(flags["chain_err"] if "chain_err" in flags
+                               else flags["err"]).ravel())
+        return update(acc, flags)
+    monkeypatch.setattr(JLM.LaneAccumulator, "update", spy)
+    return seen
+
+
+def _assert_obs_equal(jobs, pobs, ref_errs):
+    """Events, traces, and every metric equal; the ``speca_chain_err``
+    buckets equal except where a reference error lies within rtol 1e-4
+    (the verify bar) of the edge the two bucket counts disagree at."""
+    assert pobs.recorder.events() == jobs.recorder.events()
+    assert pobs.recorder.dropped == jobs.recorder.dropped
+    jtr, ptr = jobs.recorder.traces(), pobs.recorder.traces()
+    assert [t.ticket_id for t in ptr] == [t.ticket_id for t in jtr]
+    for a, b in zip(jtr, ptr):
+        assert (b.request_id, b.workload, b.tenant, b.completed) == \
+            (a.request_id, a.workload, a.tenant, a.completed)
+        assert b.timings == port_record(type(b.timings), a.timings)
+        assert [(s.name, s.t0, s.t1, s.tick0, s.tick1, s.attrs)
+                for s in b.spans] == \
+            [(s.name, s.t0, s.t1, s.tick0, s.tick1, s.attrs)
+             for s in a.spans]
+    jsnap, psnap = jobs.metrics.snapshot(), pobs.metrics.snapshot()
+    assert [(r["name"], r["labels"]) for r in psnap] == \
+        [(r["name"], r["labels"]) for r in jsnap]
+    errs = np.concatenate(ref_errs) if ref_errs else np.zeros(0)
+    errs = errs[np.isfinite(errs)]
+    for a, b in zip(jsnap, psnap):
+        if a["name"] != "speca_chain_err":
+            assert b == a, a["name"]
+            continue
+        assert (b["edges"], b["count"]) == (a["edges"], a["count"])
+        assert b["sum"] == pytest.approx(a["sum"], rel=1e-4)
+        edges = [0.0] + list(a["edges"]) + [math.inf]
+        for i, (ca, cb) in enumerate(zip(a["counts"], b["counts"])):
+            if ca != cb:
+                near = [e for e in edges[i:i + 2] if 0 < e < math.inf
+                        and np.any(np.abs(errs - e) <= 1e-4 * e)]
+                assert near, f"chain_err bucket {i}: {ca} != {cb}"
+        if a["counts"] == b["counts"]:
+            assert (b.get("p50"), b.get("p90"), b.get("p99")) == \
+                (a.get("p50"), a.get("p90"), a.get("p99"))
+
+
+@pytest.mark.parametrize("case", OBS_CASES)
+def test_obs_on_fake_clocks_matches_reference(both, engines, case,
+                                              monkeypatch):
+    """Under ``FakeClock(auto_tick=0.25)`` the port's ``obs=True`` engine
+    and the reference's record equal events (compile, submit, admit,
+    finish, both kinds of drop), traces with exact span times, and equal
+    counters, gauges, histograms and series, across lifecycle serving, a
+    mid-flight ``shutdown`` and a one-shot ``serve_batched``; the clocks
+    are read equally often."""
+    from repro.obs import FakeClock as JFakeClock
+    from repro_torch.obs import FakeClock
+    (cfg, dcfg, params), _ = both
+    jscfg, _ = _scfgs(tau0=0.4, max_draft=8)
+    ref_errs = _record_reference_errors(monkeypatch)
+    clocks = (JFakeClock(100.0, auto_tick=0.25),
+              FakeClock(100.0, auto_tick=0.25))
+    jeng = JEngine(cfg, params, dcfg, jscfg, obs=True, clock=clocks[0],
+                   **_obs_engine_kw(case))
+    peng = _port_obs_engine(both, engines, case, obs=True, clock=clocks[1])
+    assert peng.clock is peng.obs.clock is clocks[1]
+    results = []
+    for i, eng in enumerate((jeng, peng)):
+        _, res = _drive_life(eng, _obs_reqs(case)[i])
+        tickets = [eng.submit(r) for r in _obs_reqs(case, 3, first=4)[i]]
+        eng.tick(3)
+        drained = eng.shutdown()
+        served = eng.serve_batched(_obs_reqs(case, 2, first=7)[i], lanes=2)
+        results.append((res, drained, served, [eng.trace(t)
+                                               for t in tickets]))
+    for a, b in zip(*(r[0] + r[1] + r[2] for r in results)):
+        assert (b.accepts, b.num_full, b.num_spec, b.completed) == \
+            (a.accepts, a.num_full, a.num_spec, a.completed)
+    kinds = [e["kind"] for e in peng.obs.recorder.events()]
+    for k in ("compile", "submit", "admit", "finish", "drop"):
+        assert k in kinds, k
+    assert any(e.get("started") is False
+               for e in peng.obs.recorder.events())
+    # the queued ticket never started: no trace; the drained one has one
+    assert results[1][3].count(None) == results[0][3].count(None) >= 1
+    _assert_obs_equal(jeng.obs, peng.obs, ref_errs)
+    assert clocks[1].reads == clocks[0].reads
+    pq = peng.obs.metrics.series("speca_queue_depth")
+    assert pq.points()[0] == (0.0, 4.0)
+
+
+def test_obs_trace_spans_and_observability_injection(both, engines):
+    """A served request's trace: queued, running, and one span per service
+    tick inside the running span, with the tick's counters as attrs; a
+    caller-built ``Observability`` is adopted with its clock; the
+    exporters render the engine's state."""
+    from repro_torch.obs import FakeClock
+    obs = Observability(clock=FakeClock(5.0, auto_tick=0.5))
+    eng = _port_obs_engine(both, engines, "depth1", obs=obs)
+    assert eng.obs is obs and eng.clock is obs.clock
+    tickets, res = _drive_life(eng, _obs_reqs("depth1", 3)[1])
+    for t, r in zip(tickets, res):
+        tr = eng.trace(t)
+        assert tr.completed and tr.workload == "diffusion"
+        assert [s.name for s in tr.spans[:2]] == ["queued", "running"]
+        ticks = tr.tick_spans()
+        assert len(ticks) == r.timings.service_ticks
+        running = tr.spans[1]
+        for s in ticks:
+            assert running.t0 <= s.t0 <= s.t1 <= running.t1
+            assert s.tick1 == s.tick0 + 1
+        assert sum(s.attr_dict["full"] for s in ticks) == r.num_full
+        assert sum(s.attr_dict["n_spec"] for s in ticks) == r.num_spec
+    assert eng.trace(987654) is None
+    snap = eng.metrics_snapshot()
+    doc = json.loads(json.dumps(obs.chrome_trace()))
+    assert len([e for e in doc["traceEvents"] if e["ph"] == "X"]) == sum(
+        2 + r.timings.service_ticks for r in res)
+    assert "# TYPE speca_requests_completed_total counter" in \
+        obs.prometheus()
+    assert len(obs.events_jsonl().splitlines()) == \
+        len(obs.recorder.events())
+    done = [r for r in snap if r["name"] == "speca_requests_completed_total"]
+    assert sum(r["value"] for r in done) == 3.0
+    eng.shutdown()
