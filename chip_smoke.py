@@ -50,6 +50,15 @@ Phases (any failure ends the run with a non-zero exit):
    paired rows bitwise ``ops.verify_accept`` on the plain f32 planes; timed
    in turns with the two-step it replaces (the plain planes, then
    ``ops.verify_accept``), by events and device time, beside its bound.
+2a. The same kernels at the decode lanes' shapes (``decode_kernels``):
+   the lane predict, the refresh, the chain predict (K = 1 and 4) and the
+   ring shift on the bf16 table [3, 32, 2, 4, 1, 4096] of Llama-3-8B
+   lanes; the verify on [4, 1, 4096] planes (two of its 2,048-element
+   chunks a row); the rollback on int32 token buffers [4, 64] and [4, 1]
+   (lane axis 0) and on a bf16 K/V cache [32, 4, 192, 8, 128] (lane axis
+   1), from a snapshot list and stacked — under the bars above, each
+   timed beside its plain version and its bound (device time also with
+   the L2 flushed before each call: the 6.3 MB table fits in it).
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
@@ -146,13 +155,37 @@ Phases (any failure ends the run with a non-zero exit):
    (torch.profiler) for a depth-1 and a chain tick's flags, and the
    lifecycle walls on and off.
 10. ``speca_sample`` at batch 2 on the same model.
-11. ``profiler``: every kernel count and device time above is read from
+11. LLM decode lanes (``serve_decode``): Llama-3-8B at full width and
+    depth (``repro_torch.configs.LLAMA3_8B``: 32 layers, d 4096, 32
+    heads on 8 KV heads, d_ff 14336, vocabulary 128,256; bf16, random
+    weights drawn on the card from a seed), 8 requests with seeded prompt
+    lengths in 16–128 and token ids uniform over the vocabulary, 64 new
+    tokens each, ``max_seq_len`` 192, ``SpeCaConfig(taylor_order=2)``.
+    (a) τ0 = 0 at lanes=1: every request's tokens equal the port's greedy
+    loop (``lm_forward`` prefill + ``lm_decode_step``), all 64 steps
+    full; (b) at τ0 = the median error of (a)'s drafts, lanes=4 with the
+    launch counts set to 0 just before and read just after: the lane
+    predict, refresh and verify launch, some draft is accepted and some
+    rejected; lanes=1 is served beside it and recorded, not gated; (c) a
+    raw ``build_workload_step`` loop at ``max_draft_depth=4`` and (d) the
+    same with ``forecaster="spectral"`` land on their depth-1 runs bitwise
+    (``tok``, ``tokens``, both caches, every counter) in fewer ticks, a
+    chain tick launching the rollback once per payload leaf when some
+    lane drafted and never when none did.
+12. ``serve_mixed``: one lifecycle engine with the DiT-XL/2 quartet and
+    ``workloads={"decode": ...}`` serves phase 3's requests 0-3 and the
+    decode requests 0-3, submitted alternately, at lanes=4 each; each
+    side's samples, tokens, counters and FLOPs equal its solo run's at
+    the same width, and both sessions' kernels launch.
+13. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
     windows), and at most one reading in 10 may have needed that.
 
 Each serving phase resets the launch counts just before its run and
-reads them just after, and asserts the kernels of its own path.
+reads them just after, and asserts the kernels of its own path. A kernel
+row's ``decode`` entry holds its decode-shape numbers and its launches in
+``serve_decode``.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``; the line before them is
@@ -187,10 +220,23 @@ BF16_TC_FLOPS = 989.4e12          # H100 SXM, dense bf16 tensor cores
 # gemma3-27b's attention as the reference configures it
 # (src/repro/configs/gemma3_27b.py: 32 query heads, 16 KV heads, head dim
 # 128, a sliding window of 1024 on local layers, every 6th layer global);
-# the port has no LM configuration yet
+# (the port configures Llama-3-8B, not gemma3)
 GEMMA3_HEADS, GEMMA3_KV_HEADS, GEMMA3_HEAD_DIM = 32, 16, 128
 GEMMA3_WINDOW = 1024
 ATTN_SEQ = 4096
+# the decode phases: Llama-3-8B lanes serving chat-sized requests
+DECODE_NEW = 64                   # new tokens a decode request asks for
+DECODE_SEQ = 192                  # max_seq_len of a decode lane's cache
+DECODE_PROMPT = (16, 128)         # seeded prompt lengths, inclusive
+L2_FLUSH_BYTES = 128 * 2**20      # written between timed calls: > 50 MB L2
+# the __global__ functions of the serving kernels, as the profiler names
+# them
+DEVICE_NAMES = {"taylor_predict_lanes": "predict_lanes_kernel",
+                "taylor_update_lanes": "update_lanes_kernel",
+                "verify_accept": "verify_kernel",
+                "taylor_predict_chain_lanes": "predict_chain_kernel",
+                "lane_rollback": "rollback_kernel",
+                "spectral_update_lanes": "ring_update_kernel"}
 
 
 def smi_line() -> str:
@@ -292,10 +338,11 @@ class Smoke:
     """The phases; ``cfg``/``dcfg`` are the served model and schedule
     (DiT-XL/2 and the DiffusionConfig defaults in a chip run)."""
 
-    def __init__(self, torch, device, cfg, dcfg):
+    def __init__(self, torch, device, cfg, dcfg, lm_cfg=None):
         self.torch = torch
         self.dev = torch.device(device)
         self.cfg, self.dcfg = cfg, dcfg
+        self.lm_cfg = lm_cfg            # the decode phases' LM
         self.failures = []
         self.record = {}
         self.kernels = {}
@@ -2018,6 +2065,474 @@ class Smoke:
             tau_first_last=[tau[0].item(), tau[-1].item()])
 
 
+    # --- decode shapes -------------------------------------------------------
+    def _decode_shapes(self):
+        """The decode phases' kernel shapes: the lane table [m+1, L, 2, W,
+        1, D], one K/V cache [L, W, S, KV, hd] and the token buffer [W, new
+        tokens]."""
+        lm = self.lm_cfg
+        return ((3, lm.num_layers, 2, LANES, 1, lm.d_model),
+                (lm.num_layers, LANES, DECODE_SEQ, lm.num_kv_heads,
+                 lm.resolved_head_dim),
+                (LANES, DECODE_NEW))
+
+    def _decode_row(self, name, shape, fn, plain, nbytes, flops, err,
+                    library=None):
+        """Time a kernel at a decode shape (CUDA events over back-to-back
+        calls; its device time from torch.profiler, back to back and with
+        the 50 MB L2 flushed before each call — the 6.3 MB table fits in
+        L2, and a tick's forwards stream 16 GB of weights between two
+        calls) beside its plain version (and a library call where one
+        computes the same function) and keep the numbers under the
+        kernel's ``decode`` entry."""
+        torch = self.torch
+        b, by = bound_ms(nbytes, flops)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=self.dev)
+
+        def cold():
+            flush.zero_()
+            fn()
+        spans = device_spans(torch, cold, iters=20)
+        row = dict(shape=list(shape), ms=time_ms(torch, fn, iters=50),
+                   device_ms=sum(device_spans(torch, fn,
+                                              iters=50).values()) / 1e3,
+                   cold_device_ms=sum(us for n, us in spans.items()
+                                      if DEVICE_NAMES[name] in n) / 1e3,
+                   plain_ms=time_ms(torch, plain, iters=50),
+                   library_ms=None if library is None
+                   else time_ms(torch, library, iters=50),
+                   bound_ms=b, bound_by=by, max_abs_err=err)
+        self.kernels.setdefault(name, {}).setdefault("decode", {}).update(row)
+
+    def check_decode_kernels(self):
+        """Rows 1-6 at the shapes decode lanes give them, against their
+        plain versions under the serving bars: the lane predict (rtol
+        2^-8), the masked refresh, the chain predict (K = 1 and 4, each
+        position bitwise the lane predict) and the ring shift on the bf16
+        decode table; the verify on [W, 1, D] planes (rtol 1e-5, accept bits
+        wherever |e − τ| > 1e-5); the rollback bitwise on int32 token
+        buffers (lane axis 0) and on bf16 K/V caches (lane axis 1), from a
+        snapshot list and stacked. Each is timed with its bound."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        table, cache, tokens = self._decode_shapes()
+        bf16, dev = torch.bfloat16, self.dev
+        m1, K = table[0], CHAIN_K
+        R, C = table[1] * table[2] * LANES, table[4] * table[5]
+        diffs, feats, w, mask = self._inputs(table, bf16, 21)
+        pk = ops.taylor_predict_lanes(diffs, w)
+        torch.testing.assert_close(
+            pk.float(), ref.taylor_predict_lanes_ref(diffs.float(), w),
+            rtol=2.0 ** -8, atol=1e-6)
+        uk = ops.taylor_update_lanes(diffs, feats, mask)
+        up = ref.taylor_update_lanes_ref(diffs, feats, mask)
+        assert torch.equal(uk, up), "refresh not bitwise at the decode table"
+        errs = self._check_chain_kernels(table, bf16)
+        pred, real = self._planes(LANES, C, bf16, seed=22)
+        e0, _ = ref.verify_accept_ref(pred, real,
+                                      torch.ones(LANES, device=dev))
+        tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9], device=dev)
+               ).contiguous()
+        ek, ak = ops.verify_accept(pred, real, tau)
+        ep, ap = ref.verify_accept_ref(pred, real, tau)
+        torch.testing.assert_close(ek, ep, rtol=1e-5, atol=0.0)
+        far = (ep - tau).abs() > 1e-5
+        assert torch.equal(ak[far], ap[far]), "decode accept bits differ"
+        g = torch.Generator(device=dev).manual_seed(23)
+        chains = {
+            "tokens": ([torch.randint(0, max(self.lm_cfg.vocab_size, 2),
+                                      tokens, generator=g, device=dev,
+                                      dtype=torch.int32)
+                        for _ in range(K + 1)], 0),
+            "tok": ([torch.randint(0, max(self.lm_cfg.vocab_size, 2),
+                                   (LANES, 1), generator=g, device=dev,
+                                   dtype=torch.int32)
+                     for _ in range(K + 1)], 0),
+            "cache": ([torch.randn(cache, generator=g, device=dev).to(bf16)
+                       for _ in range(K + 1)], 1)}
+        for what, (chain, axis) in chains.items():
+            stacked = torch.stack(chain)
+            for idx in self._rollback_indices(LANES):
+                want = ref.lane_rollback_ref(chain, idx, lane_axis=axis)
+                assert torch.equal(ops.lane_rollback(chain, idx,
+                                                     lane_axis=axis), want), \
+                    f"rollback not bitwise on the decode {what}"
+                assert torch.equal(ops.lane_rollback(stacked, idx,
+                                                     lane_axis=axis), want), \
+                    f"stacked rollback not bitwise on the decode {what}"
+        torch.cuda.synchronize()
+        es = diffs.element_size()
+        self._decode_row(
+            "taylor_predict_lanes", table,
+            lambda: ops.taylor_predict_lanes(diffs, w),
+            lambda: ref.taylor_predict_lanes_ref(diffs, w),
+            (m1 * R * C + R * C) * es + m1 * LANES * 4, 2.0 * m1 * R * C,
+            (pk.float() - ref.taylor_predict_lanes_ref(diffs, w).float())
+            .abs().max().item(),
+            library=lambda: torch.einsum(
+                "zw,zgwc->gwc", w.to(bf16), diffs.view(m1, R // LANES,
+                                                       LANES, C)))
+        fresh = int(mask.sum().item()) * R // LANES
+        kept = R - fresh
+        self._decode_row(
+            "taylor_update_lanes", table,
+            lambda: ops.taylor_update_lanes(diffs, feats, mask),
+            lambda: ref.taylor_update_lanes_ref(diffs, feats, mask),
+            (kept * m1 * C + fresh * (m1 - 1) * C + fresh * C
+             + m1 * R * C) * es + LANES, float((m1 - 1) * fresh * C), 0.0)
+        wk = self._weights(m1, LANES, K)
+        self._decode_row(
+            "taylor_predict_chain_lanes", table,
+            lambda: ops.taylor_predict_chain_lanes(diffs, wk),
+            lambda: ref.taylor_predict_chain_lanes_ref(diffs, wk),
+            (m1 + K) * R * C * es + m1 * K * LANES * 4,
+            2.0 * m1 * K * R * C, errs[f"chain_k{K}_max_abs_err"],
+            library=lambda: torch.einsum(
+                "zkb,zgbc->kgbc", wk.to(bf16), diffs.view(m1, R // LANES,
+                                                          LANES, C)))
+        self._decode_row(
+            "verify_accept", (LANES, 1, C),
+            lambda: ops.verify_accept(pred, real, tau),
+            lambda: ref.verify_accept_ref(pred, real, tau),
+            2 * LANES * C * es + LANES * 9, 5.0 * LANES * C,
+            (ek - ep).abs().max().item())
+        snaps, axis = chains["cache"]
+        idx = self._rollback_indices(LANES)[1]
+        stacked = torch.stack(snaps)
+        take = idx.long().reshape((1, 1, LANES) + (1,) * (len(cache) - 2)
+                                  ).expand((1,) + tuple(cache))
+        self._decode_row(
+            "lane_rollback", cache,
+            lambda: ops.lane_rollback(snaps, idx, lane_axis=1),
+            lambda: ref.lane_rollback_ref(snaps, idx, lane_axis=1),
+            2 * snaps[0].numel() * snaps[0].element_size() + LANES * 4, 0.0,
+            0.0, library=lambda: torch.take_along_dim(stacked, take, dim=0))
+        self._decode_row(
+            "spectral_update_lanes", table,
+            lambda: ops.spectral_update_lanes(diffs, feats, mask),
+            lambda: ref.spectral_update_lanes_ref(diffs, feats, mask),
+            (kept * m1 * C + fresh * m1 * C + m1 * R * C) * es + LANES,
+            0.0, 0.0)
+        out = {name: k["decode"] for name, k in self.kernels.items()
+               if "decode" in k}
+        for name, row in out.items():
+            print(f"{name} at decode shapes: {row}")
+        self.record["decode_kernel_checks"] = dict(
+            table=list(table), cache=list(cache), tokens=list(tokens),
+            **errs, verify_max_abs_err=(ek - ep).abs().max().item())
+
+    # --- decode lanes --------------------------------------------------------
+    def _lm_params(self):
+        """The LM's random bf16 weights, drawn on the card from a seed."""
+        if getattr(self, "lm_params", None) is None:
+            from repro_torch.layers.model import init_params
+            gen = self.torch.Generator(device=self.dev).manual_seed(0)
+            self.lm_params = init_params(self.lm_cfg, gen, device=self.dev)
+        return self.lm_params
+
+    def _decode_requests(self, n=N_REQUESTS, **policy):
+        """Decode requests 0..n-1: seeded prompt lengths in DECODE_PROMPT,
+        token ids uniform over the vocabulary (CPU generator, seed 17)."""
+        torch = self.torch
+        from repro_torch.serving import Request, RequestPolicy
+        g = torch.Generator().manual_seed(17)
+        lens = torch.randint(DECODE_PROMPT[0], DECODE_PROMPT[1] + 1,
+                             (N_REQUESTS,), generator=g).tolist()
+        prompts = [torch.randint(0, self.lm_cfg.vocab_size, (1, n_),
+                                 generator=g, dtype=torch.int32)
+                   for n_ in lens]
+        return [Request(request_id=i, cond={"tokens": prompts[i]},
+                        policy=RequestPolicy(workload="decode", **policy))
+                for i in range(n)]
+
+    def _decode_workload(self, tau0):
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.core.workload import DecodeWorkload
+        return DecodeWorkload(self.lm_cfg, self._lm_params(),
+                              SpeCaConfig(taylor_order=2, tau0=tau0),
+                              max_new_tokens=DECODE_NEW,
+                              max_seq_len=DECODE_SEQ, device=self.dev)
+
+    def _greedy(self, prompt):
+        """The port's plain greedy decode of one prompt: ``lm_forward``
+        prefill, then ``lm_decode_step`` token by token -> [new tokens]."""
+        torch = self.torch
+        from repro_torch.layers import model as M
+        cfg, params = self.lm_cfg, self._lm_params()
+        tokens = prompt.to(self.dev)
+        P = tokens.shape[1]
+        logits, ex = M.lm_forward(cfg, params, {"tokens": tokens},
+                                  collect_cache=True)
+        cache = M.init_cache(cfg, 1, DECODE_SEQ, self.dev)
+        for k in cache:
+            cache[k][:, :, :P] = ex["cache"][k]
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out = []
+        for pos in range(P, P + DECODE_NEW):
+            logits, cache = M.lm_decode_step(cfg, params, tok, cache, pos)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        return torch.cat(out, dim=1)[0].cpu()
+
+    @contextlib.contextmanager
+    def _lane_errors(self):
+        """Collect the ``err`` flags [W] of every depth-1 lane step run
+        inside (device tensors, read after the run)."""
+        from repro_torch.core import lane_step as LS
+        errs = []
+        call = LS.LaneStep.__call__
+
+        def probe(step, state):
+            new, flags = call(step, state)
+            errs.append(flags["err"])
+            return new, flags
+        LS.LaneStep.__call__ = probe
+        try:
+            yield errs
+        finally:
+            LS.LaneStep.__call__ = call
+
+    def _raw_decode(self, wl, reqs, depth, forecaster=None):
+        """Requests 0..W-1 through a raw ``build_workload_step`` loop at
+        ``lanes=W`` and draft depth ``depth``: each lane filled, a lane
+        leaves the batch when its schedule is done (as the engine releases
+        it). Returns (state, per-lane counters, ticks, launches, wall s,
+        per-tick rollback launches and drafting)."""
+        torch = self.torch
+        from repro_torch.core import lane_step as LS
+        from repro_torch.kernels import ops
+        W, S = len(reqs), wl.num_steps
+        step = LS.build_workload_step(wl, lanes=W, verify_backend="fused",
+                                      max_draft_depth=depth,
+                                      forecaster=forecaster)
+        state = LS.init_workload_state(wl, W, {}, active=True,
+                                       forecaster=forecaster)
+        state["draft_k"].fill_(depth)
+        for lane, req in enumerate(reqs):
+            state = wl.fill_payload(state, lane, req, S)
+        tot = {k: torch.zeros(W, dtype=torch.int64, device=self.dev)
+               for k in ("n_spec", "full", "n_drafted")}
+        chain = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ticks = 0
+        while bool(state["active"].any()):
+            before = ops.LAUNCHES["lane_rollback"]
+            state, flags = step(state)
+            chain.append((ops.LAUNCHES["lane_rollback"] - before,
+                          flags["n_drafted"]))
+            for k in tot:
+                tot[k] += flags[k].to(torch.int64)
+            state["active"] = state["active"] & (state["step"] < S)
+            ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        return (state, {k: v.tolist() for k, v in tot.items()}, ticks,
+                launches, wall, chain)
+
+    def _hold_raw_deep(self, name, wl, reqs, forecaster):
+        """Depth CHAIN_K against depth 1 on the raw loop: every dyn leaf
+        bitwise, the counters equal, fewer ticks; a chain tick launches
+        the rollback once per payload leaf when some lane drafted and not
+        at all when none did."""
+        torch = self.torch
+        s1, c1, t1, _, w1, _ = self._raw_decode(wl, reqs, 1, forecaster)
+        sk, ck, tk, lk, wk, chain = self._raw_decode(wl, reqs, CHAIN_K,
+                                                     forecaster)
+        leaves = len(wl.dyn_keys)
+        drafted = [int(d.sum().item()) > 0 for _, d in chain]
+        print(f"{name}: depth 1 {t1} ticks in {w1:.3f} s, depth {CHAIN_K} "
+              f"{tk} ticks in {wk:.3f} s; counters {ck}; launches {lk}")
+        for k in wl.dyn_keys:
+            assert s1[k].dtype == sk[k].dtype and torch.equal(s1[k], sk[k]), \
+                f"{name}: dyn leaf {k!r} differs between depth 1 and " \
+                f"{CHAIN_K}"
+        assert c1 == ck, f"{name}: counters differ: {c1} vs {ck}"
+        assert tk < t1, f"{name}: no fewer ticks ({tk} vs {t1})"
+        assert all(n == leaves * int(d) for (n, _), d in zip(chain, drafted))
+        needs = DECODE_SPECTRAL_KERNELS if forecaster == "spectral" \
+            else DECODE_DEEP_KERNELS
+        assert all(lk[n] > 0 for n in needs), lk
+        return dict(depth1_ticks=t1, deep_ticks=tk, depth1_wall_s=w1,
+                    deep_wall_s=wk, counters=ck, launches=lk,
+                    ticks_drafted_nothing=drafted.count(False))
+
+    def serve_decode(self):
+        """Llama-3-8B decode lanes (full width and depth, bf16, random
+        weights drawn on the card), 8 requests of 64 new tokens:
+        (a) τ0 = 0 at lanes=1 emits the port's greedy decode, every step
+        full; (b) at a τ0 where the run both accepts and rejects (the
+        median verify error of (a)'s drafts) at lanes=4, with the launch
+        counts set to 0 just before and read just after; lanes=1 is
+        measured beside it, not gated; (c) a depth-4 chain and (d) a
+        depth-4 spectral chain on a raw lane-step loop land bitwise on
+        depth 1 (tokens, counters, both caches) in fewer ticks."""
+        torch = self.torch
+        from repro_torch.serving import SpeCaEngine
+        t0 = time.perf_counter()
+        self._lm_params()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reqs = self._decode_requests()
+        lens = [r.cond["tokens"].shape[1] for r in reqs]
+        # (a) τ0 = 0: every draft rejected, the engine is a greedy decoder
+        eng0 = SpeCaEngine(workloads={"decode": self._decode_workload(0.0)},
+                           device=self.dev)
+        eng0.serve_batched(reqs[:1], lanes=1, max_ticks=3)      # warm up
+        with self._lane_errors() as errs:
+            res0, l0, wall0, syncs0, _ = self._timed_serve(eng0, reqs, 1)
+        t0 = time.perf_counter()
+        greedy = [self._greedy(r.cond["tokens"]) for r in reqs]
+        greedy_s = time.perf_counter() - t0
+        for r, want in zip(res0, greedy):
+            assert r.completed and r.num_full == DECODE_NEW \
+                and r.num_spec == 0, (r.request_id, r.num_full)
+            assert torch.equal(r.sample, want.to(r.sample.dtype)), \
+                f"request {r.request_id}: τ0=0 tokens != greedy decode"
+        err = torch.cat(errs).float().cpu()
+        err = err[torch.isfinite(err)]
+        assert err.numel(), "no lane drafted at τ0 = 0"
+        pct = torch.quantile(err, torch.tensor([0.1, 0.5, 0.9])).tolist()
+        tau0 = pct[1]
+        ticks0 = max(r.finish_tick for r in res0)
+        print(f"(a) τ0=0 lanes=1: tokens == greedy for {len(res0)} requests "
+              f"(prompts {lens}); {wall0:.3f} s, {syncs0} host syncs over "
+              f"{ticks0} ticks; greedy loop {greedy_s:.3f} s; draft errors "
+              f"p10/p50/p90 {pct} -> τ0 = {tau0}")
+        # (b) lanes=4 at τ0: accepts and rejects; the main decode path
+        wl = self._decode_workload(tau0)
+        eng = SpeCaEngine(workloads={"decode": wl}, device=self.dev)
+        eng.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=3)
+        res, launches, wall, syncs, peak = self._timed_serve(eng, reqs,
+                                                             LANES)
+        ticks = max(r.finish_tick for r in res)
+        for name in DECODE_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault(
+                "decode", {})["launches"] = launches[name]
+        print(f"(b) decode main path launches: {launches}")
+        for r in res:
+            print(f"  request {r.request_id}: prompt {lens[r.request_id]} "
+                  f"alpha {r.alpha:.3f} full {r.num_full} spec {r.num_spec} "
+                  f"drafted {r.num_drafted} finish_tick {r.finish_tick}")
+        spec = sum(r.num_spec for r in res)
+        rejected = sum(r.num_drafted - r.num_spec for r in res)
+        tok_s = N_REQUESTS * DECODE_NEW / wall
+        print(f"(b) τ0={tau0:.4f} lanes={LANES}: {wall:.3f} s "
+              f"({tok_s:.1f} tokens/s), {syncs} host syncs over {ticks} "
+              f"ticks ({syncs / ticks:.2f} a tick), {spec} accepted and "
+              f"{rejected} rejected drafts, peak {peak:.2f} GiB")
+        assert all(launches[n] > 0 for n in DECODE_KERNELS), launches
+        assert spec > 0 and rejected > 0, (spec, rejected)
+        for r in res:
+            assert r.completed and r.sample.shape == (DECODE_NEW,)
+            assert 0 <= int(r.sample.min()) and \
+                int(r.sample.max()) < self.lm_cfg.vocab_size
+        solo, _, wall1, syncs1, _ = self._timed_serve(eng, reqs, 1)
+        same = [torch.equal(a.sample, b.sample) and a.accepts == b.accepts
+                for a, b in zip(res, solo)]
+        print(f"lanes={LANES} against lanes=1 (recorded, not gated): "
+              f"{sum(same)} of {len(same)} requests identical; lanes=1 "
+              f"{wall1:.3f} s, {syncs1} host syncs")
+        # (c), (d) depth-4 chains on the raw loop
+        deep = self._hold_raw_deep("(c) depth-4 chain", wl, reqs[:LANES],
+                                   None)
+        spectral = self._hold_raw_deep("(d) depth-4 spectral", wl,
+                                       reqs[:LANES], "spectral")
+        for name in ("taylor_predict_chain_lanes", "lane_rollback"):
+            self.kernels.setdefault(name, {}).setdefault(
+                "decode", {})["launches"] = deep["launches"][name]
+        self.kernels.setdefault("spectral_update_lanes", {}).setdefault(
+            "decode", {})["launches"] = spectral["launches"][
+                "spectral_update_lanes"]
+        lm = self.lm_cfg
+        cache_bytes = 2 * lm.num_layers * LANES * DECODE_SEQ \
+            * lm.num_kv_heads * lm.resolved_head_dim * 2
+        self.decode_tau0 = tau0
+        self.record["serve_decode"] = dict(
+            model=lm.name, weights_gib=sum(
+                t.numel() * t.element_size() for t in _leaves(
+                    self._lm_params())) / 2**30, init_s=init_s,
+            prompt_lens=lens, new_tokens=DECODE_NEW, max_seq_len=DECODE_SEQ,
+            greedy=dict(wall_s=wall0, host_syncs=syncs0, ticks=ticks0,
+                        greedy_loop_s=greedy_s, launches=l0,
+                        err_p10_p50_p90=pct),
+            tau0=tau0, wall_s=wall, tokens_per_s=tok_s, host_syncs=syncs,
+            ticks=ticks, syncs_per_tick=syncs / ticks, launches=launches,
+            peak_gib=peak, kv_cache_bytes=cache_bytes,
+            alpha=[r.alpha for r in res],
+            requests=[dict(request_id=r.request_id, num_full=r.num_full,
+                           num_spec=r.num_spec, num_drafted=r.num_drafted,
+                           finish_tick=r.finish_tick) for r in res],
+            lanes1=dict(wall_s=wall1, host_syncs=syncs1,
+                        identical_requests=sum(same)),
+            deep=deep, spectral=spectral)
+
+    def serve_mixed(self):
+        """One lifecycle engine serves DiT-XL/2 (requests 0-3 of phase 3)
+        and Llama-3-8B (decode requests 0-3 at phase serve_decode's τ0) at
+        lanes=4 each, submitted alternately; each side's samples, tokens,
+        counters and FLOPs equal its solo run's at the same width."""
+        torch = self.torch
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.kernels import ops
+        from repro_torch.serving import SpeCaEngine
+        dreqs = self._requests(LANES)
+        treqs = self._decode_requests(LANES)
+        wl = self._decode_workload(self.decode_tau0)
+
+        def engine(diffusion, decode):
+            args = (self.cfg, self.params, self.dcfg,
+                    SpeCaConfig(taylor_order=2)) if diffusion else ()
+            return SpeCaEngine(*args, lanes=LANES, device=self.dev,
+                               workloads={"decode": wl} if decode else None)
+
+        def run(eng, reqs):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            syncs0 = eng.host_syncs
+            t0 = time.perf_counter()
+            res = eng.results([eng.submit(r) for r in reqs])
+            torch.cuda.synchronize()
+            return (res, ops.launch_counts(), time.perf_counter() - t0,
+                    eng.host_syncs - syncs0)
+        both = [r for pair in zip(dreqs, treqs) for r in pair]
+        res, launches, wall, syncs = run(engine(True, True), both)
+        dres, _, dwall, _ = run(engine(True, False), dreqs)
+        tres, _, twall, _ = run(engine(False, True), treqs)
+        print(f"mixed launches: {launches}")
+        assert all(launches[n] > 0 for n in MIXED_KERNELS), launches
+        got = {r.request_id: r for r in res if r.workload == "diffusion"}, \
+            {r.request_id: r for r in res if r.workload == "decode"}
+        for side, solo in zip(got, (dres, tres)):
+            for want in solo:
+                r = side[want.request_id]
+                assert (r.accepts, r.num_full, r.num_spec, r.num_drafted,
+                        r.flops) == (want.accepts, want.num_full,
+                                     want.num_spec, want.num_drafted,
+                                     want.flops), \
+                    f"{want.workload} request {want.request_id}: mixed " \
+                    "and solo differ"
+                assert torch.equal(r.sample, want.sample), \
+                    f"{want.workload} request {want.request_id}: sample"
+        ticks = max(r.finish_tick for r in res)
+        print(f"mixed: {len(res)} requests in {wall:.3f} s ({syncs} host "
+              f"syncs); solo diffusion {dwall:.3f} s, solo decode "
+              f"{twall:.3f} s; each side equals its solo run")
+        self.record["serve_mixed"] = dict(
+            wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            solo_diffusion_wall_s=dwall, solo_decode_wall_s=twall,
+            alpha={r.workload + str(r.request_id): r.alpha for r in res})
+
+
+def _leaves(tree):
+    """The tensor leaves of a nested dict."""
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 KERNEL_META = {
     "taylor_predict_lanes": ("src/repro_torch/kernels/csrc/"
                              "taylor_predict_lanes.cu",
@@ -2077,8 +2592,21 @@ CONTROLLER_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
 # mixed entry
 LIFECYCLE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
                      "verify_accept_mixed")
+# the kernels each decode path must launch: depth 1, a depth-4 chain, the
+# spectral chain, and the mixed engine (a pair-capable diffusion session
+# beside a plain decode session)
+DECODE_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
+                  "verify_accept")
+DECODE_DEEP_KERNELS = ("taylor_predict_chain_lanes", "lane_rollback",
+                       "taylor_update_lanes", "verify_accept")
+DECODE_SPECTRAL_KERNELS = ("spectral_update_lanes",
+                           "taylor_predict_chain_lanes", "lane_rollback",
+                           "verify_accept")
+MIXED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
+                 "verify_accept", "verify_accept_mixed")
 # per-kernel numbers the kernels line carries beside the contract's keys
-ROW_EXTRAS = ("device_ms", "event_ms", "kernels_per_call",
+# ("decode": the kernel at the decode phases' shapes)
+ROW_EXTRAS = ("decode", "device_ms", "event_ms", "kernels_per_call",
               "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
               "two_step_ms", "two_step_device_ms",
@@ -2106,12 +2634,13 @@ def main() -> int:
         False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    from repro_torch.configs import DIT_XL2, DiffusionConfig
-    smoke = Smoke(torch, "cuda", DIT_XL2, DiffusionConfig())
+    from repro_torch.configs import DIT_XL2, LLAMA3_8B, DiffusionConfig
+    smoke = Smoke(torch, "cuda", DIT_XL2, DiffusionConfig(), LLAMA3_8B)
     smoke.phase("build", smoke.build)
     if smoke.failures:
         return 1
     smoke.phase("kernels", smoke.check_kernels)
+    smoke.phase("decode_kernels", smoke.check_decode_kernels)
     smoke.phase("attention", smoke.attention)
     smoke.phase("serve", smoke.serve)
     if "serve" not in smoke.failures:
@@ -2122,6 +2651,9 @@ def main() -> int:
         smoke.phase("serve_lifecycle", smoke.serve_lifecycle)
         smoke.phase("serve_obs", smoke.serve_obs)
         smoke.phase("speca_sample", smoke.sample)
+    smoke.phase("serve_decode", smoke.serve_decode)
+    if not {"serve", "serve_decode"} & set(smoke.failures):
+        smoke.phase("serve_mixed", smoke.serve_mixed)
     smoke.phase("profiler", smoke.profiler)
     card = smi_line()
     rows = []

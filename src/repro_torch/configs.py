@@ -1,16 +1,20 @@
 """Configuration records: own copies of ``repro.configs.base``'s
 ``ModelConfig``, ``DiffusionConfig`` and ``SpeCaConfig`` plus the
-DiT-XL/2 configuration (``repro.configs.dit_xl2``).
+DiT-XL/2 (``repro.configs.dit_xl2``) and Llama-3-8B
+(``repro.configs.llama3_8b``) configurations.
 
 Each record keeps the reference's fields that the port reads, with the
-reference's names and defaults; the port serves class-conditional DiT
-image models, so the other architecture families' fields are left out.
+reference's names and defaults. The port serves class-conditional DiT
+image models and dense decoder-only LMs (``arch_type`` ``"dense"`` or
+``"vlm"`` text decode); the MoE, SSM, hybrid and audio families' fields
+are left out, and the LM entry points reject those families by name.
 ``dtype`` stays a string and maps to a torch dtype through
 :attr:`ModelConfig.torch_dtype`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -29,29 +33,91 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A class-conditional DiT: AdaLN-Zero blocks of bidirectional
-    attention and a GELU MLP over patch tokens."""
+    """A class-conditional DiT (``arch_type="dit"``, the default:
+    AdaLN-Zero blocks of bidirectional attention and a GELU MLP over patch
+    tokens) or a dense decoder-only LM (``"dense"``, ``"vlm"``: causal
+    GQA attention with RoPE, a SwiGLU or GELU MLP, RMSNorm).
+    ``num_kv_heads`` 0 resolves to ``num_heads``."""
 
     name: str
     num_layers: int
     d_model: int
     num_heads: int
     d_ff: int
+    arch_type: str = "dit"
+    num_kv_heads: int = 0         # 0 -> num_heads
+    vocab_size: int = 0
     head_dim: int = 0             # 0 -> d_model // num_heads
+    attn_window: int = 0          # 0 = full attention; >0 = sliding window
+    global_every: int = 0         # every Nth layer global (window patterns)
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()   # M-RoPE (t, h, w) splits
     norm_eps: float = 1e-5
+    act: str = "silu"             # silu (SwiGLU) | gelu
+    tie_embeddings: bool = False
     patch_size: int = 2
     in_channels: int = 4
     num_classes: int = 0          # the label table has one more (null) row
     dtype: str = "bfloat16"
     source: str = ""              # citation for the configuration
 
+    def __post_init__(self) -> None:
+        if not self.num_kv_heads:
+            object.__setattr__(self, "num_kv_heads", self.num_heads)
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     @property
+    def padded_vocab(self) -> int:
+        """The vocabulary rounded up to a multiple of 256 (the reference's
+        embedding and head width); ``lm_logits`` masks the padding
+        columns to −1e30."""
+        if self.vocab_size == 0:
+            return 0
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def has_attention(self) -> bool:
+        return self.arch_type != "ssm"
+
+    @property
+    def is_diffusion(self) -> bool:
+        return self.arch_type == "dit"
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
+
+    def layer_window(self, layer_idx: int) -> int:
+        """Effective attention window of a layer (0 = global/full)."""
+        if self.attn_window <= 0:
+            return 0
+        if self.global_every > 0 and (layer_idx + 1) % self.global_every == 0:
+            return 0
+        return self.attn_window
+
+
+# the LM families of the reference that this port does not serve yet, and
+# where they come next
+LATER_FAMILIES = {"moe": "the MoE slice (layers/moe.py)",
+                  "ssm": "the SSM slice (layers/ssm.py)",
+                  "hybrid": "the hybrid decode slice",
+                  "audio": "the audio slice (multi-codebook decode)"}
+LM_FAMILIES = ("dense", "vlm")
+
+
+def check_lm(cfg: ModelConfig, what: str) -> None:
+    """Raise ``ValueError`` unless ``cfg`` is a dense LM this port serves."""
+    if cfg.arch_type in LATER_FAMILIES:
+        raise ValueError(
+            f"{what}: arch_type={cfg.arch_type!r} is not ported yet; it "
+            f"comes with {LATER_FAMILIES[cfg.arch_type]}")
+    if cfg.arch_type not in LM_FAMILIES:
+        raise ValueError(f"{what}: arch_type={cfg.arch_type!r} is not an "
+                         f"autoregressive LM (have {LM_FAMILIES})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +151,24 @@ DIT_XL2 = ModelConfig(
     d_model=1152,
     num_heads=16,
     d_ff=4608,
+    act="gelu",
     patch_size=2,
     in_channels=4,
     num_classes=1000,
     source="arXiv:2212.09748 (paper's own model)",
+)
+
+# Llama-3-8B — dense, GQA (32 query heads on 8 KV heads), 128k vocabulary
+# [arXiv:2407.21783]
+LLAMA3_8B = ModelConfig(
+    name="llama3-8b",
+    arch_type="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14336,
+    vocab_size=128256,
+    rope_theta=500_000.0,
+    source="arXiv:2407.21783",
 )

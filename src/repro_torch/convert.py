@@ -1,4 +1,4 @@
-"""Parameter conversion from the JAX package's DiT tree.
+"""Parameter conversion from the JAX package's DiT and dense-LM trees.
 
 ``repro.layers.model.init_params`` (and a trained state's ``params``)
 is a nested dict with stacked ``[L, …]`` block leaves and weights laid
@@ -16,12 +16,23 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-# the DiT leaves the port reads; anything else in the tree is ignored
+# the leaves the port reads of each family; anything else in the tree is
+# ignored. A group (or a key of it) that a configuration leaves out —
+# "head" under tied embeddings, the QKV biases, the label table — is
+# optional; the tree's groups say which family it is.
 DIT_KEYS = {
     "embed": ("patch_w", "patch_b", "time", "label"),
     "blocks": ("wq", "wk", "wv", "wo", "mlp", "mod_w", "mod_b"),
     "head": ("w", "b", "mod_w", "mod_b"),
 }
+LM_KEYS = {
+    "embed": ("tok",),
+    "blocks": ("ln1", "ln2", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+               "mlp"),
+    "final_norm": None,
+    "head": ("w",),
+}
+LM_REQUIRED = ("embed", "blocks", "final_norm")
 
 
 def _leaf(x: Any, device: torch.device) -> torch.Tensor:
@@ -40,13 +51,23 @@ def _tree(x: Any, device: torch.device) -> Any:
 
 def params_from_jax(tree: Dict[str, Any], *,
                     device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """The port's DiT parameters from a JAX parameter tree of numpy (or
-    array-like) leaves, on ``device``."""
+    """The port's parameters from a JAX parameter tree of numpy (or
+    array-like) leaves, on ``device``: a DiT tree, or a dense LM's (one
+    with a ``final_norm`` leaf; ``mlp`` keeps ``w_gate``/``w_up``/
+    ``w_down``, ``head`` is absent under tied embeddings)."""
     dev = resolve_device(device)
+    lm = "final_norm" in tree
+    groups = LM_KEYS if lm else DIT_KEYS
+    required = LM_REQUIRED if lm else tuple(DIT_KEYS)
     out: Dict[str, Any] = {}
-    for group, keys in DIT_KEYS.items():
+    for group, keys in groups.items():
         if group not in tree:
-            raise KeyError(f"parameter tree has no {group!r} group")
-        out[group] = {k: _tree(tree[group][k], dev)
-                      for k in keys if k in tree[group]}
+            if group in required:
+                raise KeyError(f"parameter tree has no {group!r} group")
+            continue
+        if keys is None:
+            out[group] = _leaf(tree[group], dev)
+        else:
+            out[group] = {k: _tree(tree[group][k], dev)
+                          for k in keys if k in tree[group]}
     return out

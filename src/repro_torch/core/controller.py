@@ -35,6 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 #: state keys the controller adds to the lane batch (all [W])
 CONTROLLER_KEYS: Tuple[str, ...] = (
     "ctl_on", "ctl_dl", "ctl_rate", "ctl_adv", "ctl_target", "ctl_gain",
@@ -98,11 +100,14 @@ class ControllerPolicy:
 
 
 def init_controller_state(lanes: int, order: int,
-                          device: Any = "cpu") -> Dict[str, torch.Tensor]:
-    """Fresh (all-off) controller state tensors for a lane batch. Off lanes
-    carry ``ctl_order = order`` (the full forecast order), so the order cap
-    leaves their prediction weights as the controller-free program's."""
-    W = lanes
+                          device: DeviceLike = "cuda"
+                          ) -> Dict[str, torch.Tensor]:
+    """Fresh (all-off) controller state tensors for a lane batch on
+    ``device`` (the card unless the caller passes ``device="cpu"``). Off
+    lanes carry ``ctl_order = order`` (the full forecast order), so the
+    order cap leaves their prediction weights as the controller-free
+    program's."""
+    W, device = lanes, resolve_device(device)
 
     def full(v, dtype):
         return torch.full((W,), v, dtype=dtype, device=device)

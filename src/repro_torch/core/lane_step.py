@@ -48,9 +48,11 @@ State (all on the device): ``since`` [W] i32 consecutive accepted drafts,
 [W] f32 per-lane base threshold, ``draft_k`` [W] i32 draft horizon and
 ``max_step`` [W] i32 schedule length (read only by chain steps),
 ``cond`` {k: [W, …]}, the workload payload (diffusion: ``x`` [W, H, W, C]
-f32) and the table (``diffs`` [m+1, L, 2, W, T, D],
-``n_anchors``/``anchor_step``/``gap`` [W]); in the guidance modes also
-``gscale`` [W] f32 and ``paired`` [W] bool.
+f32; decode: ``tok``, ``tokens``, ``pos0`` and the ``k``/``v`` caches,
+``pos0`` read by ``step_context`` and never advanced) and the table
+(``diffs`` [m+1, L, 2, W, T, D], ``n_anchors``/``anchor_step``/``gap``
+[W]); in the guidance modes also ``gscale`` [W] f32 and ``paired`` [W]
+bool.
 
 Flags per tick ([W]): ``attempted``, ``ok``, ``accepted``, ``full``,
 ``err`` (NaN where the lane did not draft), ``tau``, and the counters
@@ -131,7 +133,8 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
                         forecaster: Any = None,
                         controller: bool = False) -> State:
     """Fresh lane-batch state on the workload's device. ``cond_template``
-    supplies per-key shapes (its leading axis is replaced by ``lanes``);
+    supplies per-key shapes (its leading axis is replaced by ``lanes``;
+    ignored when the workload's conditioning is not lane state);
     pass ``x`` to start from a concrete latent (the sampler) instead of
     zeros (the engine). ``forecaster`` (a name or instance, ``None`` =
     Taylor) lays out the table. ``guidance=True`` adds ``gscale`` (all
@@ -146,7 +149,9 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
     tstate = fc.init_state(wl.scfg.taylor_order, feat_shape, wl.table_dtype,
                            W, dev)
     cond = {}
-    for k, v in cond_template.items():
+    # a workload whose conditioning does not ride in the lane state (decode:
+    # the prompt goes into the payload at fill) keeps an empty ``cond``
+    for k, v in (cond_template.items() if wl.cond_in_state else ()):
         v = torch.as_tensor(v, device=dev)
         cond[k] = torch.broadcast_to(v, (W,) + tuple(v.shape[1:])).clone()
     state = {

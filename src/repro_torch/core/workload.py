@@ -3,10 +3,26 @@
 The forecast-then-verify loop in ``repro_torch.core.lane_step`` works on
 an opaque dynamic payload plus a verify-layer feature pair; what a model
 output is, how the payload advances on it and how a lane is filled and
-harvested lives behind the ``Workload`` adapter. The port ships the
-diffusion adapter: payload = the latent ``x`` (lane axis 0), advance =
-the DDIM (or rectified-flow) update at each lane's own step; rollback =
-the exact-copy restore of a draft-K chain's snapshots.
+harvested lives behind the ``Workload`` adapter. Two adapters ship:
+
+``DiffusionWorkload``
+    payload = the latent ``x`` (lane axis 0), advance = the DDIM (or
+    rectified-flow) update at each lane's own step.
+
+``DecodeWorkload``
+    self-speculative LLM decode: the difference table extrapolates each
+    lane's residual increments across decode steps (feature layout
+    (L, 2, W, 1, D), one token a step), a drafted step runs the masked
+    verify-layer forward, and an accepted step emits its token from the
+    forecast stream's logits. The payload is the current input token
+    ``tok``, the emitted tokens ``tokens`` (lane axis 0) and the K/V caches
+    ``k``/``v`` [L, W, S, KV, hd] (lane axis 1); a speculative step still
+    writes every layer's cache from the forecast stream. τ_t ≡ τ0
+    (``t_frac`` ≡ 1); no guided pairs.
+
+Rollback (both): the exact-copy restore of a draft-K chain's snapshots
+through the rollback kernel, which copies bytes and so takes every leaf,
+int32 tokens included.
 """
 from __future__ import annotations
 
@@ -15,13 +31,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
+from repro_torch.configs import (DiffusionConfig, ModelConfig, SpeCaConfig,
+                                 check_lm)
 from repro_torch.core import taylor
-from repro_torch.core.complexity import forward_flops, verify_flops
+from repro_torch.core.complexity import (decode_forward_flops,
+                                         decode_verify_flops, forward_flops,
+                                         verify_flops)
 from repro_torch.core.lane_step import num_tokens, table_dtype, verify_layer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.pipeline import (latent_shape, make_stepper,
                                             model_inputs)
+from repro_torch.layers import blocks as blk
 from repro_torch.layers import model as M
 
 NoiseFn = Callable[[int], torch.Tensor]
@@ -42,7 +62,9 @@ class Workload:
     ``num_tokens``, ``verify_layer``, ``table_dtype``, ``device``,
     ``dyn_keys`` / ``dyn_axes`` (payload keys and their lane axes),
     ``full_flops`` / ``verify_flops``, ``supports_pairing`` (guided
-    cond/uncond lane pairs). Step hooks: ``t_frac``,
+    cond/uncond lane pairs), ``cond_in_state`` (per-lane conditioning
+    rides in the lane state), ``fill_syncs`` (host syncs a lane fill
+    costs). Step hooks: ``t_frac``,
     ``step_context``, ``spec_forward``, ``full_forward``, ``zero_out``,
     ``select_out``, ``advance``, ``rollback``. Host hooks:
     ``validate_request``, ``init_payload``, ``fill_payload``, ``emit``.
@@ -51,6 +73,8 @@ class Workload:
     tag: str = "?"
     dyn_axes: Dict[str, int] = {}
     supports_pairing: bool = False
+    cond_in_state: bool = True
+    fill_syncs: int = 0
 
     def rollback(self, chain: Dict[str, Any], n_acc: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
@@ -163,3 +187,172 @@ class DiffusionWorkload(Workload):
     def emit(self, state, lane: int, done: int) -> torch.Tensor:
         # a copy: the lane's slice is overwritten in place when it refills
         return state["x"][lane:lane + 1].to("cpu", copy=True)
+
+
+class DecodeWorkload(Workload):
+    """Self-speculative LLM decode lanes of a dense LM (no drafter model).
+
+    ``max_new_tokens`` is the lane schedule length (a request's
+    ``RequestPolicy.max_steps`` serves a prefix); ``max_seq_len`` sizes
+    each lane's K/V cache, and a prompt of P tokens needs P + steps ≤
+    ``max_seq_len``. A request carries its prompt as ``cond["tokens"]``
+    ([P] or [1, P] integers). Filling a lane runs one prefill forward and
+    reads its argmax back: one host sync per admission."""
+
+    tag = "decode"
+    supports_pairing = False
+    cond_in_state = False
+    fill_syncs = 1
+
+    def __init__(self, cfg: ModelConfig, params, scfg: SpeCaConfig, *,
+                 max_new_tokens: int, max_seq_len: int,
+                 device: DeviceLike = "cuda") -> None:
+        if cfg.is_diffusion:
+            raise ValueError("DecodeWorkload serves autoregressive LMs; "
+                             f"arch_type={cfg.arch_type!r} is a diffusion "
+                             "backbone (use DiffusionWorkload)")
+        check_lm(cfg, "DecodeWorkload")
+        if blk.uses_ring_cache(cfg):
+            raise ValueError(
+                "DecodeWorkload uses absolute-position lane caches; "
+                "ring-buffer decode caches (attn_window>0, global_every=0) "
+                "are not supported")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {max_new_tokens}")
+        self.device = resolve_device(device)
+        self.cfg, self.params, self.scfg = cfg, params, scfg
+        self.num_steps = int(max_new_tokens)
+        self.num_tokens = 1
+        self.max_seq_len = int(max_seq_len)
+        self.verify_layer = verify_layer(cfg, scfg)
+        self.table_dtype = table_dtype(cfg, scfg)
+        self._cache_keys: Tuple[str, ...] = ("k", "v")
+        self.dyn_keys = ("tok", "tokens") + self._cache_keys
+        self.dyn_axes = {"tok": 0, "tokens": 0,
+                         **{k: 1 for k in self._cache_keys}}
+        self.full_flops = decode_forward_flops(cfg, self.max_seq_len)
+        self.verify_flops = decode_verify_flops(cfg, self.max_seq_len)
+        self._cmask = [layer == self.verify_layer
+                       for layer in range(cfg.num_layers)]
+
+    # --- step hooks --------------------------------------------------------
+    def t_frac(self, s_eff):
+        # no noise-level schedule: τ_t ≡ τ0 (t_frac = 1 ⇒ β exponent 0)
+        return torch.ones(s_eff.shape, dtype=torch.float32,
+                          device=s_eff.device)
+
+    def step_context(self, state, s_eff):
+        # each lane's absolute query position this step
+        return state["pos0"] + s_eff
+
+    def _forward(self, dyn, ctx, preds):
+        cache = {k: dyn[k] for k in self._cache_keys}
+        return M.decode_branches_step(
+            self.cfg, self.params, dyn["tok"], cache, ctx,
+            branch_preds=preds,
+            compute_mask=None if preds is None else self._cmask,
+            collect_branches=True)
+
+    def spec_forward(self, dyn, cond, ctx, preds):
+        logits, new_cache, branches = self._forward(dyn, ctx, preds)
+        vl = self.verify_layer
+        real_vl = branches[vl][0] + branches[vl][1]
+        return {"logits": logits, **new_cache}, real_vl
+
+    def full_forward(self, dyn, cond, ctx):
+        logits, new_cache, branches = self._forward(dyn, ctx, None)
+        return {"logits": logits, **new_cache}, branches
+
+    def zero_out(self, lanes: int) -> Dict[str, torch.Tensor]:
+        out = {"logits": torch.zeros((lanes, 1, self.cfg.padded_vocab),
+                                     dtype=self.cfg.torch_dtype,
+                                     device=self.device)}
+        out.update(M.init_cache(self.cfg, lanes, self.max_seq_len,
+                                self.device))
+        return out
+
+    def select_out(self, mask, a, b):
+        return {k: _axis_where(mask, 0 if k == "logits" else 1, a[k], b[k])
+                for k in a}
+
+    def advance(self, dyn, out, ctx, s_eff):
+        W = s_eff.shape[0]
+        tok = torch.argmax(out["logits"][:, 0, :], dim=-1).to(torch.int32)
+        tokens = dyn["tokens"].clone()
+        tokens[torch.arange(W, device=tokens.device), s_eff.long()] = tok
+        new = {"tok": tok[:, None], "tokens": tokens}
+        for k in self._cache_keys:
+            new[k] = out[k]
+        return new
+
+    # --- host hooks --------------------------------------------------------
+    def init_payload(self, lanes: int, *, x=None) -> Dict[str, Any]:
+        if x is not None:
+            raise ValueError("DecodeWorkload lanes start from a prompt "
+                             "prefill, not a latent")
+        i32, dev = torch.int32, self.device
+        payload = {"tok": torch.zeros((lanes, 1), dtype=i32, device=dev),
+                   "tokens": torch.zeros((lanes, self.num_steps), dtype=i32,
+                                         device=dev),
+                   "pos0": torch.zeros((lanes,), dtype=i32, device=dev)}
+        payload.update(M.init_cache(self.cfg, lanes, self.max_seq_len, dev))
+        return payload
+
+    def _prompt_of(self, request, steps: int) -> np.ndarray:
+        """The request's [1, P] int32 prompt, or ``ValueError`` when it is
+        malformed or too long for the lane cache (shared by
+        ``validate_request`` and ``fill_payload``)."""
+        try:
+            raw = request.cond["tokens"]
+            if isinstance(raw, torch.Tensor):
+                raw = raw.detach().cpu().numpy()
+            prompt = np.array(raw, np.int32)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError("decode request needs an integer "
+                             f"cond['tokens'] prompt: {e}") from None
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        if prompt.ndim != 2 or prompt.shape[0] != 1 or prompt.shape[1] < 1:
+            raise ValueError("decode request cond['tokens'] must be a "
+                             f"[1, P] prompt, got shape {prompt.shape}")
+        P = prompt.shape[1]
+        if P + steps > self.max_seq_len:
+            raise ValueError(
+                f"prompt length {P} + {steps} new tokens exceeds the "
+                f"workload's max_seq_len={self.max_seq_len}")
+        return prompt
+
+    def validate_request(self, request, steps: int) -> None:
+        self._prompt_of(request, steps)
+
+    def _prefill(self, prompt: torch.Tensor):
+        """(last-position logits [1, V], cache {k, v} [L, 1, P, KV, hd]) of
+        one prompt [1, P] on the device."""
+        logits, extras = M.lm_forward(self.cfg, self.params,
+                                      {"tokens": prompt}, collect_cache=True)
+        return logits[:, -1], extras["cache"]
+
+    def fill_payload(self, state, lane: int, request, steps: int):
+        """Prefill the request's prompt into the lane: clear its cache
+        slice, scatter the prefix, set its first input token (the
+        prefill's argmax: one host sync), emitted tokens and ``pos0``.
+        Writes the lane's slice of the newest state in place, as the
+        diffusion fill does."""
+        prompt = torch.from_numpy(self._prompt_of(request, steps)).to(
+            self.device)
+        P = prompt.shape[1]
+        logits, cache = self._prefill(prompt)
+        tok0 = int(torch.argmax(logits[0]))
+        for key in self._cache_keys:
+            state[key][:, lane] = 0
+            state[key][:, lane, :P] = cache[key][:, 0]
+        state["tok"][lane, 0] = tok0
+        state["tokens"][lane] = 0
+        state["pos0"][lane] = P
+        return state
+
+    def emit(self, state, lane: int, done: int) -> torch.Tensor:
+        """The lane's emitted tokens so far, an int32 CPU copy."""
+        n = max(min(done, self.num_steps), 0)
+        return state["tokens"][lane, :n].to("cpu", copy=True)

@@ -1,5 +1,7 @@
-"""Dot-product attention: the DiT's bidirectional core and the causal,
-optionally windowed, full-sequence entry point.
+"""Dot-product attention: the DiT's bidirectional core, the causal,
+optionally windowed, full-sequence entry point, and one-token decode
+against a KV cache (one shared position, or one per lane) with the cache
+writes.
 
 The reference (``repro.layers.attention``) computes ``attention_core`` in
 plain jnp, not in a Pallas kernel: scores and softmax in f32. The port
@@ -7,11 +9,17 @@ computes the same function with ``scaled_dot_product_attention`` on f32
 operands. ``full_attention(..., use_flash=True)`` with a Python ``int``
 window goes to the flash attention kernel (``kernels.ops``), as the
 reference's does; the DiT blocks keep ``attention_core``, as the
-reference's do.
+reference's do. Decode attention is ``attention_core`` under a per-lane
+mask, as the reference's plain jnp.
+
+The cache writes return new tensors and leave their inputs as they were:
+the lane step keeps the payload of every chain position as a snapshot and
+selects between two forwards' outputs, so a cache written in place would
+change a snapshot or the other branch.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,18 +38,30 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, kv * n_rep, hd)
 
 
+def _visible_diff(diff: torch.Tensor,
+                  window: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Key visible from query where diff = q − k: causal (diff >= 0) plus
+    the sliding window (diff < window) when window > 0. A Python int
+    window is decided on the host; a tensor one (the reference's traced
+    window) on the device. No Python scalar becomes a device tensor here:
+    on the card that is a blocking host-to-device copy, a stream sync."""
+    ok = diff >= 0
+    if isinstance(window, int):
+        return ok & (diff < window) if window > 0 else ok
+    windowed = ok & (diff < torch.clamp(window, min=1))
+    return torch.where(window > 0, windowed, ok)
+
+
+def _bias(ok: torch.Tensor) -> torch.Tensor:
+    """Additive f32 bias: 0 where visible, −1e30 elsewhere."""
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
                window: Union[int, torch.Tensor]) -> torch.Tensor:
     """Additive mask bias [Sq, Sk] f32 from absolute positions: causal
     (k <= q) plus the sliding window (q − k < window) when window > 0."""
-    diff = q_pos[:, None] - k_pos[None, :]
-    ok = diff >= 0
-    window = torch.as_tensor(window, device=diff.device)
-    windowed = ok & (diff < torch.clamp(window, min=1))
-    ok = torch.where(window > 0, windowed, ok)
-    return torch.where(ok, torch.tensor(0.0, device=diff.device),
-                       torch.tensor(NEG_INF, device=diff.device)
-                       ).to(torch.float32)
+    return _bias(_visible_diff(q_pos[:, None] - k_pos[None, :], window))
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,3 +102,63 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
     bias = _mask_bias(q_pos, k_pos, window)[None, None]
     return attention_core(q, k, v, bias)
+
+
+def decode_attention_lanes(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cur_pos: torch.Tensor,
+                           window: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One-token decode with a per-lane query position: q [B, 1, H, hd]
+    against the cache [B, S, KV, hd]; ``cur_pos`` [B] is each lane's own
+    position. Slots after it (or outside the window) are masked with
+    −1e30; at B = 1 this is :func:`decode_attention`."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    k, v = repeat_kv(k_cache, n_rep), repeat_kv(v_cache, n_rep)
+    k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+    diff = cur_pos.to(torch.int32)[:, None] - k_pos[None, :]     # [B, Sk]
+    return attention_core(q, k, v,
+                          _bias(_visible_diff(diff, window))[:, None, None])
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_pos: int,
+                     window: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One-token decode at one shared position ``cur_pos``: q [B, 1, H, hd]
+    against the cache [B, S, KV, hd]."""
+    pos = torch.full((q.shape[0],), int(cur_pos), dtype=torch.int32,
+                     device=q.device)
+    return decode_attention_lanes(q, k_cache, v_cache, pos, window)
+
+
+def update_kv_cache_lanes(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          pos: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New caches [B, S, KV, hd] with one-token K/V ([B, 1, KV, hd]) written
+    at each lane's own position ``pos`` [B]; the inputs are left as they
+    were. A position past the cache writes nothing, as the reference's
+    scatter drops it (a lane that is not active can sit there; its result
+    is never selected)."""
+    S = k_cache.shape[1]
+    pos = pos.to(torch.long)
+    inside = (pos < S)[:, None, None]
+    at = torch.clamp(pos, max=S - 1)
+    b = torch.arange(k_cache.shape[0], device=k_cache.device)
+    out = []
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        row = torch.where(inside, new[:, 0].to(cache.dtype), cache[b, at])
+        cache = cache.clone()
+        cache[b, at] = row
+        out.append(cache)
+    return out[0], out[1]
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New caches with K/V [B, S_new, KV, hd] written at positions
+    pos..pos+S_new−1 of every row; the inputs are left as they were."""
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    n = k_new.shape[1]
+    k_cache[:, pos:pos + n] = k_new.to(k_cache.dtype)
+    v_cache[:, pos:pos + n] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache

@@ -1,10 +1,19 @@
-"""DiT transformer blocks with their two residual-branch increments.
+"""Transformer blocks with their two residual-branch increments.
 
 Each block exposes ``(inc0, inc1)`` separately — the stream update is
 ``h = h + inc0`` then ``h = h + inc1`` — which is the seam SpeCa plugs
 into: a speculative step substitutes forecast increments instead of
-computing the branch. For the DiT, inc0 = gate_msa·attn(AdaLN(h)) and
-inc1 = gate_mlp·mlp(AdaLN(h)).
+computing the branch. Branch layout per family:
+
+  dit   : inc0 = gate_msa·attn(AdaLN(h)), inc1 = gate_mlp·mlp(AdaLN(h))
+  dense : inc0 = attn(RMSNorm(h)) (causal, RoPE, GQA), inc1 =
+          mlp(RMSNorm(h)) (SwiGLU or GELU); ``vlm`` text decode is dense
+
+The decode blocks take one token against a KV cache; the lane-batched one
+(``block_decode_branches``) puts every lane at its own position and adds
+``spec_cache``, the piece of a layer a speculative decode step cannot
+skip: the forecast stream's K/V projections written at the lane's
+position, which keep the drafted chain's attention self-consistent.
 """
 from __future__ import annotations
 
@@ -14,28 +23,53 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
-from repro_torch.layers.attention import attention_core
-from repro_torch.layers.mlp import gelu_mlp
-from repro_torch.layers.norms import layer_norm
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.mlp import gelu_mlp, mlp_forward
+from repro_torch.layers.norms import layer_norm, rms_norm
+from repro_torch.layers.rope import apply_rope
 
 Params = Dict[str, torch.Tensor]
+KV = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _qkv(cfg: ModelConfig, bp: Params, x: torch.Tensor):
+    """q [B, S, H, hd] and k, v [B, S, KV, hd] (with the biases under
+    ``qkv_bias``)."""
+    hd = cfg.resolved_head_dim
     B, S, _ = x.shape
-    heads = (B, S, cfg.num_heads, cfg.resolved_head_dim)
-    return ((x @ bp["wq"]).reshape(heads), (x @ bp["wk"]).reshape(heads),
-            (x @ bp["wv"]).reshape(heads))
+    q, k, v = x @ bp["wq"], x @ bp["wk"], x @ bp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + bp["bq"], k + bp["bk"], v + bp["bv"]
+    return (q.reshape(B, S, cfg.num_heads, hd),
+            k.reshape(B, S, cfg.num_kv_heads, hd),
+            v.reshape(B, S, cfg.num_kv_heads, hd))
 
 
-def attn_branch_full(cfg: ModelConfig, bp: Params,
-                     x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence bidirectional attention branch of a DiT block."""
-    q, k, v = _qkv(cfg, bp, x)
-    out = attention_core(q, k, v)
-    B, S = x.shape[:2]
+def _out_proj(cfg: ModelConfig, bp: Params, out: torch.Tensor,
+              B: int, S: int) -> torch.Tensor:
     return out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim) \
         @ bp["wo"]
+
+
+def attn_branch_full(cfg: ModelConfig, bp: Params, x: torch.Tensor, *,
+                     angles=None, window: int = 0, use_flash: bool = False
+                     ) -> Tuple[torch.Tensor, KV]:
+    """Full-sequence attention branch -> (out, (k, v)): bidirectional for
+    the DiT, causal (windowed when ``window > 0``) with RoPE for an LM;
+    (k, v) after RoPE is what a prefill hands to the cache."""
+    q, k, v = _qkv(cfg, bp, x)
+    if angles is not None:
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+    if cfg.is_diffusion:
+        out = attn_lib.attention_core(q, k, v)
+    else:
+        out = attn_lib.full_attention(q, k, v, window, use_flash=use_flash)
+    return _out_proj(cfg, bp, out, *x.shape[:2]), (k, v)
+
+
+def uses_ring_cache(cfg: ModelConfig) -> bool:
+    """The reference's ring-buffer decode cache: every layer windowed."""
+    return cfg.attn_window > 0 and cfg.global_every == 0
 
 
 def dit_modulation(bp: Params, t_emb: torch.Tensor):
@@ -52,22 +86,130 @@ def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
     return layer_norm(x, ones, zeros, eps)
 
 
-Branch = Callable[[torch.Tensor], torch.Tensor]
+Branch = Callable[[torch.Tensor], Tuple[torch.Tensor, tuple]]
 
 
 def block_branches_full(cfg: ModelConfig, bp: Params,
-                        t_emb: torch.Tensor) -> Tuple[Branch, Branch]:
-    """Returns (fn0, fn1): fn_i(h) -> inc_i for one DiT block."""
+                        t_emb: torch.Tensor = None, *, angles=None,
+                        window: int = 0, use_flash: bool = False
+                        ) -> Tuple[Branch, Branch]:
+    """Returns (fn0, fn1): fn_i(h) -> (inc_i, cache_i) for one block;
+    cache_0 is the attention's (k, v), cache_1 is ``()``."""
     eps = cfg.norm_eps
-    sh_a, sc_a, g_a, sh_m, sc_m, g_m = dit_modulation(bp, t_emb)
+    if cfg.is_diffusion:
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = dit_modulation(bp, t_emb)
+
+        def fn0(h):
+            x = _ln(h, eps) * (1 + sc_a[:, None]) + sh_a[:, None]
+            out, kv = attn_branch_full(cfg, bp, x.to(h.dtype))
+            return g_a[:, None] * out, kv
+
+        def fn1(h):
+            x = _ln(h, eps) * (1 + sc_m[:, None]) + sh_m[:, None]
+            mlp = bp["mlp"]
+            return g_m[:, None] * gelu_mlp(x.to(h.dtype), mlp["w_up"],
+                                           mlp["w_down"]), ()
+        return fn0, fn1
 
     def fn0(h):
-        x = _ln(h, eps) * (1 + sc_a[:, None]) + sh_a[:, None]
-        return g_a[:, None] * attn_branch_full(cfg, bp, x.to(h.dtype))
+        return attn_branch_full(cfg, bp, rms_norm(h, bp["ln1"], eps),
+                                angles=angles, window=window,
+                                use_flash=use_flash)
 
     def fn1(h):
-        x = _ln(h, eps) * (1 + sc_m[:, None]) + sh_m[:, None]
-        mlp = bp["mlp"]
-        return g_m[:, None] * gelu_mlp(x.to(h.dtype), mlp["w_up"],
-                                       mlp["w_down"])
+        return mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps),
+                           cfg.act), ()
     return fn0, fn1
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token against the cache
+# ---------------------------------------------------------------------------
+
+def attn_branch_decode(cfg: ModelConfig, bp: Params, x: torch.Tensor, *,
+                       angles, window: int, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, pos: int
+                       ) -> Tuple[torch.Tensor, KV]:
+    """One-token attention at the shared position ``pos`` -> (out, (new k
+    cache, new v cache))."""
+    q, k, v = _qkv(cfg, bp, x)
+    if angles is not None:
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+    k_cache, v_cache = attn_lib.update_kv_cache(k_cache, v_cache, k, v, pos)
+    out = attn_lib.decode_attention(q, k_cache, v_cache, pos, window)
+    return _out_proj(cfg, bp, out, x.shape[0], 1), (k_cache, v_cache)
+
+
+def block_decode(cfg: ModelConfig, bp: Params, h: torch.Tensor,
+                 cache_slice: Dict[str, torch.Tensor], *, angles,
+                 window: int, pos: int
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One dense block for one token at ``pos`` -> (h, new cache slice)."""
+    eps = cfg.norm_eps
+    a_out, (kc, vc) = attn_branch_decode(
+        cfg, bp, rms_norm(h, bp["ln1"], eps), angles=angles, window=window,
+        k_cache=cache_slice["k"], v_cache=cache_slice["v"], pos=pos)
+    h = h + a_out
+    out = mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps), cfg.act)
+    return h + out, {"k": kc, "v": vc}
+
+
+def attn_branch_decode_lanes(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                             *, angles, window: int, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, positions: torch.Tensor
+                             ) -> Tuple[torch.Tensor, KV]:
+    """One-token attention at per-lane positions [B] -> (out, (new k
+    cache, new v cache))."""
+    q, k, v = _qkv(cfg, bp, x)
+    if angles is not None:
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+    k_cache, v_cache = attn_lib.update_kv_cache_lanes(k_cache, v_cache, k, v,
+                                                      positions)
+    out = attn_lib.decode_attention_lanes(q, k_cache, v_cache, positions,
+                                          window)
+    return _out_proj(cfg, bp, out, x.shape[0], 1), (k_cache, v_cache)
+
+
+def _kv_write_lanes(cfg: ModelConfig, bp: Params, x: torch.Tensor, *,
+                    angles, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    positions: torch.Tensor) -> KV:
+    """The speculative cache write: K/V projections of the forecast stream
+    (RoPE on K) written at each lane's position; no q, no attention."""
+    hd, B = cfg.resolved_head_dim, x.shape[0]
+    k, v = x @ bp["wk"], x @ bp["wv"]
+    if cfg.qkv_bias:
+        k, v = k + bp["bk"], v + bp["bv"]
+    k = k.reshape(B, 1, cfg.num_kv_heads, hd)
+    v = v.reshape(B, 1, cfg.num_kv_heads, hd)
+    if angles is not None:
+        k = apply_rope(k, angles)
+    return attn_lib.update_kv_cache_lanes(k_cache, v_cache, k, v, positions)
+
+
+def block_decode_branches(cfg: ModelConfig, bp: Params,
+                          cache_slice: Dict[str, torch.Tensor], *, angles,
+                          window: int, positions: torch.Tensor):
+    """Returns (fn0, fn1, spec_cache) for the lane-batched decode step:
+    ``fn0(h) -> (inc0, new cache slice)`` and ``fn1(h) -> inc1`` are the
+    real branches (the math and add order of ``block_decode``);
+    ``spec_cache(h) -> new cache slice`` advances only the cache, from the
+    forecast stream."""
+    eps = cfg.norm_eps
+
+    def fn0(h):
+        out, (kc, vc) = attn_branch_decode_lanes(
+            cfg, bp, rms_norm(h, bp["ln1"], eps), angles=angles,
+            window=window, k_cache=cache_slice["k"],
+            v_cache=cache_slice["v"], positions=positions)
+        return out, {"k": kc, "v": vc}
+
+    def fn1(h):
+        return mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps), cfg.act)
+
+    def spec_cache(h):
+        kc, vc = _kv_write_lanes(cfg, bp, rms_norm(h, bp["ln1"], eps),
+                                 angles=angles, k_cache=cache_slice["k"],
+                                 v_cache=cache_slice["v"],
+                                 positions=positions)
+        return {"k": kc, "v": vc}
+    return fn0, fn1, spec_cache

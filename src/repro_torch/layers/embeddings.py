@@ -1,4 +1,5 @@
-"""Input embeddings of the DiT: patches, timesteps, class labels."""
+"""Input embeddings: tokens, and the DiT's patches, timesteps and class
+labels."""
 from __future__ import annotations
 
 import math
@@ -6,6 +7,11 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+
+def token_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table [V, D] at integer ``tokens`` [...]."""
+    return table[tokens.long()]
 
 
 def patchify(latents: torch.Tensor, patch: int) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The DiT feed-forward layer."""
+"""Feed-forward layers: SwiGLU (``act="silu"``) and the GELU MLP."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,3 +19,18 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     if b_down is not None:
         out = out + b_down
     return out
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """(silu(x @ w_gate) · (x @ w_up)) @ w_down."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                act: str) -> torch.Tensor:
+    """The LM feed-forward branch: SwiGLU for ``act="silu"``, else the
+    GELU MLP."""
+    if act == "silu":
+        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    return gelu_mlp(x, params["w_up"], params["w_down"])

@@ -1,4 +1,5 @@
-"""The DiT backbone: init, embedding, the masked layer loop, the head.
+"""The backbone: init, embedding, the masked layer loop, the heads, and
+LM decode.
 
 Block parameters are stacked ``[L, …]`` exactly as the reference's
 ``jax.vmap``-initialised tree, so ``repro_torch.convert.params_from_jax``
@@ -7,7 +8,15 @@ is a leaf-by-leaf copy. SpeCa hooks in through ``branch_preds`` /
 layer and a mask that is True only at the verification layer. The
 reference skips the other layers with a per-layer ``lax.cond``; here the
 mask is a static Python sequence fixed when the step is built, so a
-skipped layer is a plain ``if`` that launches nothing.
+skipped DiT layer is a plain ``if`` that launches nothing. A skipped
+decode layer still writes its cache (``blocks.block_decode_branches``).
+
+The LM half (``arch_type`` ``"dense"``/``"vlm"``): ``lm_forward`` (the
+prefill, optionally collecting the K/V cache), ``lm_decode_step`` (one
+token at one shared position) and ``decode_branches_step`` (one token per
+lane at per-lane positions, with the SpeCa seam). Caches are
+``{"k", "v"}`` of [L, B, S, KV, hd]; every decode returns new caches and
+leaves its inputs as they were.
 """
 from __future__ import annotations
 
@@ -17,11 +26,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, check_lm
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.layers import blocks as blk
 from repro_torch.layers import embeddings as emb
-from repro_torch.layers.norms import layer_norm
+from repro_torch.layers.norms import layer_norm, rms_norm
+from repro_torch.layers.rope import mrope_angles, rope_angles
 
 Params = Dict[str, Any]
 
@@ -40,14 +50,24 @@ def _dense(gen: torch.Generator, shape, dtype, scale: Optional[float] = None,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: DeviceLike = "cuda") -> Params:
-    """Random DiT parameters with the reference's initialisation scheme
-    (``repro.layers.model.init_params``, DiT leaves only): AdaLN-Zero
-    modulation leaves and the final layer start at zero. Drawn on the
-    generator's device, then moved to ``device``."""
+    """Random parameters with the reference's initialisation scheme
+    (``repro.layers.model.init_params``), drawn on the generator's device,
+    then moved to ``device``. A DiT's AdaLN-Zero modulation leaves and
+    final layer start at zero; an LM's norm weights start at zero (RMSNorm
+    applies ``1 + w``) and its embedding is N(0, 0.02²). MoE, SSM, hybrid
+    and audio LMs raise ``ValueError``."""
     dev = resolve_device(device)
+    if cfg.is_diffusion:
+        params = _init_dit(cfg, generator)
+    else:
+        check_lm(cfg, "init_params")
+        params = _init_lm(cfg, generator)
+    return tree_to(params, dev)
+
+
+def _init_dit(cfg: ModelConfig, g: torch.Generator) -> Params:
     dtype = cfg.torch_dtype
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
-    g = generator
     in_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
 
     def zeros(*shape, dt=dtype):
@@ -77,8 +97,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     }
     head = {"w": zeros(d, in_dim), "b": zeros(in_dim),   # zero-init
             "mod_w": zeros(d, 2 * d), "mod_b": zeros(2 * d)}
-    params = {"embed": embed, "blocks": blocks, "head": head}
-    return tree_to(params, dev)
+    return {"embed": embed, "blocks": blocks, "head": head}
+
+
+def _init_lm(cfg: ModelConfig, g: torch.Generator) -> Params:
+    dtype = cfg.torch_dtype
+    d, hd, L, f = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers, \
+        cfg.d_ff
+    qd, kvd, V = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.padded_vocab
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=g.device)
+
+    blocks: Params = {
+        "ln1": zeros(L, d), "ln2": zeros(L, d),
+        "wq": _dense(g, (d, qd), dtype, layers=L),
+        "wk": _dense(g, (d, kvd), dtype, layers=L),
+        "wv": _dense(g, (d, kvd), dtype, layers=L),
+        "wo": _dense(g, (qd, d), dtype, scale=1.0 / math.sqrt(qd), layers=L),
+        "mlp": {"w_up": _dense(g, (d, f), dtype, layers=L),
+                "w_down": _dense(g, (f, d), dtype, layers=L)},
+    }
+    if cfg.qkv_bias:
+        blocks.update(bq=zeros(L, qd), bk=zeros(L, kvd), bv=zeros(L, kvd))
+    if cfg.act == "silu":
+        blocks["mlp"]["w_gate"] = _dense(g, (d, f), dtype, layers=L)
+    params: Params = {"embed": {"tok": _dense(g, (V, d), dtype, scale=0.02)},
+                      "blocks": blocks, "final_norm": zeros(d)}
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": _dense(g, (d, V), dtype)}
+    return params
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:
@@ -99,34 +147,69 @@ def _sincos_pos(seq: int, d: int, device: torch.device) -> torch.Tensor:
     return emb.timestep_embedding(pos, d)
 
 
+def _angles_for(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """RoPE angles of integer positions [B, T] (M-RoPE: [B, T, 3])."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope_sections:
+        return mrope_angles(positions, hd, cfg.rope_theta,
+                            cfg.mrope_sections)
+    return rope_angles(positions, hd, cfg.rope_theta)
+
+
+def _token_positions(cfg: ModelConfig, positions: torch.Tensor
+                     ) -> torch.Tensor:
+    """Text positions [B, T] as the config's rotary input: M-RoPE carries
+    the same index on its three axes."""
+    if cfg.mrope_sections:
+        return positions[..., None].expand(tuple(positions.shape) + (3,))
+    return positions
+
+
 def embed_inputs(cfg: ModelConfig, params: Params,
-                 inputs: Dict[str, Any]) -> Tuple[torch.Tensor,
-                                                  torch.Tensor]:
-    """(h [B, T, D], t_emb [B, D]) for the DiT forward."""
-    dtype = cfg.torch_dtype
-    pe = params["embed"]
-    tokens = emb.patchify(inputs["latents"], cfg.patch_size)
-    h = tokens.to(dtype) @ pe["patch_w"] + pe["patch_b"]
-    h = h + _sincos_pos(h.shape[1], cfg.d_model, h.device)[None].to(h.dtype)
-    t_emb = emb.time_mlp(pe["time"], inputs["t"], cfg.d_model)
-    if cfg.num_classes and "labels" in inputs:
-        t_emb = t_emb + emb.label_embed(
-            pe["label"], inputs["labels"]).to(torch.float32)
-    return h, t_emb.to(dtype)
+                 inputs: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"h", "t_emb", "angles"}`` for the full-sequence forward: the
+    DiT's patch tokens and conditioning embedding, or an LM's token
+    embeddings and the RoPE angles of ``inputs["positions"]`` (default
+    0..T−1)."""
+    if cfg.is_diffusion:
+        dtype = cfg.torch_dtype
+        pe = params["embed"]
+        tokens = emb.patchify(inputs["latents"], cfg.patch_size)
+        h = tokens.to(dtype) @ pe["patch_w"] + pe["patch_b"]
+        h = h + _sincos_pos(h.shape[1], cfg.d_model,
+                            h.device)[None].to(h.dtype)
+        t_emb = emb.time_mlp(pe["time"], inputs["t"], cfg.d_model)
+        if cfg.num_classes and "labels" in inputs:
+            t_emb = t_emb + emb.label_embed(
+                pe["label"], inputs["labels"]).to(torch.float32)
+        return {"h": h, "t_emb": t_emb.to(dtype), "angles": None}
+    tokens = inputs["tokens"]
+    h = emb.token_embed(params["embed"]["tok"], tokens)
+    positions = inputs.get("positions")
+    if positions is None:
+        B, T = tokens.shape
+        positions = _token_positions(cfg, torch.arange(
+            T, dtype=torch.int32, device=h.device)[None].expand(B, T))
+    angles = _angles_for(cfg, positions) if cfg.has_attention else None
+    return {"h": h, "t_emb": None, "angles": angles}
 
 
 def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
-                 t_emb: torch.Tensor,
+                 t_emb: Optional[torch.Tensor] = None,
+                 angles: Optional[torch.Tensor] = None,
                  branch_preds: Optional[torch.Tensor] = None,
                  compute_mask: Optional[Sequence[bool]] = None,
-                 collect_branches: bool = False
+                 collect_branches: bool = False,
+                 collect_cache: bool = False, use_flash: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The layer loop.
 
     branch_preds: [L, 2, B, S, D] forecast residual increments (SpeCa).
     compute_mask: [L] static bools — True runs the block for real, False
     substitutes ``branch_preds``. None = every layer real.
-    Returns (h_final, {"branches": [L, 2, B, S, D]} when collected).
+    Returns (h_final, {"branches": [L, 2, B, S, D]} when collected,
+    {"cache": {"k", "v"} [L, B, S, KV, hd]} when collected — zeros at a
+    substituted layer, as the reference's).
     """
     L = cfg.num_layers
     mask = [True] * L if compute_mask is None \
@@ -141,22 +224,39 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
         raise ValueError("a masked forward needs branch_preds")
     branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
                            device=h.device) if collect_branches else None
+    kvs = []
     for layer in range(L):
         if mask[layer]:
             fn0, fn1 = blk.block_branches_full(
-                cfg, layer_params(params["blocks"], layer), t_emb)
-            inc0 = fn0(h)
-            inc1 = fn1(h + inc0)
+                cfg, layer_params(params["blocks"], layer), t_emb,
+                angles=angles, window=cfg.layer_window(layer),
+                use_flash=use_flash)
+            inc0, kv = fn0(h)
+            inc1, _ = fn1(h + inc0)
         else:
             inc0, inc1 = branch_preds[layer, 0], branch_preds[layer, 1]
+            kv = None
         h = h + inc0 + inc1
         if branches is not None:
             branches[layer, 0] = inc0
             branches[layer, 1] = inc1
+        if collect_cache:
+            kvs.append(kv)
     out: Dict[str, Any] = {}
     if branches is not None:
         out["branches"] = branches
+    if collect_cache:
+        out["cache"] = _pack_cache(cfg, h, kvs)
     return h, out
+
+
+def _pack_cache(cfg: ModelConfig, h: torch.Tensor, kvs) -> Dict[str, Any]:
+    """Stack the layers' (k, v) into the [L, B, S, KV, hd] cache."""
+    B, S = h.shape[:2]
+    shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    zero = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    return {name: torch.stack([zero if kv is None else kv[i] for kv in kvs])
+            for i, name in enumerate(("k", "v"))}
 
 
 def dit_output(cfg: ModelConfig, params: Params, h: torch.Tensor,
@@ -183,9 +283,146 @@ def dit_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
     """Denoiser forward: latents [B, H, W, C], t [B] -> eps prediction in
     the model dtype."""
     spatial = tuple(inputs["latents"].shape[1:-1])
-    h, t_emb = embed_inputs(cfg, params, inputs)
-    h, extras = forward_full(cfg, params, h, t_emb=t_emb,
+    e = embed_inputs(cfg, params, inputs)
+    h, extras = forward_full(cfg, params, e["h"], t_emb=e["t_emb"],
                              branch_preds=branch_preds,
                              compute_mask=compute_mask,
                              collect_branches=collect_branches)
-    return dit_output(cfg, params, h, t_emb, spatial), extras
+    return dit_output(cfg, params, h, e["t_emb"], spatial), extras
+
+
+# ---------------------------------------------------------------------------
+# The LM head and decode
+# ---------------------------------------------------------------------------
+
+def lm_logits(cfg: ModelConfig, params: Params,
+              h: torch.Tensor) -> torch.Tensor:
+    """Final RMSNorm and the head (the embedding table when tied) ->
+    [..., padded_vocab]; the padding columns are −1e30 so that they never
+    win a softmax or an argmax."""
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["tok"].T
+    else:
+        logits = h @ params["head"]["w"]
+    if cfg.padded_vocab != cfg.vocab_size:
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    return logits
+
+
+def lm_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
+               collect_cache: bool = False, use_flash: bool = False
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """LM forward over ``inputs["tokens"]`` [B, T] -> (logits [B, T, V],
+    extras); ``collect_cache=True`` adds the prefill's K/V cache."""
+    e = embed_inputs(cfg, params, inputs)
+    h, extras = forward_full(cfg, params, e["h"], angles=e["angles"],
+                             collect_cache=collect_cache,
+                             use_flash=use_flash)
+    return lm_logits(cfg, params, h), extras
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Zero K/V caches {"k", "v"} [L, batch, max_len, KV, hd] in the model
+    dtype on ``device``. The reference's ring-buffer cache (every layer
+    windowed) is not ported yet."""
+    if blk.uses_ring_cache(cfg):
+        raise ValueError(
+            f"{cfg.name}: every layer is windowed (attn_window="
+            f"{cfg.attn_window}, global_every=0), which the reference serves "
+            "from a ring-buffer cache; that comes with the ring-cache slice")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+            for k in ("k", "v")}
+
+
+def _decode_angles(cfg: ModelConfig,
+                   positions: torch.Tensor) -> Optional[torch.Tensor]:
+    """RoPE angles [B, 1, hd/2] of one token per row at ``positions`` [B]."""
+    if not cfg.has_attention:
+        return None
+    return _angles_for(cfg, _token_positions(
+        cfg, positions.to(torch.int32)[:, None]))
+
+
+def decode_step_h(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], pos: int
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step on the embedded token h [B, 1, D] at the shared
+    position ``pos`` -> (h, new cache)."""
+    angles = _decode_angles(cfg, torch.full(
+        (h.shape[0],), int(pos), dtype=torch.int32, device=h.device))
+    new = {"k": [], "v": []}
+    for layer in range(cfg.num_layers):
+        h, sl = blk.block_decode(
+            cfg, layer_params(params["blocks"], layer), h,
+            {k: cache[k][layer] for k in new}, angles=angles,
+            window=cfg.layer_window(layer), pos=pos)
+        for k in new:
+            new[k].append(sl[k])
+    return h, {k: torch.stack(v) for k, v in new.items()}
+
+
+def lm_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   cache: Dict[str, torch.Tensor], pos: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens [B, 1] at position ``pos`` -> (logits [B, 1, V], new cache)."""
+    h = emb.token_embed(params["embed"]["tok"], tokens)
+    h, new_cache = decode_step_h(cfg, params, h, cache, pos)
+    return lm_logits(cfg, params, h), new_cache
+
+
+def decode_branches_step(cfg: ModelConfig, params: Params, tok: torch.Tensor,
+                         cache: Dict[str, torch.Tensor],
+                         positions: torch.Tensor, *,
+                         branch_preds: Optional[torch.Tensor] = None,
+                         compute_mask: Optional[Sequence[bool]] = None,
+                         collect_branches: bool = False
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                    Optional[torch.Tensor]]:
+    """Lane-batched decode forward with the SpeCa branch seam: tok [B, 1]
+    int32 input tokens, cache {k, v} [L, B, S, KV, hd], positions [B]
+    int32 per-lane query positions. ``branch_preds`` [L, 2, B, 1, D]
+    substitutes forecast increments where the static ``compute_mask`` [L]
+    is False (None = every layer real). Every layer writes its cache
+    either way: a substituted layer writes the forecast stream's K/V
+    projections. Returns (logits [B, 1, V], new cache, branches
+    [L, 2, B, 1, D] when collected, else None)."""
+    h = emb.token_embed(params["embed"]["tok"], tok)
+    L = cfg.num_layers
+    mask = [True] * L if compute_mask is None \
+        else [bool(m) for m in compute_mask]
+    if len(mask) != L:
+        raise ValueError(f"compute_mask has {len(mask)} entries for "
+                         f"{L} layers")
+    if branch_preds is not None:
+        branch_preds = branch_preds.to(h.dtype)
+    elif not all(mask):
+        raise ValueError("a masked forward needs branch_preds")
+    angles = _decode_angles(cfg, positions)
+    branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
+                           device=h.device) if collect_branches else None
+    new = {"k": [], "v": []}
+    for layer in range(L):
+        fn0, fn1, spec_cache = blk.block_decode_branches(
+            cfg, layer_params(params["blocks"], layer),
+            {k: cache[k][layer] for k in new}, angles=angles,
+            window=cfg.layer_window(layer), positions=positions)
+        if mask[layer]:
+            inc0, sl = fn0(h)
+            inc1 = fn1(h + inc0)
+        else:
+            inc0, inc1 = branch_preds[layer, 0], branch_preds[layer, 1]
+            sl = spec_cache(h)
+        h = h + inc0 + inc1
+        if branches is not None:
+            branches[layer, 0] = inc0
+            branches[layer, 1] = inc1
+        for k in new:
+            new[k].append(sl[k])
+    logits = lm_logits(cfg, params, h)
+    return logits, {k: torch.stack(v) for k, v in new.items()}, branches

@@ -1,7 +1,18 @@
-"""LayerNorm and AdaLN modulation."""
+"""RMSNorm, LayerNorm and AdaLN modulation."""
 from __future__ import annotations
 
 import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in f32 with the weight applied as ``(1 + w)`` (the LM init
+    leaves ``w`` at zero), cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x / torch.sqrt(var + eps)
+    return (x * (1.0 + weight.to(torch.float32))).to(dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -1,4 +1,5 @@
-"""SpeCa serving engine: per-lane speculative caching over a lane batch.
+"""SpeCa serving engine: per-lane speculative caching over lane batches of
+one or more workloads (diffusion denoising, LLM decode).
 
 Concurrent requests are packed into a fixed-width lane batch and one
 lane step (``repro_torch.core.lane_step``) advances all lanes per
@@ -42,14 +43,25 @@ order adapted after every tick on the device
 (``repro_torch.core.controller``); controller-free requests in the same
 batch keep their trajectories bitwise.
 
+Workload routing: the lane step is workload-agnostic
+(``repro_torch.core.workload``). ``RequestPolicy.workload`` names the
+workload a request rides in; each workload tag owns its own lane session
+(its width, lane step and FLOPs model) and shares the scheduler, the
+admission queue and the lifecycle API with the others: a request whose
+session is full never blocks one another session could admit.
+``SpeCaEngine(workloads={"decode": DecodeWorkload(...)})`` serves decode
+lanes beside the diffusion quartet's lanes, or alone without it.
+``Result.workload`` says which served a request.
+
 Host/device discipline: while every in-flight request is depth-1 and
 controller-free, lane completion is host-predictable (an active lane
 advances one step per tick), so per-tick flags stay on the device until a
 request completes. With a deep or controlled request in flight a lane
 moves 0..K steps per tick, so the tick's ``advanced`` counters are
-fetched. The lane step itself syncs to decide its branches.
-``SpeCaEngine.host_syncs`` counts both. The reference's meshes are not
-ported yet.
+fetched. The lane step itself syncs to decide its branches, and a
+decode lane's prefill reads its first token back at admission.
+``SpeCaEngine.host_syncs`` counts all three. The reference's meshes are
+not ported yet.
 
 Observability (``SpeCaEngine(obs=True)`` or an ``Observability``): the
 flight recorder's submit/admit/finish/drop/compile events, per-request
@@ -75,8 +87,8 @@ from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
 from repro_torch.core import controller as CT
 from repro_torch.core import lane_step as LS
 from repro_torch.core.forecaster import get_forecaster
-from repro_torch.core.workload import DiffusionWorkload, NoiseFn
-from repro_torch.device import DeviceLike
+from repro_torch.core.workload import DiffusionWorkload, NoiseFn, Workload
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.pipeline import null_cond_like
 from repro_torch.obs import (Clock, Observability, Timings, Trace,
                              build_trace, resolve_clock)
@@ -127,6 +139,10 @@ class Result:
     finish_tick: Optional[int] = None
     deadline: Optional[float] = None
     ticket_id: Optional[int] = None
+    # the workload that served the request: ``sample`` is a latent for
+    # "diffusion", the emitted int32 tokens for "decode", and ``flops``
+    # is that workload's cost model
+    workload: str = "diffusion"
     tenant: str = "default"
     timings: Optional[Timings] = None
 
@@ -157,16 +173,18 @@ class Result:
 class Preview:
     """One per-tick snapshot of a RUNNING request
     (``SpeCaEngine.stream(previews=True)``): ``sample`` is its current
-    partially denoised latent, a pure read of the lane state (the final
-    ``Result.sample`` is bitwise a preview-free run's); ``step`` the
-    schedule steps done (always below the request's schedule length);
-    ``tick`` the session's scheduler tick."""
+    partially denoised latent (decode: its tokens so far), a pure read of
+    the lane state (the final ``Result.sample`` is bitwise a preview-free
+    run's); ``step`` the schedule steps done (always below the request's
+    schedule length); ``tick`` the session's scheduler tick; ``workload``
+    the workload that serves it."""
 
     ticket_id: int
     request_id: int
     tick: int
     step: int
     sample: Any
+    workload: str = "diffusion"
 
 
 @dataclasses.dataclass(eq=False)       # identity: one entry may span two
@@ -187,23 +205,24 @@ class _Entry:                          # lanes
 
 
 class _Session:
-    """One serving session: a fixed-width lane batch, its lane step and
-    the host-side slot bookkeeping. ``paired`` sessions run the
-    slot-width (``"mixed"``) program and admit guided requests into pair
-    slots; plain sessions run the per-lane program. Each tick adds its
-    device syncs to the engine's ``host_syncs`` as they happen: the lane
-    step's branches and the ``advanced`` fetch while a deep or controlled
-    request is in flight."""
+    """One serving session: a fixed-width lane batch of ONE workload, its
+    lane step and the host-side slot bookkeeping. ``paired`` sessions run
+    the slot-width (``"mixed"``) program and admit guided requests into
+    pair slots; plain sessions run the per-lane program (a workload
+    without pairing, decode, is always plain). Each tick adds its device
+    syncs to the engine's ``host_syncs`` as they happen: the lane step's
+    branches and the ``advanced`` fetch while a deep or controlled request
+    is in flight; so does each lane fill that syncs (a decode prefill)."""
 
     def __init__(self, engine: "SpeCaEngine", width: int, *,
-                 paired: bool) -> None:
+                 paired: bool, workload: Workload) -> None:
         self.e = engine
-        self.wl = engine.workload
+        self.wl = workload
         self.W = width
         self.paired = bool(paired) and width >= 2 \
             and self.wl.supports_pairing
-        self.step_fn = engine._lane_step(width,
-                                         "mixed" if self.paired else False)
+        self.step_fn = engine._lane_step(
+            width, "mixed" if self.paired else False, tag=self.wl.tag)
         self.state: Optional[Dict[str, Any]] = None
         self.lane_entry: List[Optional[_Entry]] = [None] * width
         self.tick = 0
@@ -236,6 +255,8 @@ class _Session:
                 and self.lane_entry[2 * k + 1] is None]
 
     def fits(self, item: QueueItem) -> bool:
+        if item.policy.workload != self.wl.tag:
+            return False
         if item.streams == 2:
             return self.paired and bool(self._free_pairs())
         return bool(self._free_lanes())
@@ -279,7 +300,8 @@ class _Session:
         the pair's ``gscale`` and ``paired`` set."""
         e, wl = self.e, self.wl
         req, pol = entry.item.request, entry.item.policy
-        cond = {k: torch.as_tensor(v) for k, v in req.cond.items()}
+        cond = {k: torch.as_tensor(v) for k, v in req.cond.items()} \
+            if wl.cond_in_state else {}
         if self.state is None:
             self.state = LS.init_workload_state(
                 wl, self.W, cond, guidance="mixed" if self.paired else False,
@@ -324,6 +346,7 @@ class _Session:
             v[lane] = torch.as_tensor(cond[k])[0]
         self.state = wl.fill_payload(st, lane, entry.item.request,
                                      entry.item.steps)
+        self.e._host_syncs += wl.fill_syncs
 
     def advance(self) -> List[Tuple[_Entry, Result]]:
         """One scheduler tick: run the lane step, then complete every
@@ -418,7 +441,8 @@ class _Session:
             wall_s=finish_s - entry.t0, accepts=accepts,
             completed=completed, finish_tick=self.tick,
             deadline=item.policy.deadline, ticket_id=item.ticket_id,
-            tenant=item.policy.tenant, timings=timings)
+            workload=self.wl.tag, tenant=item.policy.tenant,
+            timings=timings)
         if obs is not None:
             self._observe_done(entry, res, timings, per_tick)
         return res
@@ -476,23 +500,33 @@ def _dropped_result(item: QueueItem) -> Result:
                   num_full=0, num_spec=0, flops=0.0, wall_s=0.0,
                   accepts=[], completed=False,
                   deadline=item.policy.deadline, ticket_id=item.ticket_id,
-                  tenant=item.policy.tenant)
+                  workload=item.policy.workload, tenant=item.policy.tenant)
 
 
-def _admit_into(sess: _Session, sched: Scheduler) -> List[_Entry]:
-    """Pop fitting requests into the session's free slots until nothing
-    fits (the scheduler decides the order, the session the placement)."""
+def _admit_into(sessions: Dict[str, _Session],
+                sched: Scheduler) -> List[_Entry]:
+    """Pop fitting requests into the sessions' free slots until nothing
+    fits: the scheduler decides the order, each workload's session the
+    placement, and a request whose session is full never blocks one
+    another session could admit (cross-workload backfill)."""
+    def fits(item: QueueItem) -> bool:
+        sess = sessions.get(item.policy.workload)
+        return sess is not None and sess.fits(item)
+
     placed: List[_Entry] = []
     while len(sched):
-        item = sched.pop(sess.fits)
+        item = sched.pop(fits)
         if item is None:
             break
-        placed.append(sess.place(item))
+        placed.append(sessions[item.policy.workload].place(item))
     return placed
 
 
 class SpeCaEngine:
-    """Batched diffusion serving with per-lane speculative caching.
+    """Batched serving with per-lane speculative caching: diffusion lanes
+    from the ``(cfg, params, dcfg, scfg)`` quartet, and any ``Workload``
+    adapters in ``workloads`` (keyed by their tags), each in its own lane
+    sessions.
 
     accept_mode: ``"per_sample"`` (default; each lane on its own error)
     or ``"batch"`` (every drafting lane must pass). verify_backend:
@@ -521,10 +555,17 @@ class SpeCaEngine:
     obs: ``False`` (default) runs no observability code; ``True`` builds
     an ``Observability`` on the engine clock; an ``Observability`` is
     adopted as-is and supplies the clock when ``clock`` is None.
+    workloads: extra adapters keyed by tag, e.g. ``{"decode":
+    DecodeWorkload(lm_cfg, lm_params, scfg, ...)}``; requests route by
+    ``RequestPolicy.workload``. The diffusion quartet may be left out for
+    an engine without diffusion lanes. ``device`` must be every
+    workload's device.
     """
 
-    def __init__(self, cfg: ModelConfig, params, dcfg: DiffusionConfig,
-                 scfg: SpeCaConfig, *, draft_mode: str = "taylor",
+    def __init__(self, cfg: Optional[ModelConfig] = None, params=None,
+                 dcfg: Optional[DiffusionConfig] = None,
+                 scfg: Optional[SpeCaConfig] = None, *,
+                 draft_mode: str = "taylor",
                  accept_mode: str = "per_sample",
                  verify_backend: str = "fused",
                  noise_fn: Optional[NoiseFn] = None,
@@ -537,6 +578,7 @@ class SpeCaEngine:
                  forecaster: Any = None, controller: bool = False,
                  obs: Union[bool, Observability] = False,
                  clock: Optional[Clock] = None,
+                 workloads: Optional[Dict[str, Workload]] = None,
                  device: DeviceLike = "cuda"):
         if accept_mode not in LS.ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
@@ -546,8 +588,34 @@ class SpeCaEngine:
         if verify_backend not in LS.VERIFY_BACKENDS:
             raise ValueError(f"unknown verify_backend {verify_backend!r}")
         self._sched: Scheduler = make_scheduler(scheduler)   # fails fast
-        self.workload = DiffusionWorkload(cfg, params, dcfg, scfg,
-                                          device=device, noise_fn=noise_fn)
+        self.device = resolve_device(device)
+        self.workloads: Dict[str, Workload] = {}
+        if cfg is not None:
+            if dcfg is None or scfg is None:
+                raise ValueError("diffusion serving needs the full "
+                                 "(cfg, params, dcfg, scfg) quartet")
+            self.workloads["diffusion"] = DiffusionWorkload(
+                cfg, params, dcfg, scfg, device=self.device,
+                noise_fn=noise_fn)
+        for tag, wl in (workloads or {}).items():
+            if tag != wl.tag:
+                raise ValueError(f"workloads key {tag!r} does not match "
+                                 f"adapter tag {wl.tag!r}")
+            if wl.device != self.device:
+                raise ValueError(f"workload {tag!r} lives on {wl.device}, "
+                                 f"the engine on {self.device}")
+            self.workloads[tag] = wl
+        if not self.workloads:
+            raise ValueError("engine needs at least one workload: pass "
+                             "the diffusion (cfg, params, dcfg, scfg) "
+                             "quartet and/or workloads={...}")
+        # the diffusion workload (None on an engine without diffusion lanes)
+        self.workload: Optional[DiffusionWorkload] = \
+            self.workloads.get("diffusion")
+        if guidance and self.workload is None:
+            raise ValueError("guidance=True is the legacy all-guided "
+                             "diffusion mode; this engine serves no "
+                             "diffusion workload")
         self.draft_mode = draft_mode
         self.accept_mode = accept_mode
         self.verify_backend = verify_backend
@@ -569,11 +637,12 @@ class SpeCaEngine:
             self.clock = resolve_clock(clock)
             self._obs = Observability(clock=self.clock) if obs else None
         self._tick_count = 0    # engine-level tick index (series x-axis)
-        self._lane_fns: Dict[Tuple[int, Any, bool], LS.LaneStep] = {}
+        self._lane_fns: Dict[Tuple[str, int, Any], LS.LaneStep] = {}
         self._host_syncs = 0
-        # lifecycle state: one long-lived session (serve_batched keeps
-        # private ones), the Results by ticket and the ticket states
-        self._session: Optional[_Session] = None
+        # lifecycle state: one long-lived session per workload tag
+        # (serve_batched keeps private ones), the Results by ticket and the
+        # ticket states
+        self._sessions: Dict[str, _Session] = {}
         self._seq = 0
         self._results: Dict[int, Result] = {}
         self._completion_order: List[int] = []
@@ -584,9 +653,10 @@ class SpeCaEngine:
     @property
     def host_syncs(self) -> int:
         """Device syncs this engine's sessions have made so far: the lane
-        step's branches (two per depth-1 tick, up to K+1 per chain tick)
-        and one ``advanced`` fetch per tick with a deep or controlled
-        request in flight. Result and preview reads are not counted."""
+        step's branches (two per depth-1 tick, up to K+1 per chain tick),
+        one ``advanced`` fetch per tick with a deep or controlled request
+        in flight, and one per decode admission (the prefill's first
+        token). Result and preview reads are not counted."""
         return self._host_syncs
 
     def resolve_policy(self, req: Request,
@@ -599,13 +669,20 @@ class SpeCaEngine:
         pol = base if base is not None \
             else req.policy if req.policy is not None \
             else (self.default_policy or RequestPolicy())
+        wl = self._workload(pol.workload)
         if req.guidance_scale is not None:
             pol = dataclasses.replace(
                 pol, guidance_scale=float(req.guidance_scale))
-        if self.guidance and pol.guidance_scale is None:
+        if self.guidance and wl.supports_pairing \
+                and pol.guidance_scale is None:
             pol = dataclasses.replace(
                 pol,
                 guidance_scale=float(self.workload.dcfg.guidance_scale))
+        if pol.guided and not wl.supports_pairing:
+            raise ValueError(
+                f"workload {wl.tag!r} does not support guided lane pairs: "
+                "classifier-free guidance is a diffusion concept; submit "
+                "decode requests unguided")
         dk = pol.draft_depth
         if dk is not None and not 1 <= int(dk) <= self.max_draft_depth:
             raise ValueError(
@@ -628,20 +705,28 @@ class SpeCaEngine:
                 f"RequestPolicy.weight must be > 0, got {pol.weight}")
         return pol
 
-    def _lane_step(self, W: int, mode: Any = False) -> LS.LaneStep:
-        """The W-lane step (built once per width and program): ``mode``
-        ``False`` is the plain per-lane program, ``"mixed"`` the
-        slot-width pair-mask program."""
-        key = (W, mode, self.controller)
+    def _workload(self, tag: str) -> Workload:
+        try:
+            return self.workloads[tag]
+        except KeyError:
+            raise ValueError(
+                f"unknown workload {tag!r} (this engine serves "
+                f"{sorted(self.workloads)})") from None
+
+    def _lane_step(self, W: int, mode: Any = False,
+                   tag: str = "diffusion") -> LS.LaneStep:
+        """The W-lane step of workload ``tag`` (built once per workload,
+        width and program): ``mode`` ``False`` is the plain per-lane
+        program, ``"mixed"`` the slot-width pair-mask program."""
+        key = (tag, W, mode)
         if key not in self._lane_fns:
             self._lane_fns[key] = LS.build_workload_step(
-                self.workload, lanes=W, draft_mode=self.draft_mode,
+                self._workload(tag), lanes=W, draft_mode=self.draft_mode,
                 accept_mode=self.accept_mode,
                 verify_backend=self.verify_backend, guidance=mode,
                 max_draft_depth=self.max_draft_depth,
                 forecaster=self.forecaster, controller=self.controller)
             if self._obs is not None:
-                tag = self.workload.tag
                 self._obs.metrics.counter("speca_programs_built_total",
                                           workload=tag).inc()
                 self._obs.recorder.record("compile", self.clock.now(),
@@ -668,7 +753,7 @@ class SpeCaEngine:
     # --- lifecycle -----------------------------------------------------------
     @property
     def current_tick(self) -> int:
-        return self._session.tick if self._session is not None else 0
+        return max((s.tick for s in self._sessions.values()), default=0)
 
     def pending(self) -> int:
         """Queued (not yet admitted) requests."""
@@ -676,35 +761,46 @@ class SpeCaEngine:
 
     def in_flight(self) -> int:
         """Admitted, not yet completed requests."""
-        return len(self._session.entries()) if self._session else 0
+        return sum(len(s.entries()) for s in self._sessions.values())
 
-    def start(self, *, lanes: Optional[int] = None) -> None:
-        """Start the lifecycle session (else the first ``submit`` starts it
-        at the engine's ``lanes``). It is always pair-capable: the width
-        rounds up to whole pairs, so guided and unguided submissions
-        mix."""
-        if self._session is not None:
-            raise RuntimeError("serving session already started; "
-                               "shutdown() first to resize")
-        W = max(lanes if lanes is not None else self.default_lanes, 2)
-        self._session = _Session(self, -(-W // 2) * 2, paired=True)
+    def start(self, *, lanes: Optional[int] = None,
+              workload: str = "diffusion") -> None:
+        """Start one workload's lifecycle session (else the first
+        ``submit`` routed to it starts it at the engine's ``lanes``). A
+        diffusion session is always pair-capable: the width rounds up to
+        whole pairs, so guided and unguided submissions mix; a decode
+        session is plain."""
+        wl = self._workload(workload)
+        if workload in self._sessions:
+            raise RuntimeError(f"serving session for workload {workload!r} "
+                               "already started; shutdown() first to resize")
+        W = lanes if lanes is not None else self.default_lanes
+        if wl.supports_pairing:
+            W = max(W, 2)
+            sess = _Session(self, -(-W // 2) * 2, paired=True, workload=wl)
+        else:
+            sess = _Session(self, max(W, 1), paired=False, workload=wl)
+        self._sessions[workload] = sess
 
     def submit(self, req: Request,
                policy: Optional[RequestPolicy] = None) -> Ticket:
         """Queue one request; returns a ``Ticket`` to poll or stream on.
         ``policy`` overrides ``req.policy`` (the legacy guidance fields
-        still fold in). Raises ``QueueFull`` at ``max_queue``. A rejected
-        request leaves no trace: the policy and the payload are validated
-        before the session starts or a ticket is issued."""
+        still fold in); its ``workload`` routes the request to that
+        workload's session. Raises ``QueueFull`` at ``max_queue``. A
+        rejected request leaves no trace: the policy and the payload are
+        validated before the session starts or a ticket is issued."""
         if self.max_queue is not None and len(self._sched) >= self.max_queue:
             raise QueueFull(f"admission queue at max_queue={self.max_queue}")
         pol = self.resolve_policy(req, base=policy)
-        steps = pol.steps(self.workload.num_steps)
-        self.workload.validate_request(req, steps)
-        if self._session is None:
-            self.start()
+        wl = self.workloads[pol.workload]
+        steps = pol.steps(wl.num_steps)
+        wl.validate_request(req, steps)
+        if pol.workload not in self._sessions:
+            self.start(workload=pol.workload)
+        sess = self._sessions[pol.workload]
         item = QueueItem(seq=self._seq, request=req, policy=pol, steps=steps,
-                         submit_tick=self._session.tick, ticket_id=self._seq,
+                         submit_tick=sess.tick, ticket_id=self._seq,
                          submit_s=self.clock.now())
         self._seq += 1
         self._sched.push(item)
@@ -712,31 +808,33 @@ class SpeCaEngine:
         if self._obs is not None:
             self._obs.recorder.record(
                 "submit", item.submit_s, ticket=item.ticket_id,
-                request=req.request_id, workload=self.workload.tag,
+                request=req.request_id, workload=pol.workload,
                 tenant=pol.tenant, steps=steps)
         return Ticket(ticket_id=item.ticket_id, request_id=req.request_id,
                       submit_tick=item.submit_tick)
 
     def tick(self, n: int = 1) -> List[Result]:
-        """Advance the lifecycle session up to ``n`` scheduler ticks
-        (admission, then one lane step); returns the Results completed on
-        the way. Stops early when the engine is idle."""
+        """Advance the lifecycle sessions up to ``n`` scheduler ticks
+        (admission, then one lane step of every busy session); returns
+        the Results completed on the way. Stops early when the engine is
+        idle."""
         done: List[Result] = []
         for _ in range(n):
-            sess = self._session
-            if sess is None:
+            if not self._sessions:
                 break
             if self._obs is not None:
                 # before admission, so a burst shows at its full height
                 self._obs_tick_sample()
-            for entry in _admit_into(sess, self._sched):
+            for entry in _admit_into(self._sessions, self._sched):
                 self._ticket_status[entry.item.ticket_id] = "running"
-            if not sess.busy():
+            busy = [s for s in self._sessions.values() if s.busy()]
+            if not busy:
                 break
             self._tick_count += 1
-            for _entry, res in sess.advance():
-                self._record(res)
-                done.append(res)
+            for sess in busy:
+                for _entry, res in sess.advance():
+                    self._record(res)
+                    done.append(res)
         return done
 
     def _obs_tick_sample(self) -> None:
@@ -809,7 +907,7 @@ class SpeCaEngine:
 
     def _idle(self) -> bool:
         return not (len(self._sched)
-                    or (self._session is not None and self._session.busy()))
+                    or any(s.busy() for s in self._sessions.values()))
 
     def results(self, tickets: List[Union[Ticket, int]]) -> List[Result]:
         """``result`` over a ticket list, in its order."""
@@ -819,14 +917,12 @@ class SpeCaEngine:
         """Snapshots of the wanted running entries: pure reads of their
         lanes' state. A deep entry that has not advanced yet has
         nothing to show."""
-        sess = self._session
-        if sess is None:
-            return []
         return [Preview(ticket_id=e.item.ticket_id,
                         request_id=e.item.request.request_id, tick=sess.tick,
                         step=min(e.done, e.item.steps),
-                        sample=sess.wl.emit(sess.state, e.lanes[0], e.done))
-                for e in sess.entries()
+                        sample=sess.wl.emit(sess.state, e.lanes[0], e.done),
+                        workload=sess.wl.tag)
+                for sess in self._sessions.values() for e in sess.entries()
                 if (want is None or e.item.ticket_id in want) and e.done > 0]
 
     def stream(self, tickets: Optional[List[Union[Ticket, int]]] = None,
@@ -873,8 +969,8 @@ class SpeCaEngine:
         started; the session is discarded (the next ``submit`` starts a
         new one). Returns the drained Results."""
         out: List[Result] = []
-        if self._session is not None:
-            for _entry, res in self._session.drain():
+        for sess in self._sessions.values():
+            for _entry, res in sess.drain():
                 self._record(res)
                 out.append(res)
         for item in self._sched.drain():
@@ -885,12 +981,12 @@ class SpeCaEngine:
                 self._obs.recorder.record(
                     "drop", self.clock.now(), ticket=item.ticket_id,
                     request=item.request.request_id,
-                    workload=self.workload.tag, tenant=item.policy.tenant,
+                    workload=item.policy.workload, tenant=item.policy.tenant,
                     started=False)
         if self._obs is not None:
-            # the session owns its accumulator: flush before discarding it
-            self._flush_lane_metrics(self._session)
-        self._session = None
+            # the sessions own their accumulators: flush before discarding
+            self._flush_lane_metrics(self._sessions.values())
+        self._sessions = {}
         return out
 
     # --- observability -------------------------------------------------------
@@ -899,18 +995,18 @@ class SpeCaEngine:
         """The engine's observability bundle (None when obs is off)."""
         return self._obs
 
-    def _flush_lane_metrics(self, sess: Optional[_Session]) -> None:
-        if sess is not None:
+    def _flush_lane_metrics(self, sessions) -> None:
+        for sess in sessions:
             sess._acc.flush_into(self._obs.metrics, workload=sess.wl.tag)
 
     def metrics_snapshot(self) -> List[Dict[str, Any]]:
-        """Flush the lifecycle session's lane accumulator (the one device
+        """Flush the lifecycle sessions' lane accumulators (the one device
         read observability adds, paid only here) and return the metrics
         snapshot. Raises ``RuntimeError`` when obs is off."""
         if self._obs is None:
             raise RuntimeError("engine constructed with obs=False — "
                                "pass SpeCaEngine(obs=True) for metrics")
-        self._flush_lane_metrics(self._session)
+        self._flush_lane_metrics(self._sessions.values())
         return self._obs.metrics.snapshot()
 
     def trace(self, ticket: Union[Ticket, int]) -> Optional[Trace]:
@@ -926,8 +1022,9 @@ class SpeCaEngine:
     def serve_batched(self, requests: List[Request], *, lanes: int = 4,
                       max_ticks: Optional[int] = None,
                       scheduler: Any = None) -> List[Result]:
-        """Serve a request list to completion through one private session
-        and a fresh queue of the engine's scheduler (or ``scheduler``).
+        """Serve a request list to completion through private sessions (one
+        per workload in the list, each sized to its own requests) and a
+        fresh queue of the engine's scheduler (or ``scheduler``).
 
         Packs up to ``lanes`` concurrent lanes per lane step (a guided
         request takes a pair of them); finished slots are refilled from
@@ -939,32 +1036,41 @@ class SpeCaEngine:
         """
         if not requests:
             return []
-        S = self.workload.num_steps
         pols = [self.resolve_policy(r) for r in requests]
-        for req, pol in zip(requests, pols):
-            self.workload.validate_request(req, pol.steps(S))
-        sess = _Session(self, self._width_for(max(lanes, 1), pols),
-                        paired=any(p.guided for p in pols))
+        steps = [p.steps(self.workloads[p.workload].num_steps) for p in pols]
+        for req, pol, n in zip(requests, pols, steps):
+            self.workloads[pol.workload].validate_request(req, n)
+        sessions: Dict[str, _Session] = {}
+        for tag in sorted({p.workload for p in pols}):
+            mine = [p for p in pols if p.workload == tag]
+            sessions[tag] = _Session(
+                self, self._width_for(max(lanes, 1), mine),
+                paired=any(p.guided for p in mine),
+                workload=self.workloads[tag])
         sched = fresh_scheduler(self.scheduler_spec if scheduler is None
                                 else scheduler)
         # keyed on queue position, so duplicate ids get their own Result
-        for i, (r, p) in enumerate(zip(requests, pols)):
-            sched.push(QueueItem(seq=i, request=r, policy=p, steps=p.steps(S),
+        for i, (r, p, n) in enumerate(zip(requests, pols, steps)):
+            sched.push(QueueItem(seq=i, request=r, policy=p, steps=n,
                                  ticket_id=i, submit_s=self.clock.now()))
         results: Dict[int, Result] = {}
-        while len(sched) or sess.busy():
-            if max_ticks is not None and sess.tick >= max_ticks:
+        while len(sched) or any(s.busy() for s in sessions.values()):
+            if max_ticks is not None and max(
+                    s.tick for s in sessions.values()) >= max_ticks:
                 break
-            _admit_into(sess, sched)
-            for entry, res in sess.advance():
+            _admit_into(sessions, sched)
+            for sess in sessions.values():
+                if sess.busy():
+                    for entry, res in sess.advance():
+                        results[entry.item.seq] = res
+        for sess in sessions.values():
+            for entry, res in sess.drain():
                 results[entry.item.seq] = res
-        for entry, res in sess.drain():
-            results[entry.item.seq] = res
         for item in sched.drain():
             results[item.seq] = _dropped_result(item)
         if self._obs is not None:
-            # the private session reports before it is discarded
-            self._flush_lane_metrics(sess)
+            # the private sessions report before they are discarded
+            self._flush_lane_metrics(sessions.values())
         return [results[i] for i in range(len(requests))]
 
     def serve(self, requests: List[Request], *, lanes: int = 1,
@@ -989,23 +1095,33 @@ class SpeCaEngine:
         return ("taylor_predict_lanes", "verify_accept", refresh)
 
     def warmup(self, cond: Dict[str, Any], *, lanes: int = 1,
-               mixed: bool = False) -> None:
-        """Prepare the serving step for ``lanes`` outside any timed window:
-        on the card, build and load every kernel the step launches (one
-        nvcc per missing source, in parallel); then serve dummy requests
-        end to end at that width (the allocator, cuBLAS and both branches
-        warm up). ``cond`` is a conditioning template with leading axis 1.
+               mixed: bool = False, workload: str = "diffusion") -> None:
+        """Prepare workload ``workload``'s serving step for ``lanes``
+        outside any timed window: on the card, build and load every kernel
+        the step launches (one nvcc per missing source, in parallel); then
+        serve dummy requests end to end at that width (the allocator,
+        cuBLAS and both branches warm up). ``cond`` is a conditioning
+        template with leading axis 1 (decode: ``{"tokens": [1, P]}``).
         The default warms the engine-mode program (plain, or all-guided
         pairs under ``guidance=True``); ``mixed=True`` warms only the
         slot-width program, with a guided + unguided dummy mix — the one
-        the lifecycle session and mixed ``serve_batched`` batches run."""
-        if self.workload.device.type == "cuda":
+        the lifecycle session and mixed ``serve_batched`` batches run.
+        ``mixed`` is a pair-slot notion, ignored for a workload without
+        pairs."""
+        wl = self._workload(workload)
+        if self.device.type == "cuda":
             from repro_torch.kernels import build
             names = list(self.kernel_sources())
             build.build_all(names)
             for name in names:
                 build.library(name)
         lanes = max(lanes, 1)
+        if not wl.supports_pairing:
+            pol = RequestPolicy(workload=workload)
+            self.serve_batched([Request(request_id=-1 - i, cond=cond,
+                                        seed=90_000 + i, policy=pol)
+                                for i in range(lanes)], lanes=lanes)
+            return
         streams = 2 if self.guidance else 1
         if not mixed or self.guidance:
             n = max(-(-lanes // streams), 1)

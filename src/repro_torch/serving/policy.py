@@ -25,23 +25,26 @@ class RequestPolicy:
     draft horizon K — its lane (or pair) drafts up to K steps per
     scheduler tick before one closing verify/refresh round (None or 1 =
     depth-1 forecast-then-verify); a value above the engine's
-    ``max_draft_depth`` is rejected. priority: higher pops first within a
-    scheduler's ordering class (FIFO orders by (priority, arrival); SJF
-    and EDF use it as a tie-break). deadline: the scheduler tick by which
-    the request should complete (EDF's key; ``Result.deadline_met``);
-    ``None`` sorts last under EDF. tenant: the request's fair-queueing
-    class under WFQ (other schedulers ignore it). weight: the tenant's
-    WFQ share, > 0. controller: a ``ControllerPolicy`` makes the request's
-    τ0, draft depth and forecast order starting points that the
-    controller adapts in flight toward its accept-rate or deadline SLO
-    (needs ``SpeCaEngine(controller=True)``); ``None`` serves it
-    statically."""
+    ``max_draft_depth`` is rejected. workload: the tag of the engine
+    workload that serves the request (``"diffusion"`` or ``"decode"``;
+    guided decode requests are rejected at resolution). priority: higher
+    pops first within a scheduler's ordering class (FIFO orders by
+    (priority, arrival); SJF and EDF use it as a tie-break). deadline:
+    the scheduler tick by which the request should complete (EDF's key;
+    ``Result.deadline_met``); ``None`` sorts last under EDF. tenant: the
+    request's fair-queueing class under WFQ (other schedulers ignore
+    it). weight: the tenant's WFQ share, > 0. controller: a
+    ``ControllerPolicy`` makes the request's τ0, draft depth and forecast
+    order starting points that the controller adapts in flight toward
+    its accept-rate or deadline SLO (needs
+    ``SpeCaEngine(controller=True)``); ``None`` serves it statically."""
 
     guidance_scale: Optional[float] = None
     negative_cond: Optional[Dict[str, Any]] = None
     tau0: Optional[float] = None
     max_steps: Optional[int] = None
     draft_depth: Optional[int] = None
+    workload: str = "diffusion"
     priority: int = 0
     deadline: Optional[float] = None
     tenant: str = "default"

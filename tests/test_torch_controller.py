@@ -59,7 +59,7 @@ def _mk_state(seed, pol_idx, active, *, mod=CT):
           "draft_k": rng.integers(1, 5, W).astype(np.int32),
           "max_step": np.full(W, MAX_STEP, np.int32)}
     st.update({k: np.array(v) for k, v in
-               CT.init_controller_state(W, ORDER).items()})
+               CT.init_controller_state(W, ORDER, device="cpu").items()})
     pols = _pols(mod)
     for lane, pi in enumerate(pol_idx):
         vals = mod.lane_values(pols[pi], tau0=float(tau0[lane]),
@@ -105,7 +105,7 @@ def _ref_update(st, act, counters):
 
 def test_init_and_lane_values_match_reference():
     ref = JCT.init_controller_state(W, ORDER)
-    got = CT.init_controller_state(W, ORDER)
+    got = CT.init_controller_state(W, ORDER, device="cpu")
     assert set(got) == set(ref) == set(CT.CONTROLLER_KEYS) \
         == set(JCT.CONTROLLER_KEYS)
     for k in ref:

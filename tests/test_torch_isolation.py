@@ -20,6 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py",
+        REPO / "tools" / "profile_torch_decode.py",
         REPO / "tools" / "flash_ab.py", REPO / "tools" / "verify_ab.py",
         REPO / "tools" / "rollback_ab.py",
         REPO / "tools" / "profiler_windows.py"]
@@ -94,33 +95,54 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("entry", ["init_params", "params_from_jax",
                                    "engine", "speca_sample",
-                                   "sample_full"])
+                                   "sample_full", "lm_init_params",
+                                   "lm_params_from_jax", "decode_workload",
+                                   "engine_workloads",
+                                   "init_controller_state"])
 def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch import configs as PC
     from repro_torch.convert import params_from_jax
+    from repro_torch.core.controller import init_controller_state
     from repro_torch.core.speca import speca_sample
+    from repro_torch.core.workload import DecodeWorkload
     from repro_torch.diffusion.pipeline import sample_full
     from repro_torch.layers.model import init_params
     from repro_torch.serving import SpeCaEngine
 
     cfg = PC.ModelConfig(name="t", num_layers=1, d_model=8, num_heads=2,
                          d_ff=16, num_classes=2, dtype="float32")
+    lm = PC.ModelConfig(name="lm", arch_type="dense", num_layers=1,
+                        d_model=8, num_heads=2, num_kv_heads=1, d_ff=16,
+                        vocab_size=20, dtype="float32")
     dcfg = PC.DiffusionConfig(num_inference_steps=2, latent_size=4)
     scfg = PC.SpeCaConfig()
     params = init_params(cfg, torch.Generator(), device="cpu")
+    lm_params = init_params(lm, torch.Generator(), device="cpu")
+    decode = DecodeWorkload(lm, lm_params, scfg, max_new_tokens=2,
+                            max_seq_len=8, device="cpu")
     cond = {"labels": torch.tensor([0])}
     calls = {
         "init_params": lambda: init_params(cfg, torch.Generator()),
-        "params_from_jax": lambda: params_from_jax(
-            {g: {k: v.numpy() if isinstance(v, torch.Tensor) else
-                 {kk: vv.numpy() for kk, vv in v.items()}
-                 for k, v in params[g].items()} for g in params}),
+        "params_from_jax": lambda: params_from_jax(_numpy_tree(params)),
         "engine": lambda: SpeCaEngine(cfg, params, dcfg, scfg),
         "speca_sample": lambda: speca_sample(cfg, params, dcfg, scfg, cond,
                                              1),
         "sample_full": lambda: sample_full(cfg, params, dcfg, cond, 1),
+        "lm_init_params": lambda: init_params(lm, torch.Generator()),
+        "lm_params_from_jax": lambda: params_from_jax(
+            _numpy_tree(lm_params)),
+        "decode_workload": lambda: DecodeWorkload(
+            lm, lm_params, scfg, max_new_tokens=2, max_seq_len=8),
+        "engine_workloads": lambda: SpeCaEngine(
+            workloads={"decode": decode}),
+        "init_controller_state": lambda: init_controller_state(2, 2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1036,7 +1036,7 @@ def test_guided_pair_controller_state_stays_pair_equal(controller_engines):
     st0 = None
     for _ in range(8):
         pe.tick()
-        st = pe._session.state
+        st = pe._sessions["diffusion"].state
         for k in CT.CONTROLLER_KEYS + ("tau0", "draft_k"):
             assert torch.equal(st[k][0], st[k][1]), k
         st0 = st0 or {k: st[k][0].clone() for k in ("tau0", "draft_k")}
@@ -1175,7 +1175,7 @@ def test_lifecycle_rejected_submit_leaves_no_trace(life_engines):
                                    policy=jpol)
         with pytest.raises(exc, match=match):
             pe.submit(Request(request_id=0, cond={}), policy=pol)
-        assert pe._session is None and pe.pending() == 0
+        assert not pe._sessions and pe.pending() == 0
         assert pe._seq == seq
     assert set(pe._ticket_status) <= set(range(seq))
 
@@ -1577,3 +1577,84 @@ def test_obs_trace_spans_and_observability_injection(both, engines):
     done = [r for r in snap if r["name"] == "speca_requests_completed_total"]
     assert sum(r["value"] for r in done) == 3.0
     eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Diffusion and decode lanes on one engine (the analogue of
+# tests/test_decode_workload.py::test_mixed_diffusion_decode_lifecycle)
+# ---------------------------------------------------------------------------
+
+def test_mixed_diffusion_decode_lifecycle(both, engines):
+    """One engine, one scheduler, both workloads in flight at once: each
+    side equals its solo run at the same width (samples bitwise), and
+    the reference's mixed engine (accepts, counters, flops; latents within
+    1e-5, tokens equal), with per-workload FLOPs."""
+    from repro.configs import get_config, reduced
+    from repro.core.workload import DecodeWorkload as JDecodeWorkload
+    from repro_torch.core.workload import DecodeWorkload
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    _, pe = engines
+    lm = reduced(get_config("llama3-8b"))
+    lm_params = JM.init_params(lm, jax.random.PRNGKey(0))
+    plm = port_record(PC.ModelConfig, lm)
+    plm_params = params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                        lm_params),
+                                 device="cpu")
+    P, G = 8, 10
+    jscfg, pscfg = _scfgs(tau0=0.05)
+    jwl = JDecodeWorkload(lm, lm_params, JSpeCaConfig(tau0=5.0),
+                          max_new_tokens=G, max_seq_len=P + G)
+
+    def pwl():
+        return DecodeWorkload(plm, plm_params, PC.SpeCaConfig(tau0=5.0),
+                              max_new_tokens=G, max_seq_len=P + G,
+                              device="cpu")
+    prompts = [np.asarray(jax.random.randint(jax.random.PRNGKey(s), (1, P),
+                                             0, lm.vocab_size), np.int32)
+               for s in (3, 4)]
+
+    def reqs(Req, Pol, lab):
+        d = [Req(request_id=10, cond={"labels": lab([3])}, seed=1),
+             Req(request_id=11, cond={"labels": lab([3])}, seed=2,
+                 policy=Pol(guidance_scale=2.0))]
+        t = [Req(request_id=20 + i, cond={"tokens": p},
+                 policy=Pol(workload="decode", tau0=5.0))
+             for i, p in enumerate(prompts)]
+        return d, t
+
+    jd, jt = reqs(JRequest, JRequestPolicy, jnp.asarray)
+    pd, pt = reqs(Request, RequestPolicy, torch.tensor)
+    jmixed = JEngine(cfg, params, dcfg, jscfg, workloads={"decode": jwl},
+                     lanes=2)
+    mixed = SpeCaEngine(pcfg, tp, pdcfg, pscfg, noise_fn=pe.workload.noise_fn,
+                        workloads={"decode": pwl()}, lanes=2, device="cpu")
+    jres = jmixed.results([jmixed.submit(r) for r in jd + jt])
+    tickets = [mixed.submit(r) for r in pd + pt]
+    mixed.tick(2)
+    assert mixed.in_flight() >= 2 and set(mixed._sessions) == {
+        "diffusion", "decode"}
+    res = mixed.results(tickets)
+    assert [r.workload for r in res] == ["diffusion"] * 2 + ["decode"] * 2
+    assert all(r.completed for r in res)
+    solo_d = SpeCaEngine(pcfg, tp, pdcfg, pscfg,
+                         noise_fn=pe.workload.noise_fn, lanes=2,
+                         device="cpu")
+    solo_t = SpeCaEngine(workloads={"decode": pwl()}, lanes=2, device="cpu")
+    solo = [solo_d.result(solo_d.submit(r)) for r in pd] + \
+        [solo_t.result(solo_t.submit(r)) for r in pt]
+    for got, want, ref in zip(res, solo, jres):
+        assert got.workload == ref.workload
+        assert got.accepts == want.accepts == ref.accepts
+        assert (got.num_full, got.num_spec, got.num_drafted) == \
+            (want.num_full, want.num_spec, want.num_drafted) == \
+            (ref.num_full, ref.num_spec, ref.num_drafted)
+        assert got.flops == want.flops == pytest.approx(ref.flops,
+                                                        rel=1e-12)
+        assert torch.equal(got.sample, want.sample)
+        if got.workload == "decode":
+            assert got.sample.tolist() == np.asarray(ref.sample).tolist()
+        else:
+            np.testing.assert_allclose(got.sample.numpy(),
+                                       np.asarray(ref.sample), **TOL)
+    assert res[0].flops != res[2].flops
+    assert sum(r.num_spec for r in res[2:]) > 0
