@@ -84,7 +84,8 @@ Phases (any failure ends the run with a non-zero exit):
    Launch counts are reset just before this run and read just after:
    every kernel must have launched. The first 4 requests are served again
    at lanes=1 and must keep identical per-request counters and accept
-   trajectories.
+   trajectories; the samples' largest difference is recorded, and that
+   of one forward of the 4 latents at once against each alone.
 4. Deep speculation: the same model and requests on
    ``SpeCaEngine(max_draft_depth=4)`` with ``draft_depth`` 1, 2, 4, 4 by
    request. The chain predict and the rollback must have launched in this
@@ -155,6 +156,52 @@ Phases (any failure ends the run with a non-zero exit):
    (torch.profiler) for a depth-1 and a chain tick's flags, and the
    lifecycle walls on and off.
 10. ``speca_sample`` at batch 2 on the same model.
+10a. ``flux_kernels``: the main path's kernels at the FLUX-like serving
+    table [3, 38, 2, 4, 1024, 3072] bf16 (5.7 GB; 304 rows of 3.1 M,
+    element offsets past 2^31): the lane predict and every chain position
+    (K = 4) within one bf16 ulp (rtol 2^-8) of the plain f32 sum, each
+    chain position also bitwise the lane predict with its weights, the
+    refresh (bitwise), the verify on [4, 1024·3072] planes (rtol 1e-5,
+    accept bits wherever |e − τ| > 1e-5) and the rollback bitwise on
+    latent snapshots [5] × [4, 64, 64, 16] f32; each timed by CUDA events
+    beside its plain version, a library call and its bound (the rows'
+    ``flux`` entry).
+10b. ``video_kernels``: the same at the HunyuanVideo-like serving table
+    [3, 40, 2, 2, 2048, 3072] bf16 (6.0 GB; 160 rows of 6.3 M), the
+    verify on [2, 2048·3072] planes and the rollback on the 5-D latent
+    snapshots [5] × [2, 8, 32, 32, 16] f32 that phase 10d rolls back (the
+    rows' ``video`` entry).
+10c. Text-to-image (``serve_flux``): FLUX-like at full width and depth
+    (``repro_torch.configs.FLUX_LIKE``: 38 layers, d 3072, 24 heads,
+    d_ff 12288, 16 latent channels, ``cond_dim`` 768; bf16 random weights
+    drawn on the card and tamed as in phase 3, the text projection at the
+    reference's N(0, 1/768)), 50 rectified-flow steps on 64×64 latents
+    (1024 tokens), each request with a seeded text stub [1, 8, 768] of
+    scale 0.1, ``SpeCaConfig(taylor_order=2)`` (phase 3's τ0). (a) 4
+    requests at lanes=4, the launch counts set to 0 just before and read
+    just after: the lane predict, refresh and verify launch; (b) the same
+    requests at lanes=2: equal accepts and counters, samples within 1e-5
+    (where an accept differs, the first step and |e − τ| there are
+    printed and recorded first); (c) one guided request (scale 3.5, null
+    = the zeroed stub) beside (a)'s requests 0 and 1 at lanes=4:
+    ``verify_accept_mixed`` launches and ``verify_accept`` does not, the
+    unguided requests keep (a)'s trajectories and samples (1e-5). Some
+    draft is accepted and some rejected over the phase. Recorded: walls,
+    ticks, α, host syncs, peak memory, how far a stub moves t_emb, and one
+    full and one speculative forward at lanes=4 (wall, kernels, device
+    busy time from torch.profiler, the attention kernel) beside their
+    bounds; each forward's reading is two traced windows of one call
+    with equal kernel counts, counted in phase 13.
+10d. Text-to-video (``serve_video``): HunyuanVideo-like at full width
+    and depth (``HUNYUAN_VIDEO_LIKE``: 40 layers, otherwise as FLUX-like),
+    8 latent frames of 32×32 (2048 tokens), 50 rectified-flow steps, 2
+    requests at lanes=2: depth 1 (lane predict, refresh and verify
+    launch), then on ``SpeCaEngine(max_draft_depth=4)`` at draft depth 4:
+    the chain predict and the rollback launch (on the 5-D latent
+    snapshots, once a chain tick that drafted and never on one that did
+    not), accepts, counters and samples (1e-5) equal depth 1's, in fewer
+    ticks. Recorded as for 10c. Each of 10a–10d frees its tensors and the
+    allocator's cache before the next phase.
 11. LLM decode lanes (``serve_decode``): Llama-3-8B at full width and
     depth (``repro_torch.configs.LLAMA3_8B``: 32 layers, d 4096, 32
     heads on 8 KV heads, d_ff 14336, vocabulary 128,256; bf16, random
@@ -180,12 +227,20 @@ Phases (any failure ends the run with a non-zero exit):
 13. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
-    windows), and at most one reading in 10 may have needed that.
+    windows), as is a pair of one-call windows of a 10c/10d forward whose
+    counts differ, and at most one reading in 10 may have needed that.
+    The times at the FLUX-like and HunyuanVideo-like tables are CUDA
+    events, not profiler readings.
 
 Each serving phase resets the launch counts just before its run and
 reads them just after, and asserts the kernels of its own path. A kernel
 row's ``decode`` entry holds its decode-shape numbers and its launches in
-``serve_decode``.
+``serve_decode``; its ``flux`` entry its numbers at the FLUX-like table
+and its launches in ``serve_flux``; its ``video`` entry its numbers at
+the HunyuanVideo-like table and its launches in ``serve_video``. Every
+width comparison of phases 3–7 and 10c (lanes 4 against 1 or 2) holds
+accepts and counters (FLOPs too) and records the samples' largest
+difference; 10c holds its samples within 1e-5 as well.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``; the line before them is
@@ -229,6 +284,13 @@ DECODE_NEW = 64                   # new tokens a decode request asks for
 DECODE_SEQ = 192                  # max_seq_len of a decode lane's cache
 DECODE_PROMPT = (16, 128)         # seeded prompt lengths, inclusive
 L2_FLUSH_BYTES = 128 * 2**20      # written between timed calls: > 50 MB L2
+# the text- and video-conditioned DiTs (serve_flux, serve_video)
+TEXT_TOKENS, TEXT_SCALE = 8, 0.1  # a request's text stub [1, 8, cond_dim]
+FLUX_LATENT = 64                  # 512×512 through an 8× VAE: 1024 tokens
+FLUX_GUIDANCE = 3.5
+# 29 frames at 256×256 through a 4× temporal, 8× spatial VAE: 8 latent
+# frames of 32×32, 2048 tokens
+VIDEO_FRAMES, VIDEO_LATENT, VIDEO_LANES = 8, 32, 2
 # the __global__ functions of the serving kernels, as the profiler names
 # them
 DEVICE_NAMES = {"taylor_predict_lanes": "predict_lanes_kernel",
@@ -302,6 +364,41 @@ def _cuda_events(torch, fn, iters: int, attempts: int = 5):
               f"{len(events)} CUDA events for {iters} calls", flush=True)
     PROFILE_WINDOWS.append(used)
     return events
+
+
+def _traced_call(torch, fn, attempts: int = 5):
+    """The CUDA events of one call of ``fn``: torch.profiler traces two
+    windows of one call each, each after a warm-up cycle of its own (a
+    window that opens cold loses some of its first kernels: a speculative
+    forward counted 201 kernels in a cold window of one call, 264.5 a call
+    in one of two). Every call launches the same kernels, so two windows
+    with no CUDA event or with different counts are no reading, and the
+    pair is traced again, up to ``attempts`` times, and none agreeing is
+    a failure. The tries go to ``PROFILE_WINDOWS`` as ``_cuda_events``'
+    do; the second window's events are returned."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for used in range(1, attempts + 1):
+        windows = []
+
+        def keep(prof):
+            windows.append([e for e in prof.events() if e.device_type
+                            == torch.autograd.DeviceType.CUDA])
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=2),
+                     on_trace_ready=keep) as prof:
+            for _ in range(4):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counts = [len(w) for w in windows]
+        if len(counts) == 2 and counts[0] and counts[0] == counts[1]:
+            break
+        print(f"profiler: traced pair {used} of {attempts} recorded "
+              f"{counts} CUDA events for one call each", flush=True)
+    else:
+        raise AssertionError(f"no two windows of {attempts} pairs agreed")
+    PROFILE_WINDOWS.append(used)
+    return windows[-1]
 
 
 def device_spans(torch, fn, iters: int = 1):
@@ -1150,11 +1247,17 @@ class Smoke:
 
     # --- phase 3 -------------------------------------------------------------
     def _model(self):
+        return self._tamed_params(self.cfg, self.dcfg)
+
+    def _tamed_params(self, cfg, dcfg):
+        """Random parameters of ``cfg`` drawn on the card from seed 0, tamed
+        so that drafts can be accepted (see the docstring); a continuous
+        conditioning projection keeps the reference's N(0, 1/cond_dim)."""
         torch = self.torch
         from repro_torch.layers.model import init_params
         gen = torch.Generator(device=self.dev).manual_seed(0)
-        params = init_params(self.cfg, gen, device=self.dev)
-        d = self.cfg.d_model
+        params = init_params(cfg, gen, device=self.dev)
+        d = cfg.d_model
         noise = torch.Generator(device=self.dev).manual_seed(1)
 
         def fill(t, scale):
@@ -1171,11 +1274,12 @@ class Smoke:
         # make t_emb — and every AdaLN modulation — jump at random from one
         # sampler step to the next, which no trained DiT does and which
         # rejects every draft. Keep only the sinusoids that turn at most
-        # 0.2 rad per sampler step.
+        # 0.2 rad per sampler step (DDIM and rectified flow alike: the
+        # model's t moves num_train_timesteps / steps a step).
         half = d // 2
         freq = torch.exp(-math.log(10_000.0)
                          * torch.arange(half, device=self.dev) / half)
-        dt = self.dcfg.num_train_timesteps / self.dcfg.num_inference_steps
+        dt = dcfg.num_train_timesteps / dcfg.num_inference_steps
         keep = (dt * freq <= 0.2).to(torch.float32)
         params["embed"]["time"]["w1"] *= torch.cat([keep, keep])[:, None]
         return params
@@ -1230,19 +1334,38 @@ class Smoke:
         assert torch.isfinite(samples).all(), "non-finite samples"
         assert all(r.completed and r.num_full + r.num_spec == S
                    for r in res)
-        solo = engine.serve_batched(reqs[:LANES], lanes=1)
-        for a, b in zip(res[:LANES], solo):
-            assert (a.num_full, a.num_spec, a.accepts) == \
-                (b.num_full, b.num_spec, b.accepts), \
-                f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
-        print(f"lanes={LANES} and lanes=1 counters identical for the first "
-              f"{LANES} requests")
+        width = self._hold_width(
+            "serve", res[:LANES],
+            engine.serve_batched(reqs[:LANES], lanes=1), (LANES, 1))
+        width["forward_max_abs_diff"] = self._forward_width_diff(params)
         self.serve_results = res
         self.record["serve"] = dict(
+            width=width,
             requests=per_req, wall_s=wall, req_per_s=N_REQUESTS / wall,
             host_syncs=syncs, ticks=ticks, launches=launches,
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             sample_abs_max=samples.abs().max().item())
+
+    def _forward_width_diff(self, params):
+        """The largest difference between one full forward of LANES
+        seeded latents at once and of each alone (t = 500, labels 0..3),
+        where a lane width first reaches a sample; recorded."""
+        torch = self.torch
+        from repro_torch.diffusion.pipeline import latent_shape
+        from repro_torch.layers.model import dit_forward
+        g = torch.Generator(device=self.dev).manual_seed(5)
+        inp = {"latents": torch.randn(latent_shape(self.cfg, self.dcfg,
+                                                   LANES),
+                                      generator=g, device=self.dev),
+               "t": torch.full((LANES,), 500.0, device=self.dev),
+               "labels": torch.arange(LANES, device=self.dev)}
+        both = dit_forward(self.cfg, params, inp)[0]
+        alone = torch.cat([dit_forward(self.cfg, params, {
+            k: v[i:i + 1] for k, v in inp.items()})[0] for i in range(LANES)])
+        diff = (both.float() - alone.float()).abs().max().item()
+        print(f"one forward of {LANES} latents at once against each alone: "
+              f"max |Δ| = {diff}", flush=True)
+        return diff
 
     def _requests(self, n, policy_of=lambda i: None):
         torch = self.torch
@@ -1366,13 +1489,11 @@ class Smoke:
                 f"request {a.request_id}: deep and depth-1 trajectories differ"
         assert dmax <= 1e-5, f"deep samples differ from depth-1 by {dmax}"
         assert ticks < self.record["serve"]["ticks"], "no fewer ticks"
-        solo = engine.serve_batched(reqs[:LANES], lanes=1)
-        for a, b in zip(res[:LANES], solo):
-            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
-                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
-                f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
-        print(f"deep lanes={LANES} and lanes=1 counters identical")
+        width = self._hold_width(
+            "serve_deep", res[:LANES],
+            engine.serve_batched(reqs[:LANES], lanes=1), (LANES, 1))
         self.record["serve_deep"] = dict(
+            width=width,
             depths=list(DEEP_DEPTHS), wall_s=wall,
             req_per_s=N_REQUESTS / wall, host_syncs=syncs, ticks=ticks,
             launches=launches, peak_gib=peak, max_abs_diff_vs_depth1=dmax,
@@ -1412,13 +1533,11 @@ class Smoke:
               f"lanes={LANES} in {wall:.3f} s: {syncs} host syncs over "
               f"{ticks} ticks, peak {peak:.2f} GiB")
         assert all(launches[n] > 0 for n in SPECTRAL_KERNELS), launches
-        solo = engine.serve_batched(reqs, lanes=1)
-        for a, b in zip(res, solo):
-            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
-                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
-                f"request {a.request_id}: lanes={LANES} and lanes=1 differ"
-        print(f"spectral lanes={LANES} and lanes=1 counters identical")
+        width = self._hold_width(
+            "serve_spectral", res, engine.serve_batched(reqs, lanes=1),
+            (LANES, 1))
         self.record["serve_spectral"] = dict(
+            width=width,
             wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
             **rollback,
             peak_gib=peak, alpha=[r.alpha for r in res],
@@ -1508,14 +1627,11 @@ class Smoke:
                 f"unguided request {n_g + i} left phase 3's trajectory"
             dmax = max(dmax, (r.sample - base.sample).abs().max().item())
         assert dmax <= 1e-5, f"unguided samples moved by {dmax}"
-        narrow = engine.serve_batched(reqs, lanes=2)
-        for a, b in zip(res, narrow):
-            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
-                    a.flops) == (b.accepts, b.num_full, b.num_spec,
-                                 b.num_drafted, b.flops), \
-                f"request {a.request_id}: lanes={LANES} and lanes=2 differ"
-        print(f"guided lanes={LANES} and lanes=2 counters identical; "
-              f"unguided requests == phase 3 (max |sample diff| {dmax})")
+        width = self._hold_width("serve_guided", res,
+                                 engine.serve_batched(reqs, lanes=2),
+                                 (LANES, 2))
+        print(f"unguided requests beside the guided ones == phase 3 (max "
+              f"|sample diff| {dmax})")
 
         deep_engine = SpeCaEngine(self.cfg, self.params, self.dcfg, scfg,
                                   max_draft_depth=CHAIN_K, device=self.dev)
@@ -1540,11 +1656,9 @@ class Smoke:
                 f"guided request {a.request_id}: depth {CHAIN_K} left " \
                 "the depth-1 trajectory"
         assert ticks_in_flight < n_g * S, "no fewer ticks at depth 4"
-        deep2 = deep_engine.serve_batched(deep_reqs, lanes=2)
-        for a, b in zip(deep, deep2):
-            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
-                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
-                f"deep guided request {a.request_id}: lanes differ"
+        deep_width = self._hold_width(
+            "serve_guided deep", deep,
+            deep_engine.serve_batched(deep_reqs, lanes=2), (LANES, 2))
         for r in deep:
             print(f"  deep guided request {r.request_id}: alpha "
                   f"{r.alpha:.3f} drafted {r.num_drafted} "
@@ -1554,6 +1668,7 @@ class Smoke:
               f"{LANES} in {dwall:.3f} s, {dsyncs} host syncs, "
               f"{ticks_in_flight} request-ticks (depth 1: {n_g * S})")
         self.record["serve_guided"] = dict(
+            width=width, deep_width=deep_width,
             wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
             peak_gib=peak, max_abs_diff_unguided_vs_phase3=dmax,
             requests=[dict(request_id=r.request_id,
@@ -1677,10 +1792,7 @@ class Smoke:
             "no controlled lane's draft_k left 1"
         with self._controller_probe() as (probe_ticks, weights):
             narrow = engine.serve_batched(reqs, lanes=2)
-        for a, b in zip(res, narrow):
-            assert (a.accepts, a.num_full, a.num_spec, a.num_drafted) == \
-                (b.accepts, b.num_full, b.num_spec, b.num_drafted), \
-                f"request {a.request_id}: lanes={LANES} and lanes=2 differ"
+        width = self._hold_width("serve_controller", res, narrow, (LANES, 2))
         above = sum(bool((m & (t > base)).any().item())
                     for t, base, m in probe_ticks)
         moved = sum(bool((m & (t < base)).any().item())
@@ -1696,14 +1808,13 @@ class Smoke:
               f"{moved} with an accept-SLO lane's τ0 below its base, "
               f"{above} above it; {len(weights)} capped predictions, "
               f"{order1} with request 7's lane warm at its order-1 cap; "
-              f"lanes={LANES} and lanes=2 counters identical; "
               f"controller-free requests == phase 3 (max |sample diff| "
               f"{dmax})")
         assert above == 0, "an accept-SLO lane held τ0 above its base"
         assert moved > 0 and order1 > 0, (moved, order1)
         self.controller_results, self.controller_syncs = res, syncs
         self.record["serve_controller"] = dict(
-            wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
+            width=width, wall_s=wall, host_syncs=syncs, ticks=ticks, launches=launches,
             peak_gib=peak, max_abs_diff_static_vs_phase3=dmax,
             ticks_tau_below_base=moved, capped_predictions=len(weights),
             requests=[dict(request_id=r.request_id, alpha=r.alpha,
@@ -2065,6 +2176,435 @@ class Smoke:
             tau_first_last=[tau[0].item(), tau[-1].item()])
 
 
+    # --- text- and video-conditioned DiTs ------------------------------------
+    def _hold_chain_plain(self, table, diffs):
+        """The chain predict (K = CHAIN_K) on the bf16 table ``table``:
+        every position within one bf16 ulp (rtol 2^-8) of its plain f32
+        sum, a layer at a time (the f32 sums of a 6 GB table stay under
+        0.5 GB so), and bitwise the lane predict with that position's
+        weights. Returns the largest error against the plain bf16 sums."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        wk = self._weights(table[0], table[3], CHAIN_K)
+        ck = ops.taylor_predict_chain_lanes(diffs, wk)
+        err = 0.0
+        for k in range(CHAIN_K):
+            wcol = wk[:, k].contiguous()
+            assert torch.equal(ck[k], ops.taylor_predict_lanes(diffs, wcol)), \
+                f"chain position {k} != the lane predict at {table}"
+            for layer in range(table[1]):
+                want = ref.taylor_predict_lanes_ref(
+                    diffs[:, layer].float(), wcol, lane_axis=1)
+                got = ck[k, layer].float()
+                torch.testing.assert_close(got, want, rtol=2.0 ** -8,
+                                           atol=1e-6)
+                err = max(err, (got - want.to(diffs.dtype).float())
+                          .abs().max().item())
+        return {f"chain_k{CHAIN_K}_max_abs_err": err}
+
+    def _dit_kernels(self, key, cfg, lanes, tokens, lat, seed):
+        """The main path's kernels at a text-conditioned DiT's serving
+        table [3, L, 2, lanes, tokens, d] bf16 (``_table_kernels``, the
+        chain by ``_hold_chain_plain``) and the rollback bitwise on its
+        latent snapshots [CHAIN_K + 1] × ``lat`` f32 (lane axis 0); each
+        timed by CUDA events beside its plain version, a library call and
+        its bound under the rows' ``key`` entry."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        table = (3, cfg.num_layers, 2, lanes, tokens, cfg.d_model)
+        t = self._table_kernels(
+            key, table, seed, lambda diffs: self._hold_chain_plain(
+                table, diffs), iters=10, profile=False)
+        del t["diffs"], t["feats"]
+        g = torch.Generator(device=self.dev).manual_seed(seed + 2)
+        snaps = [torch.randn(lat, generator=g, device=self.dev)
+                 for _ in range(CHAIN_K + 1)]
+        for idx in self._rollback_indices(lanes):
+            assert torch.equal(
+                ops.lane_rollback(snaps, idx, lane_axis=0),
+                ref.lane_rollback_ref(snaps, idx, lane_axis=0)), \
+                f"rollback not bitwise on the {key} latents {lat}"
+        idx = self._rollback_indices(lanes)[1]
+        stacked = torch.stack(snaps)
+        take = idx.long().reshape((1, lanes) + (1,) * (len(lat) - 1)
+                                  ).expand((1,) + tuple(lat))
+        self._shape_row(
+            key, "lane_rollback", lat,
+            lambda: ops.lane_rollback(snaps, idx, lane_axis=0),
+            lambda: ref.lane_rollback_ref(snaps, idx, lane_axis=0),
+            2 * snaps[0].numel() * snaps[0].element_size() + lanes * 4, 0.0,
+            0.0, library=lambda: torch.take_along_dim(stacked, take, dim=0),
+            iters=10, profile=False)
+        for name, k in self.kernels.items():
+            if key in k and "cold_ms" in k[key]:
+                row = k[key]
+                share = row["bound_ms"] / row["cold_ms"] \
+                    if row["cold_ms"] > 0 else math.nan
+                print(f"{name} at the {cfg.name} table: {row} ({share:.0%} "
+                      "of its bound, cold)")
+        self.record[f"{key}_kernel_checks"] = dict(
+            table=list(table), latents=list(lat), **t["errs"],
+            verify_max_abs_err=t["verify_err"])
+
+    def check_flux_kernels(self):
+        """The kernels at the FLUX-like table (lanes 4, 1024 tokens: [3,
+        38, 2, 4, 1024, 3072], 5.7 GB; 304 rows of 3.1 M, element offsets
+        past 2^31) and latents [4, 64, 64, 16]."""
+        from repro_torch.configs import FLUX_LIKE
+        self._dit_kernels("flux", FLUX_LIKE, LANES,
+                          (FLUX_LATENT // FLUX_LIKE.patch_size) ** 2,
+                          (LANES, FLUX_LATENT, FLUX_LATENT,
+                           FLUX_LIKE.in_channels), 31)
+
+    def check_video_kernels(self):
+        """The kernels at the HunyuanVideo-like table (lanes 2, 2048
+        tokens: [3, 40, 2, 2, 2048, 3072], 6.0 GB; 160 rows of 6.3 M) and
+        the 5-D latents [2, 8, 32, 32, 16] that ``serve_video`` rolls
+        back."""
+        from repro_torch.configs import HUNYUAN_VIDEO_LIKE as cfg
+        self._dit_kernels("video", cfg, VIDEO_LANES,
+                          VIDEO_FRAMES * (VIDEO_LATENT // cfg.patch_size) ** 2,
+                          (VIDEO_LANES, VIDEO_FRAMES, VIDEO_LATENT,
+                           VIDEO_LATENT, cfg.in_channels), 41)
+
+    def _text_requests(self, cfg, n, policy_of=lambda i: None, first=0):
+        """Requests first..first+n-1, each with its seeded text stub
+        ``cond`` [1, 8, cond_dim] of scale 0.1 (as the reference's
+        ``cond_stub_batch``; a CPU generator seeded 400 + i) and noise seed
+        300 + i."""
+        torch = self.torch
+        from repro_torch.serving import Request
+        out = []
+        for i in range(first, first + n):
+            g = torch.Generator().manual_seed(400 + i)
+            stub = torch.randn((1, TEXT_TOKENS, cfg.cond_dim),
+                               generator=g) * TEXT_SCALE
+            out.append(Request(request_id=i, cond={"cond": stub},
+                               seed=300 + i, policy=policy_of(i)))
+        return out
+
+    def _cond_shift(self, cfg, dcfg, params, req):
+        """How far a request's text stub moves the conditioning embedding:
+        ‖t_emb(cond) − t_emb(no cond)‖ / ‖t_emb(no cond)‖ at the first
+        sampler step."""
+        torch = self.torch
+        from repro_torch.diffusion.pipeline import latent_shape, make_stepper
+        from repro_torch.layers.model import embed_inputs
+        x = torch.zeros(latent_shape(cfg, dcfg, 1), device=self.dev)
+        t = make_stepper(dcfg, self.dev).t_model[:1]
+        c = req.cond["cond"].to(self.dev)
+        with_c = embed_inputs(cfg, params, {"latents": x, "t": t,
+                                            "cond": c})["t_emb"].float()
+        without = embed_inputs(cfg, params, {"latents": x,
+                                             "t": t})["t_emb"].float()
+        return ((with_c - without).norm() / without.norm()).item()
+
+    def _forward_profile(self, wl, lanes):
+        """One full and one speculative forward of ``wl`` at ``lanes``
+        (random latents and text stubs, step 3, forecasts of scale 0.05):
+        host wall (synchronised, median of 3), kernels a call and the
+        device busy time (the union of the kernels' spans) from one
+        ``_traced_call`` reading, the busiest attention kernel, beside the
+        forward's bound: the bf16 products over 989.4 TFLOP/s plus the f32
+        attention over 67 TFLOP/s (one after the other), against the
+        bytes it must read over 3.35 TB/s. The products are
+        ``repro_torch.core.complexity``'s: the blocks the forward runs
+        less their attention scores, the embeddings and the head, and the
+        modulations of the blocks it runs; the text projection (38 MFLOP
+        a request) is left out, which keeps the bound a lower one."""
+        torch = self.torch
+        from repro_torch.core import complexity as cx
+        from repro_torch.diffusion.pipeline import latent_shape
+        from tools.profile_torch_serve import busy_us, group_of
+        cfg, dev, W = wl.cfg, self.dev, lanes
+        T, d, L = wl.num_tokens, cfg.d_model, cfg.num_layers
+        g = torch.Generator(device=dev).manual_seed(9)
+        dyn = {"x": torch.randn(latent_shape(cfg, wl.dcfg, W), generator=g,
+                                device=dev)}
+        cond = {"cond": torch.randn((W, TEXT_TOKENS, cfg.cond_dim),
+                                    generator=g, device=dev) * TEXT_SCALE}
+        ctx = wl.step_context(None, torch.full((W,), 3, dtype=torch.int32,
+                                               device=dev))
+        preds = (torch.randn((L, 2, W, T, d), generator=g, device=dev)
+                 * 0.05).to(wl.table_dtype)
+        calls = {"full": lambda: wl.full_forward(dyn, cond, ctx),
+                 "spec": lambda: wl.spec_forward(dyn, cond, ctx, preds)}
+        attn = cx.attention_score_flops(cfg, T)         # f32, one layer
+        es = 2
+        layer_bytes = sum(t[0].numel() for t in _leaves(
+            wl.params["blocks"])) * es
+        other_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+            {k: wl.params[k] for k in ("embed", "head")}))
+        layers = {"full": L, "spec": 1}
+        extra = {"full": 0, "spec": preds.numel() * preds.element_size()}
+        out = {}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            events = _traced_call(torch, fn)
+            groups, att = {}, {}
+            for e in events:
+                span = (e.time_range.start, e.time_range.end)
+                groups.setdefault(group_of(e.name), []).append(span)
+                if group_of(e.name) == "attention":
+                    att[e.name] = att.get(e.name, 0.0) + span[1] - span[0]
+            n = layers[name]
+            products = n * (cx.block_flops(cfg, T) - attn) \
+                + cx.glue_flops(cfg, T) - (L - n) * cx.modulation_flops(cfg)
+            mm_ms = W * products / BF16_TC_FLOPS * 1e3
+            att_ms = W * n * attn / F32_FLOPS * 1e3
+            bytes_ms = (n * layer_bytes + other_bytes + extra[name]) \
+                / HBM_BYTES_PER_S * 1e3
+            bound = max(mm_ms + att_ms, bytes_ms)
+            busy = busy_us([x for v in groups.values() for x in v]) / 1e3
+            out[name] = dict(
+                wall_ms=sorted(walls)[1], kernels=len(events),
+                busy_ms=busy, bound_ms=bound,
+                bound_by="operations" if mm_ms + att_ms >= bytes_ms
+                else "bytes",
+                bf16_products_ms=mm_ms, f32_attention_ms=att_ms,
+                bytes_ms=bytes_ms, bound_over_busy=bound / busy,
+                attention_kernel=max(att, key=att.get) if att else None,
+                busy_ms_by_group={g: busy_us(v) / 1e3
+                                  for g, v in groups.items()})
+            print(f"{cfg.name} {name} forward at lanes={W}, {T} tokens: "
+                  f"{out[name]}", flush=True)
+        return out
+
+    def _hold_width(self, name, a, b, widths, flags=None, steps=0,
+                    sample_tol=None):
+        """Requests ``a`` served at lanes ``widths[0]`` and the same
+        requests ``b`` at ``widths[1]``: equal accepts and counters (full,
+        spec, drafted, FLOPs); the samples' largest difference recorded,
+        and held within ``sample_tol`` where one is given (DiT-XL/2's
+        bf16 products round differently at M = 256 and 1024, ``serve``
+        records). With ``flags``, the
+        two runs' lane flags (``_lane_flags``; depth 1, every request
+        ``steps`` long, so request r runs in lane r % W from tick
+        (r // W)·steps), where an accept sequence differs the first step
+        that differs and |e − τ| there in both runs are printed and
+        recorded before the check fails. Returns the record."""
+        wa, wb = widths
+        diffs = []
+        for ra, rb in zip(a, b):
+            if flags is None or ra.accepts == rb.accepts:
+                continue
+            s = next(i for i, (x, y) in enumerate(zip(ra.accepts,
+                                                      rb.accepts)) if x != y)
+            at = []
+            for f, W in zip(flags, widths):
+                lane = ra.request_id % W
+                row = f[(ra.request_id // W) * steps + s]
+                at.append(abs(row["err"][lane] - row["tau"][lane]).item())
+            diffs.append(dict(request_id=ra.request_id, step=s,
+                              err_minus_tau=at))
+        dmax = max((x.sample - y.sample).abs().max().item()
+                   for x, y in zip(a, b))
+        print(f"{name}: lanes={wa} against lanes={wb}: "
+              + (f"{len(diffs)} accept sequences differ {diffs}; "
+                 if flags is not None else "")
+              + f"max |Δ sample| = {dmax}", flush=True)
+        for x, y in zip(a, b):
+            assert (x.accepts, x.num_full, x.num_spec, x.num_drafted,
+                    x.flops) == (y.accepts, y.num_full, y.num_spec,
+                                 y.num_drafted, y.flops), \
+                f"{name} request {x.request_id}: lanes={wa} and {wb} differ"
+        assert sample_tol is None or dmax <= sample_tol, \
+            f"{name}: lanes={wa} and {wb} samples {dmax}"
+        return dict(lanes=[wa, wb], differing=diffs, max_abs_diff=dmax)
+
+    def _release(self):
+        """Return the allocator's cached blocks to the card."""
+        import gc
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def _summary(self, res, launches, wall, syncs, peak):
+        ticks = max(r.finish_tick for r in res)
+        return dict(wall_s=wall, ticks=ticks, host_syncs=syncs,
+                    syncs_per_tick=syncs / ticks, peak_gib=peak,
+                    launches=launches, alpha=[r.alpha for r in res],
+                    requests=[dict(request_id=r.request_id,
+                                   num_full=r.num_full, num_spec=r.num_spec,
+                                   num_drafted=r.num_drafted,
+                                   finish_tick=r.finish_tick)
+                              for r in res])
+
+    def serve_flux(self):
+        """FLUX-like text-to-image serving (see the docstring, phase 10c);
+        the launch counts set to 0 just before each run and read just
+        after."""
+        torch = self.torch
+        from repro_torch.configs import FLUX_LIKE, DiffusionConfig, SpeCaConfig
+        from repro_torch.core.workload import DiffusionWorkload
+        from repro_torch.serving import RequestPolicy, SpeCaEngine
+        cfg = FLUX_LIKE
+        dcfg = DiffusionConfig(schedule="rectified_flow",
+                               latent_size=FLUX_LATENT)
+        scfg = SpeCaConfig(taylor_order=2)
+        S = dcfg.num_inference_steps
+        t0 = time.perf_counter()
+        params = self._tamed_params(cfg, dcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+        reqs = self._text_requests(cfg, LANES)
+        shift = self._cond_shift(cfg, dcfg, params, reqs[0])
+        print(f"flux-like: {weights / 1e9:.2f} GB of bf16 weights drawn in "
+              f"{init_s:.1f} s; a text stub moves t_emb by {shift:.4f} of "
+              "its norm (cond_w ~ N(0, 1/768))", flush=True)
+        engine = SpeCaEngine(cfg, params, dcfg, scfg,
+                             accept_mode="per_sample",
+                             verify_backend="fused", device=self.dev)
+        engine.serve_batched(reqs, lanes=LANES, max_ticks=3)    # warm up
+        # (a) lanes=4: the main path at FLUX-like width
+        with self._lane_flags() as f4:
+            res, launches, wall, syncs, peak = self._timed_serve(
+                engine, reqs, LANES)
+        print(f"(a) flux main path launches: {launches}")
+        for r in res:
+            print(f"  request {r.request_id}: alpha {r.alpha:.3f} full "
+                  f"{r.num_full} spec {r.num_spec} drafted {r.num_drafted} "
+                  f"accepts {''.join('1' if x else '0' for x in r.accepts)}")
+        a = self._summary(res, launches, wall, syncs, peak)
+        print(f"(a) {LANES} requests at lanes={LANES}: {wall:.3f} s, "
+              f"{a['ticks']} ticks, {syncs} host syncs, peak {peak:.2f} GiB",
+              flush=True)
+        assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
+        for r in res:
+            assert r.completed and r.num_full + r.num_spec == S
+            assert tuple(r.sample.shape) == (1, FLUX_LATENT, FLUX_LATENT,
+                                             cfg.in_channels)
+            assert torch.isfinite(r.sample).all(), "non-finite samples"
+        # (b) lanes=2: the same trajectories
+        with self._lane_flags() as f2:
+            res2, _, wall2, syncs2, peak2 = self._timed_serve(engine, reqs, 2)
+        b = self._summary(res2, {}, wall2, syncs2, peak2)
+        print(f"(b) lanes=2: {wall2:.3f} s, {b['ticks']} ticks, {syncs2} "
+              "host syncs", flush=True)
+        self.record["serve_flux"] = dict(
+            model=cfg.name, weights_gb=weights / 1e9, init_s=init_s,
+            tokens=(FLUX_LATENT // cfg.patch_size) ** 2,
+            cond_shift=shift, lanes4=a, lanes2=b)
+        self.record["serve_flux"]["width"] = self._hold_width(
+            "serve_flux", res, res2, (LANES, 2), (f4, f2), S,
+            sample_tol=1e-5)
+        del f4, f2
+        # (c) a guided request beside (a)'s requests 0 and 1
+        guided = self._text_requests(
+            cfg, 1, lambda i: RequestPolicy(guidance_scale=FLUX_GUIDANCE),
+            first=LANES)
+        resg, launches_g, wallg, syncsg, peakg = self._timed_serve(
+            engine, guided + reqs[:2], LANES)
+        c = self._summary(resg, launches_g, wallg, syncsg, peakg)
+        print(f"(c) guided launches: {launches_g}")
+        print(f"(c) guided request alpha {resg[0].alpha:.3f} drafted "
+              f"{resg[0].num_drafted} spec {resg[0].num_spec}; {wallg:.3f} "
+              f"s, {c['ticks']} ticks", flush=True)
+        assert all(launches_g[n] > 0 for n in GUIDED_KERNELS), launches_g
+        assert launches_g["verify_accept"] == 0, launches_g
+        for x, y in zip(res[:2], resg[1:]):
+            assert (x.accepts, x.num_full, x.num_spec, x.num_drafted) == \
+                (y.accepts, y.num_full, y.num_spec, y.num_drafted), \
+                f"request {x.request_id} changed beside a guided pair"
+            dmax = (x.sample - y.sample).abs().max().item()
+            assert dmax <= 1e-5, f"request {x.request_id}: sample {dmax}"
+        assert resg[0].completed and torch.isfinite(resg[0].sample).all()
+        every = res + res2 + resg
+        spec = sum(r.num_spec for r in every)
+        rejected = sum(r.num_drafted - r.num_spec for r in every)
+        print(f"serve_flux: {spec} accepted and {rejected} rejected drafts")
+        assert spec > 0 and rejected > 0, (spec, rejected)
+        for name in SERVE_KERNELS + GUIDED_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault("flux", {})[
+                "launches"] = launches.get(name, 0) + launches_g.get(name, 0)
+        forwards = self._forward_profile(
+            DiffusionWorkload(cfg, params, dcfg, scfg, device=self.dev),
+            LANES)
+        self.record["serve_flux"].update(
+            guided=c, accepted=spec, rejected=rejected, forwards=forwards)
+
+    def serve_video(self):
+        """HunyuanVideo-like text-to-video serving (see the docstring,
+        phase 10d)."""
+        torch = self.torch
+        from repro_torch.configs import (HUNYUAN_VIDEO_LIKE, DiffusionConfig,
+                                         SpeCaConfig)
+        from repro_torch.core.workload import DiffusionWorkload
+        from repro_torch.diffusion.pipeline import latent_shape
+        from repro_torch.serving import RequestPolicy, SpeCaEngine
+        cfg = HUNYUAN_VIDEO_LIKE
+        dcfg = DiffusionConfig(schedule="rectified_flow",
+                               latent_size=VIDEO_LATENT,
+                               num_frames=VIDEO_FRAMES)
+        scfg = SpeCaConfig(taylor_order=2)
+        W, S = VIDEO_LANES, dcfg.num_inference_steps
+        shape = latent_shape(cfg, dcfg, 1)
+        t0 = time.perf_counter()
+        params = self._tamed_params(cfg, dcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+        reqs = self._text_requests(cfg, W)
+        engine = SpeCaEngine(cfg, params, dcfg, scfg, device=self.dev)
+        engine.serve_batched(reqs, lanes=W, max_ticks=3)
+        res, launches, wall, syncs, peak = self._timed_serve(engine, reqs, W)
+        a = self._summary(res, launches, wall, syncs, peak)
+        print(f"video depth 1 launches: {launches}; {wall:.3f} s, "
+              f"{a['ticks']} ticks, {syncs} host syncs, peak {peak:.2f} "
+              f"GiB ({weights / 1e9:.2f} GB of weights)", flush=True)
+        assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
+        for r in res:
+            assert r.completed and tuple(r.sample.shape) == shape
+            assert torch.isfinite(r.sample).all(), "non-finite samples"
+        deep = SpeCaEngine(cfg, params, dcfg, scfg, max_draft_depth=CHAIN_K,
+                           device=self.dev)
+        dreqs = self._text_requests(
+            cfg, W, lambda i: RequestPolicy(draft_depth=CHAIN_K))
+        deep.serve_batched(dreqs, lanes=W, max_ticks=3)
+        with self._chain_ticks() as chain_ticks:
+            resd, launches_d, walld, syncsd, peakd = self._timed_serve(
+                deep, dreqs, W)
+        d = self._summary(resd, launches_d, walld, syncsd, peakd)
+        rollback = self._hold_chain_ticks("serve_video", chain_ticks,
+                                          launches_d)
+        print(f"video depth {CHAIN_K} launches: {launches_d}; {walld:.3f} s, "
+              f"{d['ticks']} ticks, {syncsd} host syncs, peak {peakd:.2f} "
+              "GiB", flush=True)
+        for r in resd:
+            print(f"  request {r.request_id}: alpha {r.alpha:.3f} full "
+                  f"{r.num_full} spec {r.num_spec} drafted {r.num_drafted} "
+                  f"finish_tick {r.finish_tick}")
+        assert all(launches_d[n] > 0 for n in DEEP_KERNELS), launches_d
+        dmax = max((x.sample - y.sample).abs().max().item()
+                   for x, y in zip(res, resd))
+        for x, y in zip(res, resd):
+            assert (x.accepts, x.num_full, x.num_spec) == \
+                (y.accepts, y.num_full, y.num_spec), \
+                f"request {x.request_id}: depth {CHAIN_K} and 1 differ"
+        assert dmax <= 1e-5, f"depth-{CHAIN_K} samples differ by {dmax}"
+        assert d["ticks"] < a["ticks"], (d["ticks"], a["ticks"])
+        print(f"video depth {CHAIN_K} == depth 1 in {d['ticks']} ticks "
+              f"against {a['ticks']}; max |Δ sample| = {dmax}; rollback on "
+              f"{len(shape)}-D latent snapshots {list((W,) + shape[1:])}")
+        for name in DEEP_KERNELS + SERVE_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault("video", {})[
+                "launches"] = launches.get(name, 0) + launches_d.get(name, 0)
+        forwards = self._forward_profile(
+            DiffusionWorkload(cfg, params, dcfg, scfg, device=self.dev), W)
+        self.record["serve_video"] = dict(
+            model=cfg.name, weights_gb=weights / 1e9, init_s=init_s,
+            latent=list(shape), tokens=VIDEO_FRAMES
+            * (VIDEO_LATENT // cfg.patch_size) ** 2, depth1=a,
+            deep=dict(d, **rollback), max_abs_diff_vs_depth1=dmax,
+            forwards=forwards)
+
     # --- decode shapes -------------------------------------------------------
     def _decode_shapes(self):
         """The decode phases' kernel shapes: the lane table [m+1, L, 2, W,
@@ -2076,15 +2616,18 @@ class Smoke:
                  lm.resolved_head_dim),
                 (LANES, DECODE_NEW))
 
-    def _decode_row(self, name, shape, fn, plain, nbytes, flops, err,
-                    library=None):
-        """Time a kernel at a decode shape (CUDA events over back-to-back
-        calls; its device time from torch.profiler, back to back and with
-        the 50 MB L2 flushed before each call — the 6.3 MB table fits in
-        L2, and a tick's forwards stream 16 GB of weights between two
-        calls) beside its plain version (and a library call where one
-        computes the same function) and keep the numbers under the
-        kernel's ``decode`` entry."""
+    def _shape_row(self, key, name, shape, fn, plain, nbytes, flops, err,
+                   library=None, iters=50, profile=True):
+        """Time a kernel at the shape of a path (CUDA events over
+        back-to-back calls; its device time from torch.profiler, back to
+        back and with the 50 MB L2 flushed before each call, as served:
+        a tick's forwards stream GBs of weights between two calls) beside
+        its plain version (and a library call where one computes the same
+        function) and keep the numbers under the kernel's ``key`` entry
+        (``"decode"``, ``"flux"``). ``profile=False`` takes the cold time
+        from CUDA events instead (flush and call, less the flush alone):
+        torch.profiler lost some kernels of every window at the FLUX-like
+        table's shapes (4 of 10 or 20 events), which biases its mean."""
         torch = self.torch
         b, by = bound_ms(nbytes, flops)
         flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -2093,17 +2636,97 @@ class Smoke:
         def cold():
             flush.zero_()
             fn()
-        spans = device_spans(torch, cold, iters=20)
-        row = dict(shape=list(shape), ms=time_ms(torch, fn, iters=50),
-                   device_ms=sum(device_spans(torch, fn,
-                                              iters=50).values()) / 1e3,
-                   cold_device_ms=sum(us for n, us in spans.items()
-                                      if DEVICE_NAMES[name] in n) / 1e3,
-                   plain_ms=time_ms(torch, plain, iters=50),
+        row = dict(shape=list(shape), ms=time_ms(torch, fn, iters=iters))
+        if profile:
+            spans = device_spans(torch, cold, iters=min(iters, 20))
+            row.update(
+                device_ms=sum(device_spans(torch, fn,
+                                           iters=iters).values()) / 1e3,
+                cold_device_ms=sum(us for n, us in spans.items()
+                                   if DEVICE_NAMES[name] in n) / 1e3)
+        else:
+            row["cold_ms"] = time_ms(torch, cold, iters=iters) - time_ms(
+                torch, flush.zero_, iters=iters)
+        row.update(plain_ms=time_ms(torch, plain, iters=iters),
                    library_ms=None if library is None
-                   else time_ms(torch, library, iters=50),
+                   else time_ms(torch, library, iters=iters),
                    bound_ms=b, bound_by=by, max_abs_err=err)
-        self.kernels.setdefault(name, {}).setdefault("decode", {}).update(row)
+        self.kernels.setdefault(name, {}).setdefault(key, {}).update(row)
+
+    def _table_kernels(self, key, table, seed, hold_chain, iters=50,
+                       profile=True):
+        """The lane predict (rtol 2^-8 of its plain f32 sum), the masked
+        refresh (bitwise) and the verify on [W, T·D] planes (rtol 1e-5,
+        equal accept bits wherever |e − τ| > 1e-5) against their plain
+        versions on the bf16 table ``table`` [m+1, L, 2, W, T, D]; the
+        chain predict (K = CHAIN_K) held by ``hold_chain(diffs)``, which
+        returns its errors; then the four timed under ``key`` beside their
+        plain versions and bounds. Returns the inputs and errors."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        bf16, dev = torch.bfloat16, self.dev
+        m1, K, W = table[0], CHAIN_K, table[3]
+        R, C = table[1] * table[2] * W, table[4] * table[5]
+        diffs, feats, w, mask = self._inputs(table, bf16, seed)
+        pk = ops.taylor_predict_lanes(diffs, w)
+        torch.testing.assert_close(
+            pk.float(), ref.taylor_predict_lanes_ref(diffs.float(), w),
+            rtol=2.0 ** -8, atol=1e-6)
+        uk = ops.taylor_update_lanes(diffs, feats, mask)
+        assert torch.equal(uk, ref.taylor_update_lanes_ref(
+            diffs, feats, mask)), f"refresh not bitwise at {table}"
+        del uk
+        errs = hold_chain(diffs)
+        pred, real = self._planes(W, C, bf16, seed=seed + 1)
+        e0, _ = ref.verify_accept_ref(pred, real, torch.ones(W, device=dev))
+        tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9], device=dev)[:W]
+               ).contiguous()
+        ek, ak = ops.verify_accept(pred, real, tau)
+        ep, ap = ref.verify_accept_ref(pred, real, tau)
+        torch.testing.assert_close(ek, ep, rtol=1e-5, atol=0.0)
+        far = (ep - tau).abs() > 1e-5
+        assert torch.equal(ak[far], ap[far]), f"accept bits differ at {table}"
+        torch.cuda.synchronize()
+        es = diffs.element_size()
+        self._shape_row(
+            key, "taylor_predict_lanes", table,
+            lambda: ops.taylor_predict_lanes(diffs, w),
+            lambda: ref.taylor_predict_lanes_ref(diffs, w),
+            (m1 * R * C + R * C) * es + m1 * W * 4, 2.0 * m1 * R * C,
+            (pk.float() - ref.taylor_predict_lanes_ref(diffs, w).float())
+            .abs().max().item(),
+            library=lambda: torch.einsum(
+                "zw,zgwc->gwc", w.to(bf16), diffs.view(m1, R // W, W, C)),
+            iters=iters, profile=profile)
+        del pk
+        fresh = int(mask.sum().item()) * R // W
+        kept = R - fresh
+        self._shape_row(
+            key, "taylor_update_lanes", table,
+            lambda: ops.taylor_update_lanes(diffs, feats, mask),
+            lambda: ref.taylor_update_lanes_ref(diffs, feats, mask),
+            (kept * m1 * C + fresh * (m1 - 1) * C + fresh * C
+             + m1 * R * C) * es + W, float((m1 - 1) * fresh * C), 0.0,
+            iters=iters, profile=profile)
+        wk = self._weights(m1, W, K)
+        self._shape_row(
+            key, "taylor_predict_chain_lanes", table,
+            lambda: ops.taylor_predict_chain_lanes(diffs, wk),
+            lambda: ref.taylor_predict_chain_lanes_ref(diffs, wk),
+            (m1 + K) * R * C * es + m1 * K * W * 4,
+            2.0 * m1 * K * R * C, errs[f"chain_k{K}_max_abs_err"],
+            library=lambda: torch.einsum(
+                "zkb,zgbc->kgbc", wk.to(bf16), diffs.view(m1, R // W, W, C)),
+            iters=iters, profile=profile)
+        self._shape_row(
+            key, "verify_accept", (W, table[4], table[5]),
+            lambda: ops.verify_accept(pred, real, tau),
+            lambda: ref.verify_accept_ref(pred, real, tau),
+            2 * W * C * es + W * 9, 5.0 * W * C,
+            (ek - ep).abs().max().item(), iters=iters, profile=profile)
+        return dict(diffs=diffs, feats=feats, mask=mask, kept=kept,
+                    fresh=fresh, errs=errs,
+                    verify_err=(ek - ep).abs().max().item())
 
     def check_decode_kernels(self):
         """Rows 1-6 at the shapes decode lanes give them, against their
@@ -2119,26 +2742,10 @@ class Smoke:
         table, cache, tokens = self._decode_shapes()
         bf16, dev = torch.bfloat16, self.dev
         m1, K = table[0], CHAIN_K
-        R, C = table[1] * table[2] * LANES, table[4] * table[5]
-        diffs, feats, w, mask = self._inputs(table, bf16, 21)
-        pk = ops.taylor_predict_lanes(diffs, w)
-        torch.testing.assert_close(
-            pk.float(), ref.taylor_predict_lanes_ref(diffs.float(), w),
-            rtol=2.0 ** -8, atol=1e-6)
-        uk = ops.taylor_update_lanes(diffs, feats, mask)
-        up = ref.taylor_update_lanes_ref(diffs, feats, mask)
-        assert torch.equal(uk, up), "refresh not bitwise at the decode table"
-        errs = self._check_chain_kernels(table, bf16)
-        pred, real = self._planes(LANES, C, bf16, seed=22)
-        e0, _ = ref.verify_accept_ref(pred, real,
-                                      torch.ones(LANES, device=dev))
-        tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9], device=dev)
-               ).contiguous()
-        ek, ak = ops.verify_accept(pred, real, tau)
-        ep, ap = ref.verify_accept_ref(pred, real, tau)
-        torch.testing.assert_close(ek, ep, rtol=1e-5, atol=0.0)
-        far = (ep - tau).abs() > 1e-5
-        assert torch.equal(ak[far], ap[far]), "decode accept bits differ"
+        t = self._table_kernels(
+            "decode", table, 21,
+            lambda diffs: self._check_chain_kernels(table, bf16))
+        diffs, feats, mask = t["diffs"], t["feats"], t["mask"]
         g = torch.Generator(device=dev).manual_seed(23)
         chains = {
             "tokens": ([torch.randint(0, max(self.lm_cfg.vocab_size, 2),
@@ -2162,54 +2769,22 @@ class Smoke:
                                                      lane_axis=axis), want), \
                     f"stacked rollback not bitwise on the decode {what}"
         torch.cuda.synchronize()
-        es = diffs.element_size()
-        self._decode_row(
-            "taylor_predict_lanes", table,
-            lambda: ops.taylor_predict_lanes(diffs, w),
-            lambda: ref.taylor_predict_lanes_ref(diffs, w),
-            (m1 * R * C + R * C) * es + m1 * LANES * 4, 2.0 * m1 * R * C,
-            (pk.float() - ref.taylor_predict_lanes_ref(diffs, w).float())
-            .abs().max().item(),
-            library=lambda: torch.einsum(
-                "zw,zgwc->gwc", w.to(bf16), diffs.view(m1, R // LANES,
-                                                       LANES, C)))
-        fresh = int(mask.sum().item()) * R // LANES
-        kept = R - fresh
-        self._decode_row(
-            "taylor_update_lanes", table,
-            lambda: ops.taylor_update_lanes(diffs, feats, mask),
-            lambda: ref.taylor_update_lanes_ref(diffs, feats, mask),
-            (kept * m1 * C + fresh * (m1 - 1) * C + fresh * C
-             + m1 * R * C) * es + LANES, float((m1 - 1) * fresh * C), 0.0)
-        wk = self._weights(m1, LANES, K)
-        self._decode_row(
-            "taylor_predict_chain_lanes", table,
-            lambda: ops.taylor_predict_chain_lanes(diffs, wk),
-            lambda: ref.taylor_predict_chain_lanes_ref(diffs, wk),
-            (m1 + K) * R * C * es + m1 * K * LANES * 4,
-            2.0 * m1 * K * R * C, errs[f"chain_k{K}_max_abs_err"],
-            library=lambda: torch.einsum(
-                "zkb,zgbc->kgbc", wk.to(bf16), diffs.view(m1, R // LANES,
-                                                          LANES, C)))
-        self._decode_row(
-            "verify_accept", (LANES, 1, C),
-            lambda: ops.verify_accept(pred, real, tau),
-            lambda: ref.verify_accept_ref(pred, real, tau),
-            2 * LANES * C * es + LANES * 9, 5.0 * LANES * C,
-            (ek - ep).abs().max().item())
         snaps, axis = chains["cache"]
         idx = self._rollback_indices(LANES)[1]
         stacked = torch.stack(snaps)
         take = idx.long().reshape((1, 1, LANES) + (1,) * (len(cache) - 2)
                                   ).expand((1,) + tuple(cache))
-        self._decode_row(
-            "lane_rollback", cache,
+        self._shape_row(
+            "decode", "lane_rollback", cache,
             lambda: ops.lane_rollback(snaps, idx, lane_axis=1),
             lambda: ref.lane_rollback_ref(snaps, idx, lane_axis=1),
             2 * snaps[0].numel() * snaps[0].element_size() + LANES * 4, 0.0,
             0.0, library=lambda: torch.take_along_dim(stacked, take, dim=0))
-        self._decode_row(
-            "spectral_update_lanes", table,
+        R, C = table[1] * table[2] * LANES, table[4] * table[5]
+        es = diffs.element_size()
+        kept, fresh = t["kept"], t["fresh"]
+        self._shape_row(
+            "decode", "spectral_update_lanes", table,
             lambda: ops.spectral_update_lanes(diffs, feats, mask),
             lambda: ref.spectral_update_lanes_ref(diffs, feats, mask),
             (kept * m1 * C + fresh * m1 * C + m1 * R * C) * es + LANES,
@@ -2220,7 +2795,7 @@ class Smoke:
             print(f"{name} at decode shapes: {row}")
         self.record["decode_kernel_checks"] = dict(
             table=list(table), cache=list(cache), tokens=list(tokens),
-            **errs, verify_max_abs_err=(ek - ep).abs().max().item())
+            **t["errs"], verify_max_abs_err=t["verify_err"])
 
     # --- decode lanes --------------------------------------------------------
     def _lm_params(self):
@@ -2276,20 +2851,20 @@ class Smoke:
         return torch.cat(out, dim=1)[0].cpu()
 
     @contextlib.contextmanager
-    def _lane_errors(self):
-        """Collect the ``err`` flags [W] of every depth-1 lane step run
-        inside (device tensors, read after the run)."""
+    def _lane_flags(self):
+        """Collect the flags of every depth-1 lane step run inside (dicts
+        of device tensors, read after the run)."""
         from repro_torch.core import lane_step as LS
-        errs = []
+        ticks = []
         call = LS.LaneStep.__call__
 
         def probe(step, state):
             new, flags = call(step, state)
-            errs.append(flags["err"])
+            ticks.append(flags)
             return new, flags
         LS.LaneStep.__call__ = probe
         try:
-            yield errs
+            yield ticks
         finally:
             LS.LaneStep.__call__ = call
 
@@ -2382,7 +2957,7 @@ class Smoke:
         eng0 = SpeCaEngine(workloads={"decode": self._decode_workload(0.0)},
                            device=self.dev)
         eng0.serve_batched(reqs[:1], lanes=1, max_ticks=3)      # warm up
-        with self._lane_errors() as errs:
+        with self._lane_flags() as flags:
             res0, l0, wall0, syncs0, _ = self._timed_serve(eng0, reqs, 1)
         t0 = time.perf_counter()
         greedy = [self._greedy(r.cond["tokens"]) for r in reqs]
@@ -2392,7 +2967,7 @@ class Smoke:
                 and r.num_spec == 0, (r.request_id, r.num_full)
             assert torch.equal(r.sample, want.to(r.sample.dtype)), \
                 f"request {r.request_id}: τ0=0 tokens != greedy decode"
-        err = torch.cat(errs).float().cpu()
+        err = torch.cat([f["err"] for f in flags]).float().cpu()
         err = err[torch.isfinite(err)]
         assert err.numel(), "no lane drafted at τ0 = 0"
         pct = torch.quantile(err, torch.tensor([0.1, 0.5, 0.9])).tolist()
@@ -2605,8 +3180,10 @@ DECODE_SPECTRAL_KERNELS = ("spectral_update_lanes",
 MIXED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
                  "verify_accept", "verify_accept_mixed")
 # per-kernel numbers the kernels line carries beside the contract's keys
-# ("decode": the kernel at the decode phases' shapes)
-ROW_EXTRAS = ("decode", "device_ms", "event_ms", "kernels_per_call",
+# ("decode", "flux": the kernel at the decode phases' shapes and at the
+# FLUX-like table, with its launches in serve_decode and serve_flux;
+# "video": its launches in serve_video)
+ROW_EXTRAS = ("decode", "flux", "video", "device_ms", "event_ms", "kernels_per_call",
               "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
               "two_step_ms", "two_step_device_ms",
@@ -2651,6 +3228,14 @@ def main() -> int:
         smoke.phase("serve_lifecycle", smoke.serve_lifecycle)
         smoke.phase("serve_obs", smoke.serve_obs)
         smoke.phase("speca_sample", smoke.sample)
+    # each of these frees its tensors on return; the cache goes back to
+    # the card before the next 13–14 GB model
+    for name, fn in (("flux_kernels", smoke.check_flux_kernels),
+                     ("video_kernels", smoke.check_video_kernels),
+                     ("serve_flux", smoke.serve_flux),
+                     ("serve_video", smoke.serve_video)):
+        smoke.phase(name, fn)
+        smoke._release()
     smoke.phase("serve_decode", smoke.serve_decode)
     if not {"serve", "serve_decode"} & set(smoke.failures):
         smoke.phase("serve_mixed", smoke.serve_mixed)

@@ -1,11 +1,14 @@
 """Configuration records: own copies of ``repro.configs.base``'s
 ``ModelConfig``, ``DiffusionConfig`` and ``SpeCaConfig`` plus the
-DiT-XL/2 (``repro.configs.dit_xl2``) and Llama-3-8B
+DiT-XL/2 (``repro.configs.dit_xl2``), FLUX-like
+(``repro.configs.flux_like``), HunyuanVideo-like
+(``repro.configs.hunyuan_video_like``) and Llama-3-8B
 (``repro.configs.llama3_8b``) configurations.
 
 Each record keeps the reference's fields that the port reads, with the
-reference's names and defaults. The port serves class-conditional DiT
-image models and dense decoder-only LMs (``arch_type`` ``"dense"`` or
+reference's names and defaults. The port serves DiT image and video
+models conditioned on class labels or on a continuous text embedding
+(``cond_dim``), and dense decoder-only LMs (``arch_type`` ``"dense"`` or
 ``"vlm"`` text decode); the MoE, SSM, hybrid and audio families' fields
 are left out, and the LM entry points reject those families by name.
 ``dtype`` stays a string and maps to a torch dtype through
@@ -33,9 +36,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A class-conditional DiT (``arch_type="dit"``, the default:
-    AdaLN-Zero blocks of bidirectional attention and a GELU MLP over patch
-    tokens) or a dense decoder-only LM (``"dense"``, ``"vlm"``: causal
+    """A DiT (``arch_type="dit"``, the default: AdaLN-Zero blocks of
+    bidirectional attention and a GELU MLP over patch tokens, conditioned
+    on class labels and/or a continuous ``[B, T_text, cond_dim]``
+    embedding) or a dense decoder-only LM (``"dense"``, ``"vlm"``: causal
     GQA attention with RoPE, a SwiGLU or GELU MLP, RMSNorm).
     ``num_kv_heads`` 0 resolves to ``num_heads``."""
 
@@ -59,6 +63,7 @@ class ModelConfig:
     patch_size: int = 2
     in_channels: int = 4
     num_classes: int = 0          # the label table has one more (null) row
+    cond_dim: int = 0             # continuous conditioning (text-embed stub)
     dtype: str = "bfloat16"
     source: str = ""              # citation for the configuration
 
@@ -141,6 +146,7 @@ class DiffusionConfig:
     schedule: str = "cosine"       # linear | cosine | rectified_flow
     latent_size: int = 32          # spatial latent H=W
     guidance_scale: float = 1.0    # CFG scale of SpeCaEngine(guidance=True)
+    num_frames: int = 1            # >1 => video (3D tokens)
 
 
 # DiT-XL/2 — the paper's class-conditional image model [arXiv:2212.09748]:
@@ -156,6 +162,40 @@ DIT_XL2 = ModelConfig(
     in_channels=4,
     num_classes=1000,
     source="arXiv:2212.09748 (paper's own model)",
+)
+
+# FLUX.1-dev-like rectified-flow DiT [github:black-forest-labs/flux]: the
+# single-stream-equivalent backbone of the 12B MMDiT, text-conditioned
+# through a continuous embedding stub (the T5/CLIP encoders are frontends
+# outside the paper's contribution); 50 rectified-flow steps.
+FLUX_LIKE = ModelConfig(
+    name="flux-like",
+    num_layers=38,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=24,
+    d_ff=12288,
+    act="gelu",
+    patch_size=2,
+    in_channels=16,
+    cond_dim=768,
+    source="FLUX.1-dev (paper's own model), rectified flow",
+)
+
+# HunyuanVideo-like text-to-video DiT [arXiv:2411.02265]: the video
+# backbone over (frames × H × W) latent tokens with a text stub.
+HUNYUAN_VIDEO_LIKE = ModelConfig(
+    name="hunyuan-video-like",
+    num_layers=40,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=24,
+    d_ff=12288,
+    act="gelu",
+    patch_size=2,
+    in_channels=16,
+    cond_dim=768,
+    source="HunyuanVideo (paper's own model)",
 )
 
 # Llama-3-8B — dense, GQA (32 query heads on 8 KV heads), 128k vocabulary

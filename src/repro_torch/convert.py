@@ -18,10 +18,11 @@ from repro_torch.device import DeviceLike, resolve_device
 
 # the leaves the port reads of each family; anything else in the tree is
 # ignored. A group (or a key of it) that a configuration leaves out —
-# "head" under tied embeddings, the QKV biases, the label table — is
-# optional; the tree's groups say which family it is.
+# "head" under tied embeddings, the QKV biases, the label table, the
+# continuous conditioning's projection ``cond_w``/``cond_b`` — is optional;
+# the tree's groups say which family it is.
 DIT_KEYS = {
-    "embed": ("patch_w", "patch_b", "time", "label"),
+    "embed": ("patch_w", "patch_b", "time", "label", "cond_w", "cond_b"),
     "blocks": ("wq", "wk", "wv", "wo", "mlp", "mod_w", "mod_b"),
     "head": ("w", "b", "mod_w", "mod_b"),
 }

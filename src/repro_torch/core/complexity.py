@@ -1,20 +1,27 @@
-"""Analytic cost model (paper §3.5): the part of
+"""Analytic cost model (paper §3.5, Theorem G.3): the part of
 ``repro.core.complexity`` the serving accounting needs, for the DiT
 (full-sequence forwards) and for dense LM decode (one position against a
-KV cache)."""
+KV cache), and the verification cost ratio γ with the speedup model
+``S = 1 / (1 − α·(1 − γ − overhead))`` (eq. 8)."""
 from __future__ import annotations
 
 from repro_torch.configs import ModelConfig
 
 
-def _attn_flops(cfg: ModelConfig, tokens: int, kv_tokens: int = 0) -> float:
-    """QKVO projections + score/value matmuls for one layer; the keys are
-    ``kv_tokens`` (default: the queries themselves)."""
-    hd, d = cfg.resolved_head_dim, cfg.d_model
+def attention_score_flops(cfg: ModelConfig, tokens: int,
+                          kv_tokens: int = 0) -> float:
+    """The score and value matmuls of one layer (its attention without the
+    projections); the keys are ``kv_tokens`` (default: the queries)."""
     kv_tokens = kv_tokens or tokens
+    return 2.0 * tokens * kv_tokens * cfg.num_heads * cfg.resolved_head_dim \
+        * 2
+
+
+def _attn_flops(cfg: ModelConfig, tokens: int, kv_tokens: int = 0) -> float:
+    """QKVO projections + score/value matmuls for one layer."""
+    hd, d = cfg.resolved_head_dim, cfg.d_model
     proj = 2.0 * tokens * d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    scores = 2.0 * tokens * kv_tokens * cfg.num_heads * hd * 2
-    return proj + scores
+    return proj + attention_score_flops(cfg, tokens, kv_tokens)
 
 
 def _ffn_flops(cfg: ModelConfig, tokens: int) -> float:
@@ -29,12 +36,18 @@ def block_flops(cfg: ModelConfig, tokens: int) -> float:
     return _attn_flops(cfg, tokens) + _ffn_flops(cfg, tokens)
 
 
+def modulation_flops(cfg: ModelConfig) -> float:
+    """One block's AdaLN modulation (six d-vectors from the conditioning
+    embedding) for one sample."""
+    return 2.0 * cfg.d_model * 6 * cfg.d_model
+
+
 def glue_flops(cfg: ModelConfig, tokens: int) -> float:
     """Embeddings, AdaLN modulation, output head — never skipped."""
     d = cfg.d_model
     p2c = cfg.patch_size ** 2 * cfg.in_channels
     return 2.0 * tokens * d + 2.0 * tokens * p2c * d * 2 \
-        + 2.0 * cfg.num_layers * d * 6 * d
+        + cfg.num_layers * modulation_flops(cfg)
 
 
 def forward_flops(cfg: ModelConfig, tokens: int) -> float:
@@ -45,6 +58,18 @@ def verify_flops(cfg: ModelConfig, tokens: int) -> float:
     """One speculative step: verify layer + glue + Taylor evaluation."""
     taylor = 4.0 * cfg.num_layers * 2 * tokens * cfg.d_model
     return block_flops(cfg, tokens) + glue_flops(cfg, tokens) + taylor
+
+
+def gamma(cfg: ModelConfig, tokens: int) -> float:
+    """Verification cost ratio γ = C_verify / C (paper: 1.67 %–3.5 %)."""
+    return verify_flops(cfg, tokens) / forward_flops(cfg, tokens)
+
+
+def speedup_model(alpha: float, gamma_: float,
+                  overhead_ratio: float = 0.0) -> float:
+    """Eq. (8) / Theorem G.3 lower bound at speculative-step fraction
+    ``alpha``."""
+    return 1.0 / (1.0 - alpha * (1.0 - gamma_ - overhead_ratio))
 
 
 def decode_block_flops(cfg: ModelConfig, kv_tokens: int) -> float:

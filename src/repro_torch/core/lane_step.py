@@ -47,7 +47,8 @@ State (all on the device): ``since`` [W] i32 consecutive accepted drafts,
 ``step`` [W] i32 schedule step, ``active`` [W] bool occupancy, ``tau0``
 [W] f32 per-lane base threshold, ``draft_k`` [W] i32 draft horizon and
 ``max_step`` [W] i32 schedule length (read only by chain steps),
-``cond`` {k: [W, …]}, the workload payload (diffusion: ``x`` [W, H, W, C]
+``cond`` {k: [W, …]} (class labels [W], a text embedding [W, T_text,
+cond_dim]), the workload payload (diffusion: ``x`` [W, (F,) H, W, C]
 f32; decode: ``tok``, ``tokens``, ``pos0`` and the ``k``/``v`` caches,
 ``pos0`` read by ``step_context`` and never advanced) and the table
 (``diffs`` [m+1, L, 2, W, T, D], ``n_anchors``/``anchor_step``/``gap``
@@ -101,8 +102,9 @@ def verify_layer(cfg: ModelConfig, scfg: SpeCaConfig) -> int:
 
 
 def num_tokens(cfg: ModelConfig, dcfg: DiffusionConfig) -> int:
-    """Backbone sequence length: patches per latent."""
-    return (dcfg.latent_size // cfg.patch_size) ** 2
+    """Backbone sequence length: patches per frame × frames."""
+    per_frame = (dcfg.latent_size // cfg.patch_size) ** 2
+    return per_frame * max(dcfg.num_frames, 1)
 
 
 def table_dtype(cfg: ModelConfig, scfg: SpeCaConfig) -> torch.dtype:

@@ -6,8 +6,9 @@ output is, how the payload advances on it and how a lane is filled and
 harvested lives behind the ``Workload`` adapter. Two adapters ship:
 
 ``DiffusionWorkload``
-    payload = the latent ``x`` (lane axis 0), advance = the DDIM (or
-    rectified-flow) update at each lane's own step.
+    payload = the latent ``x`` [W, (F,) H, W, C] (lane axis 0; five axes
+    for video), advance = the DDIM (or rectified-flow) update at each
+    lane's own step.
 
 ``DecodeWorkload``
     self-speculative LLM decode: the difference table extrapolates each
@@ -97,7 +98,8 @@ class Workload:
 
 
 class DiffusionWorkload(Workload):
-    """SpeCa diffusion lanes. ``noise_fn(seed) -> [1, H, W, C]`` overrides
+    """SpeCa diffusion lanes. ``noise_fn(seed) -> [1, (F,) H, W, C]`` (the
+    latent shape of ``latent_shape(cfg, dcfg, 1)``) overrides
     the per-request initial noise (tests hand in the reference's); by
     default it is drawn from a CPU ``torch.Generator`` seeded with the
     request's seed, so a request's noise does not depend on the device."""
@@ -160,7 +162,8 @@ class DiffusionWorkload(Workload):
 
     # --- host hooks --------------------------------------------------------
     def noise(self, seed: int) -> torch.Tensor:
-        """The request's initial latent [1, H, W, C] f32 on the device."""
+        """The request's initial latent [1, (F,) H, W, C] f32 on the
+        device."""
         shape = latent_shape(self.cfg, self.dcfg, 1)
         if self.noise_fn is not None:
             x = self.noise_fn(seed)

@@ -58,7 +58,10 @@ def make_stepper(dcfg: DiffusionConfig, device: torch.device) -> Stepper:
 
 def latent_shape(cfg: ModelConfig, dcfg: DiffusionConfig,
                  batch: int) -> Tuple[int, ...]:
+    """[B, H, W, C], or [B, F, H, W, C] for video (``num_frames`` > 1)."""
     s = dcfg.latent_size
+    if dcfg.num_frames > 1:
+        return (batch, dcfg.num_frames, s, s, cfg.in_channels)
     return (batch, s, s, cfg.in_channels)
 
 

@@ -156,9 +156,13 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor, pos: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """New caches with K/V [B, S_new, KV, hd] written at positions
-    pos..pos+S_new−1 of every row; the inputs are left as they were."""
+    pos..pos+S_new−1 of every row; the inputs are left as they were. The
+    start clamps into [0, S − S_new], as the reference's
+    ``lax.dynamic_update_slice`` does: a write past the end lands on the
+    last S_new rows."""
     k_cache, v_cache = k_cache.clone(), v_cache.clone()
     n = k_new.shape[1]
+    pos = max(min(int(pos), k_cache.shape[1] - n), 0)
     k_cache[:, pos:pos + n] = k_new.to(k_cache.dtype)
     v_cache[:, pos:pos + n] = v_new.to(v_cache.dtype)
     return k_cache, v_cache

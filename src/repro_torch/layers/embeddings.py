@@ -1,5 +1,5 @@
-"""Input embeddings: tokens, and the DiT's patches, timesteps and class
-labels."""
+"""Input embeddings: tokens, and the DiT's patches (image or video
+latents), timesteps and class labels."""
 from __future__ import annotations
 
 import math
@@ -15,21 +15,28 @@ def token_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def patchify(latents: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, T, p*p*C] tokens, row-major over patches."""
-    b, h, w, c = latents.shape
+    """[B, (F,) H, W, C] -> [B, T, p*p*C] tokens, row-major over patches
+    within a frame, frames flattened first (frame-major)."""
+    if latents.dim() == 5:
+        b, f, h, w, c = latents.shape
+    else:
+        (b, h, w, c), f = latents.shape, 1
     hp, wp = h // patch, w // patch
-    x = latents.reshape(b, hp, patch, wp, patch, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp * wp,
+    x = latents.reshape(b * f, hp, patch, wp, patch, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, f * hp * wp,
                                                patch * patch * c)
 
 
 def unpatchify(tokens: torch.Tensor, patch: int, h: int, w: int,
-               c: int) -> torch.Tensor:
-    """[B, T, p*p*C] -> [B, H, W, C]."""
+               c: int, frames: int = 1) -> torch.Tensor:
+    """[B, T, p*p*C] -> [B, (F,) H, W, C] (5-D when ``frames`` > 1)."""
     b = tokens.shape[0]
     hp, wp = h // patch, w // patch
-    x = tokens.reshape(b, hp, wp, patch, patch, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    x = tokens.reshape(b * frames, hp, wp, patch, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    if frames > 1:
+        return x.reshape(b, frames, h, w, c)
+    return x.reshape(b, h, w, c)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,

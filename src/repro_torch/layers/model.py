@@ -84,6 +84,9 @@ def _init_dit(cfg: ModelConfig, g: torch.Generator) -> Params:
     if cfg.num_classes:
         embed["label"] = _dense(g, (cfg.num_classes + 1, d), dtype,
                                 scale=0.02)
+    if cfg.cond_dim:
+        embed["cond_w"] = _dense(g, (cfg.cond_dim, d), dtype)
+        embed["cond_b"] = zeros(d)
     blocks: Params = {
         "wq": _dense(g, (d, cfg.num_heads * hd), dtype, layers=L),
         "wk": _dense(g, (d, cfg.num_heads * hd), dtype, layers=L),
@@ -168,9 +171,11 @@ def _token_positions(cfg: ModelConfig, positions: torch.Tensor
 def embed_inputs(cfg: ModelConfig, params: Params,
                  inputs: Dict[str, Any]) -> Dict[str, Any]:
     """``{"h", "t_emb", "angles"}`` for the full-sequence forward: the
-    DiT's patch tokens and conditioning embedding, or an LM's token
-    embeddings and the RoPE angles of ``inputs["positions"]`` (default
-    0..T−1)."""
+    DiT's patch tokens (image or video latents) and conditioning embedding
+    (timestep, class label, the mean of the projected continuous
+    ``cond``), or an LM's token embeddings — a VLM's ``patch_embeds``
+    ahead of them — and the RoPE angles of ``inputs["positions"]``
+    (default 0..T−1 over the joined length)."""
     if cfg.is_diffusion:
         dtype = cfg.torch_dtype
         pe = params["embed"]
@@ -182,12 +187,16 @@ def embed_inputs(cfg: ModelConfig, params: Params,
         if cfg.num_classes and "labels" in inputs:
             t_emb = t_emb + emb.label_embed(
                 pe["label"], inputs["labels"]).to(torch.float32)
+        if cfg.cond_dim and "cond" in inputs:
+            c = inputs["cond"].to(dtype) @ pe["cond_w"] + pe["cond_b"]
+            t_emb = t_emb + torch.mean(c, dim=1).to(torch.float32)
         return {"h": h, "t_emb": t_emb.to(dtype), "angles": None}
-    tokens = inputs["tokens"]
-    h = emb.token_embed(params["embed"]["tok"], tokens)
+    h = emb.token_embed(params["embed"]["tok"], inputs["tokens"])
+    if cfg.arch_type == "vlm" and "patch_embeds" in inputs:
+        h = torch.cat([inputs["patch_embeds"].to(h.dtype), h], dim=1)
     positions = inputs.get("positions")
     if positions is None:
-        B, T = tokens.shape
+        B, T = h.shape[:2]
         positions = _token_positions(cfg, torch.arange(
             T, dtype=torch.int32, device=h.device)[None].expand(B, T))
     angles = _angles_for(cfg, positions) if cfg.has_attention else None
@@ -260,8 +269,9 @@ def _pack_cache(cfg: ModelConfig, h: torch.Tensor, kvs) -> Dict[str, Any]:
 
 
 def dit_output(cfg: ModelConfig, params: Params, h: torch.Tensor,
-               t_emb: torch.Tensor, spatial: Tuple[int, int]) -> torch.Tensor:
-    """Final AdaLN + linear + unpatchify to the latent's (H, W)."""
+               t_emb: torch.Tensor, spatial: Tuple[int, ...]) -> torch.Tensor:
+    """Final AdaLN + linear + unpatchify to the latent's (H, W) or
+    (F, H, W)."""
     hp = params["head"]
     mod = F.silu(t_emb) @ hp["mod_w"] + hp["mod_b"]
     shift, scale = torch.chunk(mod, 2, dim=-1)
@@ -271,8 +281,9 @@ def dit_output(cfg: ModelConfig, params: Params, h: torch.Tensor,
     x = layer_norm(h, ones, zeros, cfg.norm_eps)
     x = x * (1 + scale[:, None]) + shift[:, None]
     x = x.to(h.dtype) @ hp["w"] + hp["b"]
-    hh, ww = spatial
-    return emb.unpatchify(x, cfg.patch_size, hh, ww, cfg.in_channels)
+    *frames, hh, ww = spatial
+    return emb.unpatchify(x, cfg.patch_size, hh, ww, cfg.in_channels,
+                          frames=frames[0] if frames else 1)
 
 
 def dit_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
@@ -280,8 +291,9 @@ def dit_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
                 compute_mask: Optional[Sequence[bool]] = None,
                 collect_branches: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Denoiser forward: latents [B, H, W, C], t [B] -> eps prediction in
-    the model dtype."""
+    """Denoiser forward: latents [B, (F,) H, W, C], t [B] (and ``labels``
+    [B] and/or ``cond`` [B, T_text, cond_dim]) -> eps (or velocity)
+    prediction in the model dtype, in the latents' shape."""
     spatial = tuple(inputs["latents"].shape[1:-1])
     e = embed_inputs(cfg, params, inputs)
     h, extras = forward_full(cfg, params, e["h"], t_emb=e["t_emb"],

@@ -2,16 +2,17 @@
 
 Reduced f32 configurations of llama3-8b (GQA), qwen1.5-0.5b (QKV bias,
 tied embeddings), granite-20b (MQA, GELU MLP) and qwen2-vl-72b (M-RoPE,
-text tokens): the reference's ``init_params`` converted with
-``params_from_jax``, with small seeded noise on the norm weights and the
-QKV biases (which the reference initialises to zero) where a layer is
-held on its own. Held: the rotary, norm, MLP and decode-attention layers
-and the LM forward, its cache and the lane-batched decode step within
-rtol = atol = 1e-5, the cache writes exactly; the port's prefill plus one
-decode step against its own full forward; greedy tokens, speculative
-token and accept trajectories and the engine's counters and FLOPs equal
-to the reference's; a depth-3 chain bitwise on depth 1; the engine's
-validation, warmup and obs on/off inertness.
+text tokens, and patch embeddings ahead of them): the reference's
+``init_params`` converted with ``params_from_jax``, with small seeded
+noise on the norm weights and the QKV biases (which the reference
+initialises to zero) where a layer is held on its own. Held: the rotary,
+norm, MLP and decode-attention layers and the LM forward, its cache and
+the lane-batched decode step within rtol = atol = 1e-5, the cache writes
+exactly (a start past S − n clamped as the reference's); the port's
+prefill plus one decode step against its own full forward; greedy
+tokens, speculative token and accept trajectories and the engine's
+counters and FLOPs equal to the reference's; a depth-3 chain bitwise on
+depth 1; the engine's validation, warmup and obs on/off inertness.
 """
 import dataclasses
 import functools
@@ -175,6 +176,53 @@ def test_lm_forward_and_cache_match_reference(arch):
     for k in ("k", "v"):
         np.testing.assert_allclose(ep["cache"][k].numpy(),
                                    np.asarray(ej["cache"][k]), **TOL)
+
+
+@pytest.mark.parametrize("collect_cache", [False, True])
+def test_vlm_patch_embeds_lead_the_tokens_as_in_reference(collect_cache):
+    """A VLM's ``patch_embeds`` go ahead of the token embeddings, and the
+    default M-RoPE positions run over the joined length (reduced
+    qwen2-vl-72b, tokens 1..6, patch embeddings N(0, 0.5²) [1, 4, d])."""
+    cfg, jp, pc, tp = _lm("qwen2-vl-72b")
+    toks = np.arange(1, 7, dtype=np.int32)[None]
+    patches = _rand(1, 4, cfg.d_model, seed=0, scale=0.5)
+    lj, ej = JM.lm_forward(cfg, jp, {"tokens": jnp.asarray(toks),
+                                     "patch_embeds": jnp.asarray(patches)},
+                           collect_cache=collect_cache)
+    lp, ep = PM.lm_forward(pc, tp, {"tokens": torch.from_numpy(toks),
+                                    "patch_embeds": torch.from_numpy(patches)},
+                           collect_cache=collect_cache)
+    assert tuple(lp.shape) == np.asarray(lj).shape == (1, 10, 512)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    for k in ("k", "v") if collect_cache else ():
+        np.testing.assert_allclose(ep["cache"][k].numpy(),
+                                   np.asarray(ej["cache"][k]), **TOL)
+    # the patches change what the text positions see
+    alone, _ = PM.lm_forward(pc, tp, {"tokens": torch.from_numpy(toks)})
+    assert (lp[:, 4:] - alone).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("n, pos, rows", [(1, 8, [7]), (1, 9, [7]),
+                                          (4, 6, [4, 5, 6, 7]),
+                                          (2, 3, [3, 4])])
+def test_update_kv_cache_clamps_the_start_as_in_reference(n, pos, rows):
+    """A write at a position past S − n lands on the last n rows, as
+    ``lax.dynamic_update_slice`` clamps its start; the inputs stay."""
+    S = 8
+    kc, vc = np.zeros((1, S, 2, 4), np.float32), np.zeros((1, S, 2, 4),
+                                                          np.float32)
+    kn = np.ones((1, n, 2, 4), np.float32)
+    vn = 2 * kn
+    jk, jv = jattn.update_kv_cache(*(jnp.asarray(a) for a in (kc, vc, kn,
+                                                               vn)), pos)
+    pk, pv = pattn.update_kv_cache(*(torch.from_numpy(a) for a in (kc, vc,
+                                                                   kn, vn)),
+                                   pos)
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    written = np.flatnonzero(pk.numpy()[0].any(axis=(1, 2)))
+    assert written.tolist() == rows
+    assert not kc.any() and not vc.any()
 
 
 @pytest.mark.parametrize("masked", [False, True])
