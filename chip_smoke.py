@@ -52,13 +52,14 @@ Phases (any failure ends the run with a non-zero exit):
    ``ops.verify_accept``), by events and device time, beside its bound.
 2a. The same kernels at the decode lanes' shapes (``decode_kernels``):
    the lane predict, the refresh, the chain predict (K = 1 and 4) and the
-   ring shift on the bf16 table [3, 32, 2, 4, 1, 4096] of Llama-3-8B
-   lanes; the verify on [4, 1, 4096] planes (two of its 2,048-element
-   chunks a row); the rollback on int32 token buffers [4, 64] and [4, 1]
-   (lane axis 0) and on a bf16 K/V cache [32, 4, 192, 8, 128] (lane axis
-   1), from a snapshot list and stacked — under the bars above, each
-   timed beside its plain version and its bound (device time also with
-   the L2 flushed before each call: the 6.3 MB table fits in it).
+   ring shift on the bf16 table [3, 8, 2, 4, 1, 4096] of Llama-3-8B
+   lanes (8 layers: phase 11's depth); the verify on [4, 1, 4096] planes
+   (two of its 2,048-element chunks a row); the rollback on int32 token
+   buffers [4, 64] and [4, 1] (lane axis 0) and on a bf16 K/V cache
+   [8, 4, 192, 8, 128] (lane axis 1), from a snapshot list and stacked
+   — under the bars above, each timed beside its plain version and its
+   bound (device time also with the L2 flushed before each call: the
+   table fits in it).
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
@@ -84,8 +85,11 @@ Phases (any failure ends the run with a non-zero exit):
    Launch counts are reset just before this run and read just after:
    every kernel must have launched. The first 4 requests are served again
    at lanes=1 and must keep identical per-request counters and accept
-   trajectories; the samples' largest difference is recorded, and that
-   of one forward of the 4 latents at once against each alone.
+   trajectories and samples within 1e-5. Should that gate fail, the W1
+   probe (``_width_probe``: ``tools/width_probe.py`` on one forward of
+   the 4 latents at once against each alone) names the first op whose
+   output differs, with its row count M at both widths and max |Δ|,
+   before the phase fails.
 4. Deep speculation: the same model and requests on
    ``SpeCaEngine(max_draft_depth=4)`` with ``draft_depth`` 1, 2, 4, 4 by
    request. The chain predict and the rollback must have launched in this
@@ -202,10 +206,11 @@ Phases (any failure ends the run with a non-zero exit):
     not), accepts, counters and samples (1e-5) equal depth 1's, in fewer
     ticks. Recorded as for 10c. Each of 10a–10d frees its tensors and the
     allocator's cache before the next phase.
-11. LLM decode lanes (``serve_decode``): Llama-3-8B at full width and
-    depth (``repro_torch.configs.LLAMA3_8B``: 32 layers, d 4096, 32
-    heads on 8 KV heads, d_ff 14336, vocabulary 128,256; bf16, random
-    weights drawn on the card from a seed), 8 requests with seeded prompt
+11. LLM decode lanes (``serve_decode``): Llama-3-8B at full width, its
+    depth cut to DECODE_LAYERS = 8 of 32 to keep the run in time for the
+    phases after it (``repro_torch.configs.LLAMA3_8B``: d 4096, 32 heads
+    on 8 KV heads, d_ff 14336, vocabulary 128,256; bf16, random weights
+    drawn on the card from a seed), 8 requests with seeded prompt
     lengths in 16–128 and token ids uniform over the vocabulary, 64 new
     tokens each, ``max_seq_len`` 192, ``SpeCaConfig(taylor_order=2)``.
     (a) τ0 = 0 at lanes=1: every request's tokens equal the port's greedy
@@ -213,12 +218,59 @@ Phases (any failure ends the run with a non-zero exit):
     full; (b) at τ0 = the median error of (a)'s drafts, lanes=4 with the
     launch counts set to 0 just before and read just after: the lane
     predict, refresh and verify launch, some draft is accepted and some
-    rejected; lanes=1 is served beside it and recorded, not gated; (c) a
+    rejected; lanes=1 is served beside it and gives every request the
+    same tokens and accepts (W2, decode products and RMSNorm on lanes
+    padded to 8); (c) a
     raw ``build_workload_step`` loop at ``max_draft_depth=4`` and (d) the
     same with ``forecaster="spectral"`` land on their depth-1 runs bitwise
     (``tok``, ``tokens``, both caches, every counter) in fewer ticks, a
     chain tick launching the rollback once per payload leaf when some
     lane drafted and never when none did.
+11a. The rest of decode (``serve_moe``, ``serve_ssm``, ``serve_hybrid``;
+    11a–11c run after phase 12, once the Llama-3-8B weights are freed):
+    granite-moe-1b-a400m (24 layers, d 1024, 16 heads on 8 KV heads, 32
+    experts top-8, d_ff 512, vocabulary 49,155), mamba2-130m (24 layers,
+    d 768, SSD state 128, 24 heads of 64) and hymba-1.5b (32 layers, d
+    1600, 25 heads on 5 KV heads, window 1024 with every 16th layer
+    global, SSD state 16, d_ff 5504), each at full width and depth. First
+    the decode kernels at the family's own shapes against their plain
+    versions, before its model is drawn: the lane predict, refresh and
+    chain predict (K = 1 and 4) on its lane table [3, L, 2, 4, 1, d], the
+    verify on [4, 1, d] planes (d 768 and 1600 end in a partial chunk),
+    the rollback bitwise on seeded snapshots of every cache leaf (the f32
+    ``ssm_state``, the 4-D ``conv_state``, bf16 K/V; lane axis 1), each
+    timed under the rows' phase entry. Then bf16 random weights drawn on
+    the card from a seed and freed after, the traffic of phase 11: (a)
+    τ0 = 0 at lanes=1 on all 8 requests equals the port's greedy loop (the
+    prefill's SSD state and conv tail taken whole); (b) at the
+    median draft error, lanes=4, launch counts set to 0 just before and
+    read just after: the lane predict, refresh and verify launch, drafts
+    are accepted and rejected, lanes=1 equal (W2); then for mamba2 and
+    hymba (c) a depth-4 chain on the raw loop lands bitwise on depth 1
+    (``tok``, ``tokens``, ``ssm_state``, ``conv_state``, K/V, every
+    counter) in fewer ticks, the rollback launched once per payload leaf
+    on a chain tick where some lane drafted and never where none did.
+    Recorded: walls, ticks, α, host syncs, peak memory, one full
+    forward's wall, kernels and device busy time.
+11b. ``decode_ring``: mixtral-8x7b at full width (d 4096, 32 heads on 8
+    KV heads, 8 experts top-2, d_ff 14336, window 4096), its depth cut to
+    4 of 32 layers (93 GB of bf16 does not fit 80 GB): 2 sequences of
+    4,160 seeded tokens through ``lm_decode_step`` from position 0 on the
+    ring-buffer cache (it wraps at 4,096) and on an absolute-position
+    cache of 4,160 rows with the same window; the logits of the two runs
+    bitwise before the wrap and within 2^-4 of their largest magnitude at
+    every position past it (checked at every 64th position and all 64
+    past the wrap); greedy tokens recorded. At layer 0 (K/V a function of
+    token and position alone), at every position past the wrap, every
+    ring slot is bitwise the absolute row it must hold, and the ring
+    attention of a seeded f32 query lies within ``RING_ATTN_TOL`` of the
+    absolute cache's, a bound that two faults planted in the same run (an
+    off-by-one window, one stale slot) must exceed.
+11c. ``decode_audio``: musicgen-medium at full width and depth (48
+    layers, d 1536, 4 codebooks of 2,048, GELU): 2 requests, an
+    ``lm_forward`` prefill of 32 frames, then 64 greedy ``lm_decode_step``s;
+    the last step's logits [2, 1, 4, V] within 2^-4 of their largest
+    magnitude of ``lm_forward`` over the whole sequence.
 12. ``serve_mixed``: one lifecycle engine with the DiT-XL/2 quartet and
     ``workloads={"decode": ...}`` serves phase 3's requests 0-3 and the
     decode requests 0-3, submitted alternately, at lanes=4 each; each
@@ -237,10 +289,12 @@ reads them just after, and asserts the kernels of its own path. A kernel
 row's ``decode`` entry holds its decode-shape numbers and its launches in
 ``serve_decode``; its ``flux`` entry its numbers at the FLUX-like table
 and its launches in ``serve_flux``; its ``video`` entry its numbers at
-the HunyuanVideo-like table and its launches in ``serve_video``. Every
-width comparison of phases 3–7 and 10c (lanes 4 against 1 or 2) holds
-accepts and counters (FLOPs too) and records the samples' largest
-difference; 10c holds its samples within 1e-5 as well.
+the HunyuanVideo-like table and its launches in ``serve_video``; its
+``serve_moe``, ``serve_ssm`` and ``serve_hybrid`` entries its numbers at
+that family's shapes and its launches in that phase. Every width
+comparison of phases 3–7 and 10c (lanes 4 against 1 or 2) holds accepts
+and counters (FLOPs too) and records the samples' largest difference;
+phase 3 and 10c hold the samples within 1e-5 as well.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and ``{"ok": true, "device": {...}}``; the line before them is
@@ -283,7 +337,24 @@ ATTN_SEQ = 4096
 DECODE_NEW = 64                   # new tokens a decode request asks for
 DECODE_SEQ = 192                  # max_seq_len of a decode lane's cache
 DECODE_PROMPT = (16, 128)         # seeded prompt lengths, inclusive
+# Llama-3-8B's depth in the decode phases (of 32): the whole run must end
+# well inside its time limit, and the decode phases are host-bound
+DECODE_LAYERS = 8
 L2_FLUSH_BYTES = 128 * 2**20      # written between timed calls: > 50 MB L2
+# decode_ring: mixtral-8x7b at full width, its depth cut to fit the card,
+# 4,160 positions through its 4,096-slot ring (64 past the wrap)
+RING_LAYERS, RING_SEQ = 4, 4160
+# decode_audio: musicgen-medium, a prefill of 32 frames and 64 decode steps
+AUDIO_PROMPT, AUDIO_NEW = 32, 64
+# bf16 bounds on max |Δ logits| / max |logits|: the ring against the
+# absolute-position cache (the same keys summed in another slot order)
+# and the last decode step against lm_forward over the whole sequence
+# (another attention path over the same keys)
+RING_TOL = AUDIO_TOL = 2.0 ** -4
+# decode_ring, layer 0: max |Δ| / max |attention| of the ring's attention
+# of an f32 query against the absolute cache's over the same bf16 keys
+# (the same sum in another slot order)
+RING_ATTN_TOL = 1e-4
 # the text- and video-conditioned DiTs (serve_flux, serve_video)
 TEXT_TOKENS, TEXT_SCALE = 8, 0.1  # a request's text stub [1, 8, cond_dim]
 FLUX_LATENT = 64                  # 512×512 through an 8× VAE: 1024 tokens
@@ -1334,10 +1405,14 @@ class Smoke:
         assert torch.isfinite(samples).all(), "non-finite samples"
         assert all(r.completed and r.num_full + r.num_spec == S
                    for r in res)
-        width = self._hold_width(
-            "serve", res[:LANES],
-            engine.serve_batched(reqs[:LANES], lanes=1), (LANES, 1))
-        width["forward_max_abs_diff"] = self._forward_width_diff(params)
+        try:
+            width = self._hold_width(
+                "serve", res[:LANES],
+                engine.serve_batched(reqs[:LANES], lanes=1), (LANES, 1),
+                sample_tol=1e-5)
+        except AssertionError:
+            self._width_probe(params)       # name the op, then fail
+            raise
         self.serve_results = res
         self.record["serve"] = dict(
             width=width,
@@ -1346,26 +1421,16 @@ class Smoke:
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             sample_abs_max=samples.abs().max().item())
 
-    def _forward_width_diff(self, params):
-        """The largest difference between one full forward of LANES
-        seeded latents at once and of each alone (t = 500, labels 0..3),
-        where a lane width first reaches a sample; recorded."""
-        torch = self.torch
-        from repro_torch.diffusion.pipeline import latent_shape
-        from repro_torch.layers.model import dit_forward
-        g = torch.Generator(device=self.dev).manual_seed(5)
-        inp = {"latents": torch.randn(latent_shape(self.cfg, self.dcfg,
-                                                   LANES),
-                                      generator=g, device=self.dev),
-               "t": torch.full((LANES,), 500.0, device=self.dev),
-               "labels": torch.arange(LANES, device=self.dev)}
-        both = dit_forward(self.cfg, params, inp)[0]
-        alone = torch.cat([dit_forward(self.cfg, params, {
-            k: v[i:i + 1] for k, v in inp.items()})[0] for i in range(LANES)])
-        diff = (both.float() - alone.float()).abs().max().item()
-        print(f"one forward of {LANES} latents at once against each alone: "
-              f"max |Δ| = {diff}", flush=True)
-        return diff
+    def _width_probe(self, params):
+        """W1 (ROADMAP Queue 3), run when ``serve``'s lanes-4-against-1
+        gate fails: ``tools/width_probe.py`` on DiT-XL/2's forward of LANES
+        seeded latents at once and of each alone names the first op whose
+        output differs, its row count M at each width and max |Δ| (its
+        own, re-run on the batched run's inputs); recorded and printed."""
+        from tools.width_probe import dit_case, probe
+        rec = probe(dit_case(self.dev, params))
+        print(f"W1 probe: {json.dumps(rec)}", flush=True)
+        self.record["w1_probe"] = rec
 
     def _requests(self, n, policy_of=lambda i: None):
         torch = self.torch
@@ -2382,9 +2447,8 @@ class Smoke:
         """Requests ``a`` served at lanes ``widths[0]`` and the same
         requests ``b`` at ``widths[1]``: equal accepts and counters (full,
         spec, drafted, FLOPs); the samples' largest difference recorded,
-        and held within ``sample_tol`` where one is given (DiT-XL/2's
-        bf16 products round differently at M = 256 and 1024, ``serve``
-        records). With ``flags``, the
+        and held within ``sample_tol`` where one is given. With
+        ``flags``, the
         two runs' lane flags (``_lane_flags``; depth 1, every request
         ``steps`` long, so request r runs in lane r % W from tick
         (r // W)·steps), where an accept sequence differs the first step
@@ -2806,42 +2870,48 @@ class Smoke:
             self.lm_params = init_params(self.lm_cfg, gen, device=self.dev)
         return self.lm_params
 
-    def _decode_requests(self, n=N_REQUESTS, **policy):
+    def _decode_requests(self, n=N_REQUESTS, cfg=None, **policy):
         """Decode requests 0..n-1: seeded prompt lengths in DECODE_PROMPT,
-        token ids uniform over the vocabulary (CPU generator, seed 17)."""
+        token ids uniform over ``cfg``'s vocabulary (default the decode
+        phases' LM; CPU generator, seed 17)."""
         torch = self.torch
         from repro_torch.serving import Request, RequestPolicy
+        vocab = (cfg or self.lm_cfg).vocab_size
         g = torch.Generator().manual_seed(17)
         lens = torch.randint(DECODE_PROMPT[0], DECODE_PROMPT[1] + 1,
                              (N_REQUESTS,), generator=g).tolist()
-        prompts = [torch.randint(0, self.lm_cfg.vocab_size, (1, n_),
-                                 generator=g, dtype=torch.int32)
-                   for n_ in lens]
+        prompts = [torch.randint(0, vocab, (1, n_), generator=g,
+                                 dtype=torch.int32) for n_ in lens]
         return [Request(request_id=i, cond={"tokens": prompts[i]},
                         policy=RequestPolicy(workload="decode", **policy))
                 for i in range(n)]
 
-    def _decode_workload(self, tau0):
+    def _decode_workload(self, tau0, cfg=None, params=None):
+        """Decode lanes of ``cfg`` (default the Llama-3-8B phases' LM)."""
         from repro_torch.configs import SpeCaConfig
         from repro_torch.core.workload import DecodeWorkload
-        return DecodeWorkload(self.lm_cfg, self._lm_params(),
+        return DecodeWorkload(cfg or self.lm_cfg, params or self._lm_params(),
                               SpeCaConfig(taylor_order=2, tau0=tau0),
                               max_new_tokens=DECODE_NEW,
                               max_seq_len=DECODE_SEQ, device=self.dev)
 
-    def _greedy(self, prompt):
+    def _greedy(self, prompt, cfg, params):
         """The port's plain greedy decode of one prompt: ``lm_forward``
-        prefill, then ``lm_decode_step`` token by token -> [new tokens]."""
+        prefill (the prefix's K/V scattered, the SSD state and conv tail
+        taken whole), then ``lm_decode_step`` token by token -> [new
+        tokens]."""
         torch = self.torch
         from repro_torch.layers import model as M
-        cfg, params = self.lm_cfg, self._lm_params()
         tokens = prompt.to(self.dev)
         P = tokens.shape[1]
         logits, ex = M.lm_forward(cfg, params, {"tokens": tokens},
                                   collect_cache=True)
         cache = M.init_cache(cfg, 1, DECODE_SEQ, self.dev)
         for k in cache:
-            cache[k][:, :, :P] = ex["cache"][k]
+            if k in ("k", "v"):
+                cache[k][:, :, :P] = ex["cache"][k]
+            else:
+                cache[k] = ex["cache"][k]
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         out = []
         for pos in range(P, P + DECODE_NEW):
@@ -2935,59 +3005,87 @@ class Smoke:
                     deep_wall_s=wk, counters=ck, launches=lk,
                     ticks_drafted_nothing=drafted.count(False))
 
-    def serve_decode(self):
-        """Llama-3-8B decode lanes (full width and depth, bf16, random
-        weights drawn on the card), 8 requests of 64 new tokens:
-        (a) τ0 = 0 at lanes=1 emits the port's greedy decode, every step
-        full; (b) at a τ0 where the run both accepts and rejects (the
-        median verify error of (a)'s drafts) at lanes=4, with the launch
-        counts set to 0 just before and read just after; lanes=1 is
-        measured beside it, not gated; (c) a depth-4 chain and (d) a
-        depth-4 spectral chain on a raw lane-step loop land bitwise on
-        depth 1 (tokens, counters, both caches) in fewer ticks."""
+    def _decode_forward_profile(self, wl):
+        """One full decode forward of ``wl`` at LANES lanes (random input
+        tokens at positions 100..103 over a zero cache): host wall
+        (synchronised, median of 3), kernels a call and the device busy
+        time (the union of the kernels' spans) from one ``_traced_call``
+        reading."""
+        torch = self.torch
+        from tools.profile_torch_serve import busy_us
+        g = torch.Generator(device=self.dev).manual_seed(9)
+        dyn = wl.init_payload(LANES)
+        dyn["tok"] = torch.randint(0, wl.cfg.vocab_size, (LANES, 1),
+                                   generator=g, device=self.dev,
+                                   dtype=torch.int32)
+        ctx = torch.arange(100, 100 + LANES, dtype=torch.int32,
+                           device=self.dev)
+
+        def fn():
+            return wl.full_forward(dyn, None, ctx)
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        events = _traced_call(torch, fn)
+        return dict(wall_ms=sorted(walls)[1], kernels=len(events),
+                    busy_ms=busy_us([(e.time_range.start, e.time_range.end)
+                                     for e in events]) / 1e3)
+
+    def _serve_lm(self, name, cfg, params, chains):
+        """Decode lanes of ``cfg`` (bf16 random weights drawn on the card),
+        8 requests of 64 new tokens: (a) τ0 = 0 at lanes=1 emits the port's
+        greedy decode for every request, every step full;
+        (b) at a τ0 where the run both
+        accepts and rejects (the median verify error of (a)'s drafts) at
+        lanes=4, with the launch counts set to 0 just before and read just
+        after: the lane predict, refresh and verify launch; lanes=1 is
+        measured beside it and must give every request the same tokens
+        and accepts (W2); then a depth-4 chain on a raw
+        lane-step loop per forecaster of ``chains`` ("taylor",
+        "spectral") lands bitwise on depth 1 (tokens, counters, every cache
+        leaf) in fewer ticks. Returns the record: its ``launches`` are
+        (b)'s, ``deep`` and ``spectral`` the chains'."""
         torch = self.torch
         from repro_torch.serving import SpeCaEngine
-        t0 = time.perf_counter()
-        self._lm_params()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        reqs = self._decode_requests()
+        reqs = self._decode_requests(cfg=cfg)
         lens = [r.cond["tokens"].shape[1] for r in reqs]
         # (a) τ0 = 0: every draft rejected, the engine is a greedy decoder
-        eng0 = SpeCaEngine(workloads={"decode": self._decode_workload(0.0)},
-                           device=self.dev)
+        eng0 = SpeCaEngine(workloads={"decode": self._decode_workload(
+            0.0, cfg, params)}, device=self.dev)
         eng0.serve_batched(reqs[:1], lanes=1, max_ticks=3)      # warm up
         with self._lane_flags() as flags:
             res0, l0, wall0, syncs0, _ = self._timed_serve(eng0, reqs, 1)
         t0 = time.perf_counter()
-        greedy = [self._greedy(r.cond["tokens"]) for r in reqs]
+        want = [self._greedy(r.cond["tokens"], cfg, params) for r in reqs]
         greedy_s = time.perf_counter() - t0
-        for r, want in zip(res0, greedy):
+        for r, want in zip(res0, want):
             assert r.completed and r.num_full == DECODE_NEW \
                 and r.num_spec == 0, (r.request_id, r.num_full)
             assert torch.equal(r.sample, want.to(r.sample.dtype)), \
-                f"request {r.request_id}: τ0=0 tokens != greedy decode"
+                f"{name} request {r.request_id}: τ0=0 tokens != greedy"
         err = torch.cat([f["err"] for f in flags]).float().cpu()
         err = err[torch.isfinite(err)]
         assert err.numel(), "no lane drafted at τ0 = 0"
         pct = torch.quantile(err, torch.tensor([0.1, 0.5, 0.9])).tolist()
         tau0 = pct[1]
         ticks0 = max(r.finish_tick for r in res0)
-        print(f"(a) τ0=0 lanes=1: tokens == greedy for {len(res0)} requests "
-              f"(prompts {lens}); {wall0:.3f} s, {syncs0} host syncs over "
-              f"{ticks0} ticks; greedy loop {greedy_s:.3f} s; draft errors "
-              f"p10/p50/p90 {pct} -> τ0 = {tau0}")
+        print(f"{name} (a) τ0=0 lanes=1: tokens == greedy for {len(res0)} "
+              f"requests (prompts {lens}); {wall0:.3f} s, {syncs0} host "
+              f"syncs over {ticks0} ticks; greedy loop {greedy_s:.3f} s; "
+              f"draft errors p10/p50/p90 {pct} -> τ0 = {tau0}")
         # (b) lanes=4 at τ0: accepts and rejects; the main decode path
-        wl = self._decode_workload(tau0)
+        wl = self._decode_workload(tau0, cfg, params)
         eng = SpeCaEngine(workloads={"decode": wl}, device=self.dev)
         eng.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=3)
         res, launches, wall, syncs, peak = self._timed_serve(eng, reqs,
                                                              LANES)
         ticks = max(r.finish_tick for r in res)
-        for name in DECODE_KERNELS:
-            self.kernels.setdefault(name, {}).setdefault(
-                "decode", {})["launches"] = launches[name]
-        print(f"(b) decode main path launches: {launches}")
+        print(f"{name} (b) main path launches: {launches}")
         for r in res:
             print(f"  request {r.request_id}: prompt {lens[r.request_id]} "
                   f"alpha {r.alpha:.3f} full {r.num_full} spec {r.num_spec} "
@@ -2995,7 +3093,7 @@ class Smoke:
         spec = sum(r.num_spec for r in res)
         rejected = sum(r.num_drafted - r.num_spec for r in res)
         tok_s = N_REQUESTS * DECODE_NEW / wall
-        print(f"(b) τ0={tau0:.4f} lanes={LANES}: {wall:.3f} s "
+        print(f"{name} (b) τ0={tau0:.4f} lanes={LANES}: {wall:.3f} s "
               f"({tok_s:.1f} tokens/s), {syncs} host syncs over {ticks} "
               f"ticks ({syncs / ticks:.2f} a tick), {spec} accepted and "
               f"{rejected} rejected drafts, peak {peak:.2f} GiB")
@@ -3004,18 +3102,54 @@ class Smoke:
         for r in res:
             assert r.completed and r.sample.shape == (DECODE_NEW,)
             assert 0 <= int(r.sample.min()) and \
-                int(r.sample.max()) < self.lm_cfg.vocab_size
+                int(r.sample.max()) < cfg.vocab_size
         solo, _, wall1, syncs1, _ = self._timed_serve(eng, reqs, 1)
         same = [torch.equal(a.sample, b.sample) and a.accepts == b.accepts
                 for a, b in zip(res, solo)]
-        print(f"lanes={LANES} against lanes=1 (recorded, not gated): "
-              f"{sum(same)} of {len(same)} requests identical; lanes=1 "
-              f"{wall1:.3f} s, {syncs1} host syncs")
-        # (c), (d) depth-4 chains on the raw loop
-        deep = self._hold_raw_deep("(c) depth-4 chain", wl, reqs[:LANES],
-                                   None)
-        spectral = self._hold_raw_deep("(d) depth-4 spectral", wl,
-                                       reqs[:LANES], "spectral")
+        print(f"{name}: lanes={LANES} against lanes=1: {sum(same)} of "
+              f"{len(same)} requests identical; lanes=1 {wall1:.3f} s, "
+              f"{syncs1} host syncs")
+        # W2 (ROADMAP Queue 3): a lane's tokens and accepts do not depend
+        # on the lane width
+        assert all(same), f"{name}: lanes={LANES} and 1 differ: {same}"
+        deep = {fc: self._hold_raw_deep(
+            f"{name} depth-{CHAIN_K} {fc} chain", wl, reqs[:LANES],
+            None if fc == "taylor" else fc) for fc in chains}
+        forward = self._decode_forward_profile(wl)
+        print(f"{name} full forward at lanes={LANES}: {forward}")
+        return dict(
+            model=cfg.name, weights_gib=sum(
+                t.numel() * t.element_size() for t in _leaves(params))
+            / 2**30, prompt_lens=lens, new_tokens=DECODE_NEW,
+            max_seq_len=DECODE_SEQ,
+            greedy=dict(wall_s=wall0, host_syncs=syncs0, ticks=ticks0,
+                        greedy_loop_s=greedy_s, launches=l0,
+                        err_p10_p50_p90=pct),
+            tau0=tau0, wall_s=wall, tokens_per_s=tok_s, host_syncs=syncs,
+            ticks=ticks, syncs_per_tick=syncs / ticks, launches=launches,
+            peak_gib=peak, alpha=[r.alpha for r in res],
+            requests=[dict(request_id=r.request_id, num_full=r.num_full,
+                           num_spec=r.num_spec, num_drafted=r.num_drafted,
+                           finish_tick=r.finish_tick) for r in res],
+            lanes1=dict(wall_s=wall1, host_syncs=syncs1,
+                        identical_requests=sum(same)),
+            deep=deep.get("taylor"), spectral=deep.get("spectral"),
+            full_forward=forward)
+
+    def serve_decode(self):
+        """Llama-3-8B decode lanes (full width, DECODE_LAYERS deep):
+        ``_serve_lm`` with a Taylor and a spectral depth-4 chain."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        self._lm_params()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rec = self._serve_lm("serve_decode", self.lm_cfg, self._lm_params(),
+                             ("taylor", "spectral"))
+        deep, spectral = rec["deep"], rec["spectral"]
+        for name in DECODE_KERNELS:
+            self.kernels.setdefault(name, {}).setdefault(
+                "decode", {})["launches"] = rec["launches"][name]
         for name in ("taylor_predict_chain_lanes", "lane_rollback"):
             self.kernels.setdefault(name, {}).setdefault(
                 "decode", {})["launches"] = deep["launches"][name]
@@ -3023,27 +3157,339 @@ class Smoke:
             "decode", {})["launches"] = spectral["launches"][
                 "spectral_update_lanes"]
         lm = self.lm_cfg
-        cache_bytes = 2 * lm.num_layers * LANES * DECODE_SEQ \
-            * lm.num_kv_heads * lm.resolved_head_dim * 2
-        self.decode_tau0 = tau0
+        self.decode_tau0 = rec["tau0"]
         self.record["serve_decode"] = dict(
-            model=lm.name, weights_gib=sum(
-                t.numel() * t.element_size() for t in _leaves(
-                    self._lm_params())) / 2**30, init_s=init_s,
-            prompt_lens=lens, new_tokens=DECODE_NEW, max_seq_len=DECODE_SEQ,
-            greedy=dict(wall_s=wall0, host_syncs=syncs0, ticks=ticks0,
-                        greedy_loop_s=greedy_s, launches=l0,
-                        err_p10_p50_p90=pct),
-            tau0=tau0, wall_s=wall, tokens_per_s=tok_s, host_syncs=syncs,
-            ticks=ticks, syncs_per_tick=syncs / ticks, launches=launches,
-            peak_gib=peak, kv_cache_bytes=cache_bytes,
-            alpha=[r.alpha for r in res],
-            requests=[dict(request_id=r.request_id, num_full=r.num_full,
-                           num_spec=r.num_spec, num_drafted=r.num_drafted,
-                           finish_tick=r.finish_tick) for r in res],
-            lanes1=dict(wall_s=wall1, host_syncs=syncs1,
-                        identical_requests=sum(same)),
-            deep=deep, spectral=spectral)
+            rec, init_s=init_s, kv_cache_bytes=2 * lm.num_layers * LANES
+            * DECODE_SEQ * lm.num_kv_heads * lm.resolved_head_dim * 2)
+
+    def _family_kernels(self, key, cfg, seed):
+        """The decode kernels at ``cfg``'s own shapes, against their plain
+        versions under the serving bars: ``_table_kernels`` on its lane
+        table [3, L, 2, LANES, 1, d] bf16 (the verify on [LANES, 1, d]
+        planes; the chain predict at K = 1 and CHAIN_K by
+        ``_check_chain_kernels``), and the rollback bitwise, from a
+        snapshot list and stacked, on seeded snapshots of every decode
+        cache leaf ``init_cache`` gives it (the f32 ``ssm_state`` [L,
+        LANES, h, p, n], the 4-D ``conv_state``, the bf16 K/V caches; lane
+        axis 1), the largest leaf timed. Rows under the kernels' ``key``
+        entry; returns the record."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        from repro_torch.layers.model import init_cache
+        table = (3, cfg.num_layers, 2, LANES, 1, cfg.d_model)
+        t = self._table_kernels(
+            key, table, seed,
+            lambda diffs: self._check_chain_kernels(table, torch.bfloat16),
+            iters=20, profile=False)
+        del t["diffs"], t["feats"]
+        g = torch.Generator(device=self.dev).manual_seed(seed + 2)
+        leaves, shapes = {}, {}
+        for leaf, z in init_cache(cfg, LANES, DECODE_SEQ, self.dev).items():
+            shapes[leaf] = [str(z.dtype)] + list(z.shape)
+            snaps = [torch.randn(z.shape, generator=g, device=self.dev)
+                     .to(z.dtype) for _ in range(CHAIN_K + 1)]
+            stacked = torch.stack(snaps)
+            for idx in self._rollback_indices(LANES):
+                want = ref.lane_rollback_ref(snaps, idx, lane_axis=1)
+                assert torch.equal(ops.lane_rollback(snaps, idx,
+                                                     lane_axis=1), want), \
+                    f"rollback not bitwise on the {key} {leaf}"
+                assert torch.equal(ops.lane_rollback(stacked, idx,
+                                                     lane_axis=1), want), \
+                    f"stacked rollback not bitwise on the {key} {leaf}"
+            leaves[leaf] = (snaps, stacked)
+        torch.cuda.synchronize()
+        big = max(leaves, key=lambda k: leaves[k][0][0].numel()
+                  * leaves[k][0][0].element_size())
+        snaps, stacked = leaves.pop(big)
+        del leaves
+        shape = tuple(snaps[0].shape)
+        idx = self._rollback_indices(LANES)[1]
+        take = idx.long().reshape((1, 1, LANES) + (1,) * (len(shape) - 2)
+                                  ).expand((1,) + shape)
+        self._shape_row(
+            key, "lane_rollback", shape,
+            lambda: ops.lane_rollback(snaps, idx, lane_axis=1),
+            lambda: ref.lane_rollback_ref(snaps, idx, lane_axis=1),
+            2 * snaps[0].numel() * snaps[0].element_size() + LANES * 4, 0.0,
+            0.0, library=lambda: torch.take_along_dim(stacked, take, dim=0),
+            iters=20, profile=False)
+        for name, k in self.kernels.items():
+            if "shape" in k.get(key, {}):
+                print(f"{name} at the {cfg.name} shapes: {k[key]}")
+        return dict(table=list(table), rollback_leaves=shapes,
+                    timed_leaf=big, **t["errs"],
+                    verify_max_abs_err=t["verify_err"])
+
+    def _serve_family(self, name, cfg, chains, seed):
+        """The decode kernels held at ``cfg``'s shapes
+        (``_family_kernels``), then ``_serve_lm`` on ``cfg`` at full width
+        and depth, its bf16 weights drawn on the card from seed 0 and
+        freed after; the kernel rows' ``name`` entry gets (b)'s launches
+        and the chains'."""
+        torch = self.torch
+        from repro_torch.layers.model import init_params
+        checks = self._family_kernels(name, cfg, seed)
+        self._release()
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(
+            device=self.dev).manual_seed(0), device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rec = self._serve_lm(name, cfg, params, chains)
+        for k in DECODE_KERNELS:
+            self.kernels.setdefault(k, {}).setdefault(name, {})[
+                "launches"] = rec["launches"][k]
+        if rec["deep"] is not None:
+            for k in ("taylor_predict_chain_lanes", "lane_rollback"):
+                self.kernels.setdefault(k, {}).setdefault(name, {})[
+                    "launches"] = rec["deep"]["launches"][k]
+        self.record[name] = dict(rec, init_s=init_s, kernel_checks=checks,
+                                 card=smi_line())
+
+    def serve_moe(self):
+        """granite-moe-1b-a400m decode lanes (24 layers, d 1024, 32
+        experts top-8): (a) and (b) of ``_serve_lm``."""
+        from repro_torch.configs import GRANITE_MOE_1B_A400M
+        self._serve_family("serve_moe", GRANITE_MOE_1B_A400M, (), 51)
+
+    def serve_ssm(self):
+        """mamba2-130m decode lanes (24 layers, d 768, state 128, 24 heads
+        of 64): (a), (b) and a depth-4 chain bitwise on depth 1, the f32
+        SSD state and the conv state rolled back with the tokens."""
+        from repro_torch.configs import MAMBA2_130M
+        self._serve_family("serve_ssm", MAMBA2_130M, ("taylor",), 61)
+
+    def serve_hybrid(self):
+        """hymba-1.5b decode lanes (32 layers, d 1600, 25 heads on 5 KV
+        heads, window 1024 with every 16th layer global, SSD state 16):
+        (a), (b) and a depth-4 chain as ``serve_ssm``'s."""
+        from repro_torch.configs import HYMBA_1_5B
+        self._serve_family("serve_hybrid", HYMBA_1_5B, ("taylor",), 71)
+
+    def decode_ring(self):
+        """mixtral-8x7b at full width, its depth cut to RING_LAYERS of 32
+        (93 GB of bf16 weights do not fit 80 GB): RING_SEQ seeded tokens
+        in each of 2 sequences through ``lm_decode_step`` from position 0,
+        once on an absolute-position cache of RING_SEQ rows and once on
+        the ring-buffer cache (window W = 4096 slots, so it wraps), the
+        same window on both. Gates:
+
+        * logits: bitwise equal before the wrap (the same rows in the
+          same slots), checked at every 64th position; at every position
+          past it (W..RING_SEQ − 1: the same keys summed in another slot
+          order) within RING_TOL of their largest magnitude at the 64th
+          positions and the last, and wherever both runs send every token
+          of every layer to the same top-2 experts. A rounding difference
+          can tip a near tie of the router to another expert, a
+          difference in kind: the other positions are counted and their
+          logits recorded. Greedy tokens recorded;
+        * layer 0, whose K/V depend only on a token and its position: at
+          every position past the wrap, every ring slot i bitwise the
+          absolute cache's row of the position it must hold, p_i = pos −
+          ((pos − i) mod W); and the ring attention of a seeded f32 query
+          [2, 1, 32, 128] over those slots within RING_ATTN_TOL of the
+          largest magnitude of the windowed attention over the absolute
+          cache. Two planted faults read above that bound in the same
+          run (else the check could not see them): the absolute attention
+          with a window of W − 1 (an off-by-one window) and the ring with
+          the slot written at that position holding its stale row
+          (position pos − W)."""
+        import dataclasses
+        torch = self.torch
+        from repro_torch.configs import MIXTRAL_8X7B
+        from repro_torch.layers import attention as A
+        from repro_torch.layers import blocks as blk
+        from repro_torch.layers import model as M
+        cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=RING_LAYERS)
+        W = cfg.attn_window
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(
+            device=self.dev).manual_seed(0), device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        B = 2
+        g = torch.Generator(device=self.dev).manual_seed(31)
+        toks = torch.randint(0, cfg.vocab_size, (B, RING_SEQ), generator=g,
+                             device=self.dev, dtype=torch.int32)
+        q = torch.randn((B, 1, cfg.num_heads, cfg.resolved_head_dim),
+                        generator=g, device=self.dev)
+        at = sorted(set(range(0, RING_SEQ, 64)) | set(range(W, RING_SEQ)))
+        assert blk.uses_ring_cache(cfg) and RING_SEQ > W
+
+        def run(c, layer0):
+            """-> (logits at ``at``, seconds, last cache, each past-wrap
+            position's experts [L, B, 2], sorted)."""
+            from torch.overrides import TorchFunctionMode
+
+            class Routes(TorchFunctionMode):
+                # the router's stable sort in ``moe_forward``, per layer
+                def __torch_function__(self, func, types, args=(),
+                                       kwargs=None):
+                    out = func(*args, **(kwargs or {}))
+                    if func is torch.sort:
+                        self.idx.append(out.indices[:, :c.num_experts_per_tok]
+                                        .sort(-1).values)
+                    return out
+            routes = {}
+            cache = M.init_cache(c, B, RING_SEQ, self.dev)
+            assert cache["k"].shape[2] == (W if blk.uses_ring_cache(c)
+                                           else RING_SEQ)
+            keep = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pos in range(RING_SEQ):
+                if pos < W:
+                    logits, cache = M.lm_decode_step(
+                        c, params, toks[:, pos:pos + 1], cache, pos)
+                else:
+                    with Routes() as r:
+                        r.idx = []
+                        logits, cache = M.lm_decode_step(
+                            c, params, toks[:, pos:pos + 1], cache, pos)
+                    routes[pos] = torch.stack(r.idx)
+                if pos in at:
+                    keep[pos] = logits[:, 0, :c.vocab_size].float()
+                if pos >= W:
+                    layer0(pos, cache["k"][0], cache["v"][0])
+            torch.cuda.synchronize()
+            return keep, time.perf_counter() - t0, cache, routes
+        # the same windows on every layer, but "every (L+1)-th layer global"
+        # names none and keeps the absolute-position cache
+        att = {}
+
+        def flat_attn(pos, k, v):
+            att[pos] = [A.decode_attention(q, k, v, pos, w)
+                        for w in (W, W - 1)]
+        flat, flat_s, fc, flat_routes = run(dataclasses.replace(
+            cfg, global_every=RING_LAYERS + 1), flat_attn)
+        fk, fv = fc["k"][0], fc["v"][0]          # every position's row
+        del fc
+        slot = torch.arange(W, device=self.dev)
+        l0 = {"slots_bitwise": 0, "sound": 0.0, "off_by_one": math.inf,
+              "stale_slot": math.inf}
+
+        def ring_attn(pos, k, v):
+            p = pos - torch.remainder(pos - slot, W)
+            l0["slots_bitwise"] += int(torch.equal(k, fk[:, p])
+                                       and torch.equal(v, fv[:, p]))
+            want, off = att[pos]
+            scale = want.abs().max()
+            stale_k, stale_v = k.clone(), v.clone()
+            stale_k[:, pos % W], stale_v[:, pos % W] = fk[:, pos - W], \
+                fv[:, pos - W]
+            for key, got in (
+                    ("sound", A.decode_attention_ring(q, k, v, pos)),
+                    ("off_by_one", off),
+                    ("stale_slot", A.decode_attention_ring(
+                        q, stale_k, stale_v, pos))):
+                r = ((got - want).abs().max() / scale).item()
+                l0[key] = max(l0[key], r) if key == "sound" \
+                    else min(l0[key], r)
+        ring, ring_s, _, ring_routes = run(cfg, ring_attn)
+        del fk, fv, att
+        rel = {p: ((ring[p] - flat[p]).abs().max()
+                   / flat[p].abs().max()).item() for p in at}
+        agree = sum(torch.equal(ring[p].argmax(-1), flat[p].argmax(-1))
+                    for p in at)
+        past = [p for p in at if p >= W]
+        routed = [p for p in past
+                  if torch.equal(ring_routes[p], flat_routes[p])]
+        tipped = {p: rel[p] for p in past if p not in routed}
+        held = [p for p in past if p in routed or p % 64 == 0
+                or p == RING_SEQ - 1]
+        worst = max(held, key=rel.get)
+        weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+        self.record["decode_ring"] = dict(
+            model=cfg.name, layers=RING_LAYERS, weights_gb=weights / 1e9,
+            init_s=init_s, seq=RING_SEQ, window=W,
+            ring_s=ring_s, absolute_s=flat_s,
+            ms_per_step=dict(ring=ring_s / RING_SEQ * 1e3,
+                             absolute=flat_s / RING_SEQ * 1e3),
+            rel_diff=rel, worst_held=worst, tol=RING_TOL,
+            route_tipped=tipped,
+            layer0=dict(l0, tol=RING_ATTN_TOL, positions=len(past)),
+            greedy_agree=agree, positions=len(at),
+            greedy_last=[ring[RING_SEQ - 1].argmax(-1).tolist(),
+                         flat[RING_SEQ - 1].argmax(-1).tolist()],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            card=smi_line())
+        print(f"decode_ring: {cfg.name} ({RING_LAYERS} layers) {B} × "
+              f"{RING_SEQ} tokens, ring {ring_s:.2f} s, absolute "
+              f"{flat_s:.2f} s; logits max |Δ| / max |logits| "
+              f"{max(rel[p] for p in at if p < W)} before the wrap; past "
+              f"it {rel[worst]} (position {worst}) at the {len(held)} "
+              f"positions held ({len(routed)} of {len(past)} routed "
+              f"alike); where a router tie tipped: {tipped}; greedy tokens "
+              f"agree at {agree} of {len(at)} positions; layer 0 past the "
+              f"wrap: slots bitwise at {l0['slots_bitwise']} of {len(past)}"
+              f" positions, attention |Δ| / max: sound {l0['sound']}, "
+              f"planted off-by-one window ≥ {l0['off_by_one']}, stale "
+              f"slot ≥ {l0['stale_slot']} (bound {RING_ATTN_TOL})",
+              flush=True)
+        assert all(torch.isfinite(v).all() for v in ring.values())
+        assert all(rel[p] == 0.0 for p in at if p < W), rel
+        assert rel[worst] <= RING_TOL, (worst, rel[worst])
+        assert l0["slots_bitwise"] == len(past), l0
+        assert l0["sound"] <= RING_ATTN_TOL < min(
+            l0["off_by_one"], l0["stale_slot"]), l0
+
+    def decode_audio(self):
+        """musicgen-medium at full width and depth (48 layers, d 1536, 4
+        codebooks of 2,048, GELU), 2 requests: an ``lm_forward`` prefill of
+        AUDIO_PROMPT frames, then AUDIO_NEW greedy ``lm_decode_step``s
+        (each codebook's argmax the next frame's token). The last step's
+        logits [2, 1, 4, V] lie within AUDIO_TOL of their largest
+        magnitude of ``lm_forward`` over the whole sequence."""
+        torch = self.torch
+        from repro_torch.configs import MUSICGEN_MEDIUM
+        from repro_torch.layers import model as M
+        cfg, B, K = MUSICGEN_MEDIUM, 2, MUSICGEN_MEDIUM.num_codebooks
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(
+            device=self.dev).manual_seed(0), device=self.dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        g = torch.Generator(device=self.dev).manual_seed(41)
+        prompt = torch.randint(0, cfg.vocab_size, (B, K, AUDIO_PROMPT),
+                               generator=g, device=self.dev,
+                               dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, ex = M.lm_forward(cfg, params, {"tokens": prompt},
+                                  collect_cache=True)
+        cache = M.init_cache(cfg, B, AUDIO_PROMPT + AUDIO_NEW, self.dev)
+        for k in cache:
+            cache[k][:, :, :AUDIO_PROMPT] = ex["cache"][k]
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        frames = [prompt, tok.transpose(1, 2)]            # [B, K, 1]
+        for pos in range(AUDIO_PROMPT, AUDIO_PROMPT + AUDIO_NEW):
+            last, cache = M.lm_decode_step(cfg, params, frames[-1], cache,
+                                           pos)
+            frames.append(torch.argmax(last, dim=-1).to(
+                torch.int32).transpose(1, 2))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        seq = torch.cat(frames[:-1], dim=2)               # [B, K, P + new]
+        full, _ = M.lm_forward(cfg, params, {"tokens": seq})
+        assert tuple(last.shape) == (B, 1, K, cfg.padded_vocab)
+        want = full[:, -1:, :, :cfg.vocab_size].float()
+        rel = ((last[..., :cfg.vocab_size].float() - want).abs().max()
+               / want.abs().max()).item()
+        agree = torch.equal(last.argmax(-1), full[:, -1:].argmax(-1))
+        print(f"decode_audio: {cfg.name} prefill {AUDIO_PROMPT} + "
+              f"{AUDIO_NEW} steps in {dec_s:.2f} s; last step against "
+              f"lm_forward: max |Δ| / max |logits| {rel}, argmax equal "
+              f"{agree}", flush=True)
+        assert torch.isfinite(last).all()
+        assert rel <= AUDIO_TOL, rel
+        self.record["decode_audio"] = dict(
+            model=cfg.name, init_s=init_s, decode_s=dec_s,
+            ms_per_step=dec_s / AUDIO_NEW * 1e3, rel_diff=rel,
+            tol=AUDIO_TOL, argmax_equal=agree,
+            tokens=seq[0, :, AUDIO_PROMPT:].tolist(),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            card=smi_line())
 
     def serve_mixed(self):
         """One lifecycle engine serves DiT-XL/2 (requests 0-3 of phase 3)
@@ -3183,7 +3629,8 @@ MIXED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
 # ("decode", "flux": the kernel at the decode phases' shapes and at the
 # FLUX-like table, with its launches in serve_decode and serve_flux;
 # "video": its launches in serve_video)
-ROW_EXTRAS = ("decode", "flux", "video", "device_ms", "event_ms", "kernels_per_call",
+ROW_EXTRAS = ("decode", "flux", "video", "serve_moe", "serve_ssm",
+              "serve_hybrid", "device_ms", "event_ms", "kernels_per_call",
               "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
               "two_step_ms", "two_step_device_ms",
@@ -3211,8 +3658,10 @@ def main() -> int:
         False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    import dataclasses
     from repro_torch.configs import DIT_XL2, LLAMA3_8B, DiffusionConfig
-    smoke = Smoke(torch, "cuda", DIT_XL2, DiffusionConfig(), LLAMA3_8B)
+    smoke = Smoke(torch, "cuda", DIT_XL2, DiffusionConfig(),
+                  dataclasses.replace(LLAMA3_8B, num_layers=DECODE_LAYERS))
     smoke.phase("build", smoke.build)
     if smoke.failures:
         return 1
@@ -3239,6 +3688,17 @@ def main() -> int:
     smoke.phase("serve_decode", smoke.serve_decode)
     if not {"serve", "serve_decode"} & set(smoke.failures):
         smoke.phase("serve_mixed", smoke.serve_mixed)
+    smoke.lm_params = None
+    smoke._release()
+    # the rest of decode: each draws its model on the card and frees it
+    for name, fn in (("serve_moe", smoke.serve_moe),
+                     ("serve_ssm", smoke.serve_ssm),
+                     ("serve_hybrid", smoke.serve_hybrid),
+                     ("decode_ring", smoke.decode_ring),
+                     ("decode_audio", smoke.decode_audio)):
+        torch.cuda.reset_peak_memory_stats()
+        smoke.phase(name, fn)
+        smoke._release()
     smoke.phase("profiler", smoke.profiler)
     card = smi_line()
     rows = []

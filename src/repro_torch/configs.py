@@ -2,17 +2,17 @@
 ``ModelConfig``, ``DiffusionConfig`` and ``SpeCaConfig`` plus the
 DiT-XL/2 (``repro.configs.dit_xl2``), FLUX-like
 (``repro.configs.flux_like``), HunyuanVideo-like
-(``repro.configs.hunyuan_video_like``) and Llama-3-8B
-(``repro.configs.llama3_8b``) configurations.
+(``repro.configs.hunyuan_video_like``), Llama-3-8B
+(``repro.configs.llama3_8b``), granite-moe-1b-a400m, mamba2-130m,
+hymba-1.5b, mixtral-8x7b and musicgen-medium configurations.
 
 Each record keeps the reference's fields that the port reads, with the
 reference's names and defaults. The port serves DiT image and video
 models conditioned on class labels or on a continuous text embedding
-(``cond_dim``), and dense decoder-only LMs (``arch_type`` ``"dense"`` or
-``"vlm"`` text decode); the MoE, SSM, hybrid and audio families' fields
-are left out, and the LM entry points reject those families by name.
-``dtype`` stays a string and maps to a torch dtype through
-:attr:`ModelConfig.torch_dtype`.
+(``cond_dim``), and decoder-only LMs of every family of the reference:
+dense, VLM text decode, MoE, SSM (Mamba2 SSD), hybrid (attention and
+SSD in parallel) and multi-codebook audio. ``dtype`` stays a string and
+maps to a torch dtype through :attr:`ModelConfig.torch_dtype`.
 """
 from __future__ import annotations
 
@@ -39,8 +39,11 @@ class ModelConfig:
     """A DiT (``arch_type="dit"``, the default: AdaLN-Zero blocks of
     bidirectional attention and a GELU MLP over patch tokens, conditioned
     on class labels and/or a continuous ``[B, T_text, cond_dim]``
-    embedding) or a dense decoder-only LM (``"dense"``, ``"vlm"``: causal
-    GQA attention with RoPE, a SwiGLU or GELU MLP, RMSNorm).
+    embedding) or a decoder-only LM: ``"dense"``/``"vlm"`` (causal GQA
+    attention with RoPE, a SwiGLU or GELU MLP, RMSNorm), ``"moe"`` (the
+    MLP replaced by top-k experts), ``"ssm"`` (a Mamba2 SSD mixer, no
+    attention), ``"hybrid"`` (attention and SSD averaged, then the MLP)
+    or ``"audio"`` (``num_codebooks`` summed embeddings and heads).
     ``num_kv_heads`` 0 resolves to ``num_heads``."""
 
     name: str
@@ -57,6 +60,19 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # M-RoPE (t, h, w) splits
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    # --- SSM (mamba2 SSD) ---
+    ssm_state: int = 0
+    ssm_heads: int = 0            # 0 -> derived: d_inner // ssm_head_dim
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 64
+    # --- audio (musicgen-style multi-codebook) ---
+    num_codebooks: int = 0
     norm_eps: float = 1e-5
     act: str = "silu"             # silu (SwiGLU) | gelu
     tie_embeddings: bool = False
@@ -85,8 +101,30 @@ class ModelConfig:
         return ((self.vocab_size + 255) // 256) * 256
 
     @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def is_hybrid(self) -> bool:
+        return self.arch_type == "hybrid"
+
+    @property
     def has_attention(self) -> bool:
         return self.arch_type != "ssm"
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_ssm_heads(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads
+        return max(self.ssm_d_inner // self.ssm_head_dim, 1)
 
     @property
     def is_diffusion(self) -> bool:
@@ -105,21 +143,11 @@ class ModelConfig:
         return self.attn_window
 
 
-# the LM families of the reference that this port does not serve yet, and
-# where they come next
-LATER_FAMILIES = {"moe": "the MoE slice (layers/moe.py)",
-                  "ssm": "the SSM slice (layers/ssm.py)",
-                  "hybrid": "the hybrid decode slice",
-                  "audio": "the audio slice (multi-codebook decode)"}
-LM_FAMILIES = ("dense", "vlm")
+LM_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_lm(cfg: ModelConfig, what: str) -> None:
-    """Raise ``ValueError`` unless ``cfg`` is a dense LM this port serves."""
-    if cfg.arch_type in LATER_FAMILIES:
-        raise ValueError(
-            f"{what}: arch_type={cfg.arch_type!r} is not ported yet; it "
-            f"comes with {LATER_FAMILIES[cfg.arch_type]}")
+    """Raise ``ValueError`` unless ``cfg`` is an autoregressive LM."""
     if cfg.arch_type not in LM_FAMILIES:
         raise ValueError(f"{what}: arch_type={cfg.arch_type!r} is not an "
                          f"autoregressive LM (have {LM_FAMILIES})")
@@ -211,4 +239,99 @@ LLAMA3_8B = ModelConfig(
     vocab_size=128256,
     rope_theta=500_000.0,
     source="arXiv:2407.21783",
+)
+
+# granite-moe-1b-a400m — MoE, 32 experts top-8
+# [hf:ibm-granite/granite-3.0-1b-a400m-base]
+GRANITE_MOE_1B_A400M = ModelConfig(
+    name="granite-moe-1b-a400m",
+    arch_type="moe",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    num_experts=32,
+    num_experts_per_tok=8,
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+)
+
+# mamba2-130m — SSD (state-space duality), attention-free
+# [arXiv:2405.21060]
+MAMBA2_130M = ModelConfig(
+    name="mamba2-130m",
+    arch_type="ssm",
+    num_layers=24,
+    d_model=768,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_conv=4,
+    ssm_chunk=64,
+    tie_embeddings=True,
+    source="arXiv:2405.21060",
+)
+
+# hymba-1.5b — parallel attention + mamba heads in each block; sliding
+# windows with every 16th layer global [arXiv:2411.13676]
+HYMBA_1_5B = ModelConfig(
+    name="hymba-1.5b",
+    arch_type="hybrid",
+    num_layers=32,
+    d_model=1600,
+    num_heads=25,
+    num_kv_heads=5,
+    d_ff=5504,
+    vocab_size=32001,
+    head_dim=64,
+    attn_window=1024,
+    global_every=16,
+    ssm_state=16,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_conv=4,
+    ssm_chunk=64,
+    source="arXiv:2411.13676",
+)
+
+# mixtral-8x7b — 8 experts top-2, sliding-window attention on every layer
+# (a ring-buffer decode cache) [arXiv:2401.04088]
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    arch_type="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14336,
+    vocab_size=32000,
+    attn_window=4096,
+    num_experts=8,
+    num_experts_per_tok=2,
+    rope_theta=1_000_000.0,
+    source="arXiv:2401.04088",
+)
+
+# musicgen-medium — decoder-only over EnCodec tokens: 4 codebooks whose
+# embeddings are summed and 4 parallel heads [arXiv:2306.05284]
+MUSICGEN_MEDIUM = ModelConfig(
+    name="musicgen-medium",
+    arch_type="audio",
+    num_layers=48,
+    d_model=1536,
+    num_heads=24,
+    num_kv_heads=24,
+    d_ff=6144,
+    vocab_size=2048,
+    num_codebooks=4,
+    act="gelu",
+    rope_theta=10_000.0,
+    source="arXiv:2306.05284",
 )

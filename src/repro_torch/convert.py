@@ -1,4 +1,4 @@
-"""Parameter conversion from the JAX package's DiT and dense-LM trees.
+"""Parameter conversion from the JAX package's DiT and LM trees.
 
 ``repro.layers.model.init_params`` (and a trained state's ``params``)
 is a nested dict with stacked ``[L, …]`` block leaves and weights laid
@@ -27,9 +27,9 @@ DIT_KEYS = {
     "head": ("w", "b", "mod_w", "mod_b"),
 }
 LM_KEYS = {
-    "embed": ("tok",),
+    "embed": ("tok", "codebooks"),
     "blocks": ("ln1", "ln2", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-               "mlp"),
+               "mlp", "moe", "ssm"),
     "final_norm": None,
     "head": ("w",),
 }
@@ -53,9 +53,13 @@ def _tree(x: Any, device: torch.device) -> Any:
 def params_from_jax(tree: Dict[str, Any], *,
                     device: DeviceLike = "cuda") -> Dict[str, Any]:
     """The port's parameters from a JAX parameter tree of numpy (or
-    array-like) leaves, on ``device``: a DiT tree, or a dense LM's (one
-    with a ``final_norm`` leaf; ``mlp`` keeps ``w_gate``/``w_up``/
-    ``w_down``, ``head`` is absent under tied embeddings)."""
+    array-like) leaves, on ``device``: a DiT tree, or an LM's (one with a
+    ``final_norm`` leaf; ``mlp`` keeps ``w_gate``/``w_up``/``w_down``, an
+    MoE block's ``moe`` its ``router`` and the [E, …] expert weights, an
+    SSD block's ``ssm`` its projections, conv, ``A_log``/``Dp``/
+    ``dt_bias`` and norm; an audio model embeds through ``codebooks``
+    [K, V, d] and has a [K, d, V] head; ``head`` is absent under tied
+    embeddings)."""
     dev = resolve_device(device)
     lm = "final_norm" in tree
     groups = LM_KEYS if lm else DIT_KEYS

@@ -1,7 +1,8 @@
 """Analytic cost model (paper §3.5, Theorem G.3): the part of
 ``repro.core.complexity`` the serving accounting needs, for the DiT
-(full-sequence forwards) and for dense LM decode (one position against a
-KV cache), and the verification cost ratio γ with the speedup model
+(full-sequence forwards) and for LM decode of every family (one position
+against a KV cache and/or an SSD state; MoE FFNs count their active
+experts), and the verification cost ratio γ with the speedup model
 ``S = 1 / (1 − α·(1 − γ − overhead))`` (eq. 8)."""
 from __future__ import annotations
 
@@ -26,14 +27,42 @@ def _attn_flops(cfg: ModelConfig, tokens: int, kv_tokens: int = 0) -> float:
 
 def _ffn_flops(cfg: ModelConfig, tokens: int) -> float:
     """The MLP's products: three for SwiGLU, two for the GELU MLP (the DiT
-    is a GELU MLP whatever its ``act``)."""
+    is a GELU MLP whatever its ``act``); an MoE FFN counts three for each
+    of its top-k experts."""
+    if cfg.is_moe:
+        return 2.0 * tokens * cfg.num_experts_per_tok * cfg.d_model \
+            * cfg.d_ff * 3
     mult = 3 if cfg.act == "silu" and not cfg.is_diffusion else 2
     return 2.0 * tokens * cfg.d_model * cfg.d_ff * mult
 
 
+def _ssm_flops(cfg: ModelConfig, tokens: int) -> float:
+    """The SSD mixer: in-projection (z and x, the B/C streams of every
+    head, dt), out-projection, the intra-chunk blocks and the state
+    propagation."""
+    if not (cfg.is_ssm or cfg.is_hybrid):
+        return 0.0
+    di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_ssm_heads
+    d = cfg.d_model
+    proj = 2.0 * tokens * d * (2 * di + 2 * ns * nh + nh) \
+        + 2.0 * tokens * di * d
+    intra = 2.0 * tokens * cfg.ssm_chunk * (ns + di) * 2
+    states = 2.0 * tokens * ns * di * 2
+    return proj + intra + states
+
+
+def _layer_flops(cfg: ModelConfig, tokens: int, kv_tokens: int) -> float:
+    """Attention, FFN and SSD, summed in the reference's order."""
+    f = 0.0
+    if cfg.has_attention and cfg.num_heads:
+        f += _attn_flops(cfg, tokens, kv_tokens)
+    f += _ffn_flops(cfg, tokens)
+    return f + _ssm_flops(cfg, tokens)
+
+
 def block_flops(cfg: ModelConfig, tokens: int) -> float:
     """One transformer block, full-sequence forward."""
-    return _attn_flops(cfg, tokens) + _ffn_flops(cfg, tokens)
+    return _layer_flops(cfg, tokens, 0)
 
 
 def modulation_flops(cfg: ModelConfig) -> float:
@@ -75,7 +104,7 @@ def speedup_model(alpha: float, gamma_: float,
 def decode_block_flops(cfg: ModelConfig, kv_tokens: int) -> float:
     """One block, ONE decode position attending over a ``kv_tokens``
     cache (the allocated length, so a step's cost is a constant)."""
-    return _attn_flops(cfg, 1, kv_tokens=kv_tokens) + _ffn_flops(cfg, 1)
+    return _layer_flops(cfg, 1, kv_tokens)
 
 
 def decode_glue_flops(cfg: ModelConfig) -> float:
@@ -92,9 +121,13 @@ def decode_forward_flops(cfg: ModelConfig, kv_tokens: int) -> float:
 
 def decode_spec_cache_flops(cfg: ModelConfig) -> float:
     """Per-layer cost of the speculative cache write: the K/V projections
-    of the forecast stream, the part of a layer a speculative decode step
-    cannot skip."""
-    return 2.0 * cfg.d_model * cfg.resolved_head_dim * 2 * cfg.num_kv_heads
+    of the forecast stream and/or the SSD mixer's state advance, the part
+    of a layer a speculative decode step cannot skip."""
+    f = _ssm_flops(cfg, 1)
+    if cfg.has_attention and cfg.num_heads:
+        f += 2.0 * cfg.d_model * cfg.resolved_head_dim * 2 \
+            * cfg.num_kv_heads
+    return f
 
 
 def decode_verify_flops(cfg: ModelConfig, kv_tokens: int) -> float:

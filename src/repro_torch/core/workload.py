@@ -16,10 +16,12 @@ harvested lives behind the ``Workload`` adapter. Two adapters ship:
     (L, 2, W, 1, D), one token a step), a drafted step runs the masked
     verify-layer forward, and an accepted step emits its token from the
     forecast stream's logits. The payload is the current input token
-    ``tok``, the emitted tokens ``tokens`` (lane axis 0) and the K/V caches
-    ``k``/``v`` [L, W, S, KV, hd] (lane axis 1); a speculative step still
-    writes every layer's cache from the forecast stream. τ_t ≡ τ0
-    (``t_frac`` ≡ 1); no guided pairs.
+    ``tok``, the emitted tokens ``tokens`` (lane axis 0) and the cache
+    leaves (lane axis 1): K/V ``k``/``v`` [L, W, S, KV, hd] where the
+    model has attention, ``ssm_state`` f32 [L, W, h, p, n] and
+    ``conv_state`` [L, W, conv, C] where it has an SSD mixer; a
+    speculative step still writes every layer's cache from the forecast
+    stream. τ_t ≡ τ0 (``t_frac`` ≡ 1); no guided pairs.
 
 Rollback (both): the exact-copy restore of a draft-K chain's snapshots
 through the rollback kernel, which copies bytes and so takes every leaf,
@@ -193,7 +195,9 @@ class DiffusionWorkload(Workload):
 
 
 class DecodeWorkload(Workload):
-    """Self-speculative LLM decode lanes of a dense LM (no drafter model).
+    """Self-speculative LLM decode lanes (no drafter model) of a dense,
+    VLM (text), MoE, SSM or hybrid LM. Multi-codebook audio and
+    ring-buffer caches are rejected, as the reference rejects them.
 
     ``max_new_tokens`` is the lane schedule length (a request's
     ``RequestPolicy.max_steps`` serves a prefix); ``max_seq_len`` sizes
@@ -215,11 +219,15 @@ class DecodeWorkload(Workload):
                              f"arch_type={cfg.arch_type!r} is a diffusion "
                              "backbone (use DiffusionWorkload)")
         check_lm(cfg, "DecodeWorkload")
+        if cfg.arch_type == "audio":
+            raise ValueError("DecodeWorkload does not serve multi-codebook "
+                             "audio decode yet (tokens are [B, K, 1])")
         if blk.uses_ring_cache(cfg):
             raise ValueError(
                 "DecodeWorkload uses absolute-position lane caches; "
                 "ring-buffer decode caches (attn_window>0, global_every=0) "
-                "are not supported")
+                "are not supported — serve this config through "
+                "lm_decode_step")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
@@ -230,7 +238,7 @@ class DecodeWorkload(Workload):
         self.max_seq_len = int(max_seq_len)
         self.verify_layer = verify_layer(cfg, scfg)
         self.table_dtype = table_dtype(cfg, scfg)
-        self._cache_keys: Tuple[str, ...] = ("k", "v")
+        self._cache_keys: Tuple[str, ...] = M.cache_keys(cfg)
         self.dyn_keys = ("tok", "tokens") + self._cache_keys
         self.dyn_axes = {"tok": 0, "tokens": 0,
                          **{k: 1 for k in self._cache_keys}}
@@ -330,26 +338,29 @@ class DecodeWorkload(Workload):
         self._prompt_of(request, steps)
 
     def _prefill(self, prompt: torch.Tensor):
-        """(last-position logits [1, V], cache {k, v} [L, 1, P, KV, hd]) of
-        one prompt [1, P] on the device."""
+        """(last-position logits [1, V], the prefill's cache leaves with
+        batch 1) of one prompt [1, P] on the device."""
         logits, extras = M.lm_forward(self.cfg, self.params,
                                       {"tokens": prompt}, collect_cache=True)
         return logits[:, -1], extras["cache"]
 
     def fill_payload(self, state, lane: int, request, steps: int):
-        """Prefill the request's prompt into the lane: clear its cache
-        slice, scatter the prefix, set its first input token (the
-        prefill's argmax: one host sync), emitted tokens and ``pos0``.
-        Writes the lane's slice of the newest state in place, as the
-        diffusion fill does."""
+        """Prefill the request's prompt into the lane: clear its K/V
+        slices and scatter the prefix, take the SSD state leaves whole,
+        set its first input token (the prefill's argmax: one host sync),
+        emitted tokens and ``pos0``. Writes the lane's slice of the newest
+        state in place, as the diffusion fill does."""
         prompt = torch.from_numpy(self._prompt_of(request, steps)).to(
             self.device)
         P = prompt.shape[1]
         logits, cache = self._prefill(prompt)
         tok0 = int(torch.argmax(logits[0]))
         for key in self._cache_keys:
-            state[key][:, lane] = 0
-            state[key][:, lane, :P] = cache[key][:, 0]
+            if key in ("k", "v"):
+                state[key][:, lane] = 0
+                state[key][:, lane, :P] = cache[key][:, 0]
+            else:
+                state[key][:, lane] = cache[key][:, 0]
         state["tok"][lane, 0] = tok0
         state["tokens"][lane] = 0
         state["pos0"][lane] = P

@@ -1,7 +1,7 @@
 """Dot-product attention: the DiT's bidirectional core, the causal,
 optionally windowed, full-sequence entry point, and one-token decode
-against a KV cache (one shared position, or one per lane) with the cache
-writes.
+against a KV cache (one shared position, or one per lane, or a ring
+buffer of the last ``window`` positions) with the cache writes.
 
 The reference (``repro.layers.attention``) computes ``attention_core`` in
 plain jnp, not in a Pallas kernel: scores and softmax in f32. The port
@@ -127,6 +127,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     pos = torch.full((q.shape[0],), int(cur_pos), dtype=torch.int32,
                      device=q.device)
     return decode_attention_lanes(q, k_cache, v_cache, pos, window)
+
+
+def decode_attention_ring(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, cur_pos: int
+                          ) -> torch.Tensor:
+    """Ring-buffer decode for fully windowed attention: the cache holds
+    only the last W = cache length positions, slot i the most recent
+    absolute position congruent to i, p_i = cur_pos − ((cur_pos − i) mod
+    W). Slots with p_i < 0 (not written yet) are masked."""
+    n_rep = q.shape[2] // k_cache.shape[2]
+    k, v = repeat_kv(k_cache, n_rep), repeat_kv(v_cache, n_rep)
+    w = k.shape[1]
+    i = torch.arange(w, dtype=torch.int32, device=q.device)
+    pos = int(cur_pos)
+    abs_pos = pos - torch.remainder(pos - i, w)
+    return attention_core(q, k, v, _bias(abs_pos >= 0)[None, None, None])
+
+
+def update_kv_cache_ring(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor, pos: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New caches with one-token K/V [B, 1, KV, hd] written at slot
+    pos mod cache length; the inputs are left as they were."""
+    slot = int(pos) % k_cache.shape[1]
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def update_kv_cache_lanes(k_cache: torch.Tensor, v_cache: torch.Tensor,

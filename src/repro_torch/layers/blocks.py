@@ -5,15 +5,22 @@ Each block exposes ``(inc0, inc1)`` separately — the stream update is
 into: a speculative step substitutes forecast increments instead of
 computing the branch. Branch layout per family:
 
-  dit   : inc0 = gate_msa·attn(AdaLN(h)), inc1 = gate_mlp·mlp(AdaLN(h))
-  dense : inc0 = attn(RMSNorm(h)) (causal, RoPE, GQA), inc1 =
-          mlp(RMSNorm(h)) (SwiGLU or GELU); ``vlm`` text decode is dense
+  dit    : inc0 = gate_msa·attn(AdaLN(h)), inc1 = gate_mlp·mlp(AdaLN(h))
+  dense  : inc0 = attn(RMSNorm(h)) (causal, RoPE, GQA), inc1 =
+           mlp(RMSNorm(h)) (SwiGLU or GELU); ``vlm`` text decode and
+           ``audio`` are dense
+  moe    : inc0 = attention, inc1 = the top-k expert FFN
+  ssm    : inc0 = the Mamba2 SSD mixer, inc1 = 0
+  hybrid : inc0 = 0.5·(attention + SSD) on one RMSNorm(h), inc1 = MLP
 
-The decode blocks take one token against a KV cache; the lane-batched one
-(``block_decode_branches``) puts every lane at its own position and adds
-``spec_cache``, the piece of a layer a speculative decode step cannot
-skip: the forecast stream's K/V projections written at the lane's
-position, which keep the drafted chain's attention self-consistent.
+The decode blocks take one token against a KV cache (a ring buffer of
+the window when every layer is windowed) and the SSM's recurrent state;
+the lane-batched one (``block_decode_branches``) puts every lane at its
+own position and adds ``spec_cache``, the piece of a layer a speculative
+decode step cannot skip: the forecast stream's K/V projections written
+at the lane's position, which keep the drafted chain's attention
+self-consistent, and the SSM and conv state advance. For a pure SSM
+block the state advance is the mixer itself.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.layers import attention as attn_lib
+from repro_torch.layers import moe as moe_lib
+from repro_torch.layers import ssm as ssm_lib
 from repro_torch.layers.mlp import gelu_mlp, mlp_forward
 from repro_torch.layers.norms import layer_norm, rms_norm
 from repro_torch.layers.rope import apply_rope
@@ -72,6 +81,38 @@ def uses_ring_cache(cfg: ModelConfig) -> bool:
     return cfg.attn_window > 0 and cfg.global_every == 0
 
 
+def ffn_branch(cfg: ModelConfig, bp: Params, x: torch.Tensor
+               ) -> torch.Tensor:
+    """The MLP, or the top-k expert FFN of an MoE block."""
+    if cfg.is_moe:
+        return moe_lib.moe_forward(
+            bp["moe"], x, num_experts=cfg.num_experts,
+            top_k=cfg.num_experts_per_tok, act=cfg.act,
+            capacity_factor=cfg.moe_capacity_factor)
+    return mlp_forward(bp["mlp"], x, cfg.act)
+
+
+def ssm_branch_full(cfg: ModelConfig, bp: Params, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """The full-sequence SSD mixer -> (out, (final state, conv tail))."""
+    out, final_state, conv_tail = ssm_lib.mamba2_forward(
+        bp["ssm"], x, d_inner=cfg.ssm_d_inner, n_state=cfg.ssm_state,
+        n_heads=cfg.resolved_ssm_heads, head_dim=cfg.ssm_head_dim,
+        chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
+    return out, (final_state, conv_tail)
+
+
+def _ssm_decode(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                cache_slice: Dict[str, torch.Tensor]):
+    """One recurrent SSD step -> (out, ssm_state', conv_state')."""
+    return ssm_lib.mamba2_decode(
+        bp["ssm"], x, cache_slice["ssm_state"], cache_slice["conv_state"],
+        d_inner=cfg.ssm_d_inner, n_state=cfg.ssm_state,
+        n_heads=cfg.resolved_ssm_heads, head_dim=cfg.ssm_head_dim,
+        norm_eps=cfg.norm_eps)
+
+
 def dit_modulation(bp: Params, t_emb: torch.Tensor):
     """AdaLN-Zero: six modulation vectors from the conditioning embedding."""
     mod = F.silu(t_emb) @ bp["mod_w"] + bp["mod_b"]
@@ -94,7 +135,9 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
                         window: int = 0, use_flash: bool = False
                         ) -> Tuple[Branch, Branch]:
     """Returns (fn0, fn1): fn_i(h) -> (inc_i, cache_i) for one block;
-    cache_0 is the attention's (k, v), cache_1 is ``()``."""
+    cache_0 is the attention's (k, v), the SSD's (final state, conv tail)
+    or, in a hybrid block, (k, v, final state, conv tail); cache_1 is
+    ``()``."""
     eps = cfg.norm_eps
     if cfg.is_diffusion:
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = dit_modulation(bp, t_emb)
@@ -111,14 +154,30 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
                                            mlp["w_down"]), ()
         return fn0, fn1
 
+    if cfg.is_ssm:
+        def fn0(h):
+            return ssm_branch_full(cfg, bp, rms_norm(h, bp["ln1"], eps))
+
+        def fn1(h):
+            return torch.zeros_like(h), ()
+        return fn0, fn1
+
+    def fn1(h):
+        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps)), ()
+
+    if cfg.is_hybrid:
+        def fn0(h):
+            x = rms_norm(h, bp["ln1"], eps)
+            a_out, kv = attn_branch_full(cfg, bp, x, angles=angles,
+                                         window=window, use_flash=use_flash)
+            s_out, state = ssm_branch_full(cfg, bp, x)
+            return 0.5 * (a_out + s_out), kv + state
+        return fn0, fn1
+
     def fn0(h):
         return attn_branch_full(cfg, bp, rms_norm(h, bp["ln1"], eps),
                                 angles=angles, window=window,
                                 use_flash=use_flash)
-
-    def fn1(h):
-        return mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps),
-                           cfg.act), ()
     return fn0, fn1
 
 
@@ -131,12 +190,19 @@ def attn_branch_decode(cfg: ModelConfig, bp: Params, x: torch.Tensor, *,
                        v_cache: torch.Tensor, pos: int
                        ) -> Tuple[torch.Tensor, KV]:
     """One-token attention at the shared position ``pos`` -> (out, (new k
-    cache, new v cache))."""
+    cache, new v cache)); a ring-buffer cache when every layer is
+    windowed."""
     q, k, v = _qkv(cfg, bp, x)
     if angles is not None:
         q, k = apply_rope(q, angles), apply_rope(k, angles)
-    k_cache, v_cache = attn_lib.update_kv_cache(k_cache, v_cache, k, v, pos)
-    out = attn_lib.decode_attention(q, k_cache, v_cache, pos, window)
+    if uses_ring_cache(cfg):
+        k_cache, v_cache = attn_lib.update_kv_cache_ring(k_cache, v_cache,
+                                                         k, v, pos)
+        out = attn_lib.decode_attention_ring(q, k_cache, v_cache, pos)
+    else:
+        k_cache, v_cache = attn_lib.update_kv_cache(k_cache, v_cache, k, v,
+                                                    pos)
+        out = attn_lib.decode_attention(q, k_cache, v_cache, pos, window)
     return _out_proj(cfg, bp, out, x.shape[0], 1), (k_cache, v_cache)
 
 
@@ -144,14 +210,24 @@ def block_decode(cfg: ModelConfig, bp: Params, h: torch.Tensor,
                  cache_slice: Dict[str, torch.Tensor], *, angles,
                  window: int, pos: int
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One dense block for one token at ``pos`` -> (h, new cache slice)."""
+    """One block for one token at ``pos`` -> (h, new cache slice)."""
     eps = cfg.norm_eps
+    x = rms_norm(h, bp["ln1"], eps)
+    if cfg.is_ssm:
+        out, s, c = _ssm_decode(cfg, bp, x, cache_slice)
+        return h + out, {"ssm_state": s, "conv_state": c}
     a_out, (kc, vc) = attn_branch_decode(
-        cfg, bp, rms_norm(h, bp["ln1"], eps), angles=angles, window=window,
+        cfg, bp, x, angles=angles, window=window,
         k_cache=cache_slice["k"], v_cache=cache_slice["v"], pos=pos)
-    h = h + a_out
-    out = mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps), cfg.act)
-    return h + out, {"k": kc, "v": vc}
+    new = {"k": kc, "v": vc}
+    if cfg.is_hybrid:
+        s_out, new["ssm_state"], new["conv_state"] = _ssm_decode(
+            cfg, bp, x, cache_slice)
+        h = h + 0.5 * (a_out + s_out)
+    else:
+        h = h + a_out
+    out = ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
+    return h + out, new
 
 
 def attn_branch_decode_lanes(cfg: ModelConfig, bp: Params, x: torch.Tensor,
@@ -193,23 +269,59 @@ def block_decode_branches(cfg: ModelConfig, bp: Params,
     ``fn0(h) -> (inc0, new cache slice)`` and ``fn1(h) -> inc1`` are the
     real branches (the math and add order of ``block_decode``);
     ``spec_cache(h) -> new cache slice`` advances only the cache, from the
-    forecast stream."""
+    forecast stream: the K/V projections and the SSD state advance."""
     eps = cfg.norm_eps
 
-    def fn0(h):
+    if cfg.is_ssm:
+        def fn0(h):
+            out, s, c = _ssm_decode(cfg, bp, rms_norm(h, bp["ln1"], eps),
+                                    cache_slice)
+            return out, {"ssm_state": s, "conv_state": c}
+
+        def fn1(h):
+            return torch.zeros_like(h)
+
+        def spec_cache(h):
+            # the state advance is the mixer itself
+            return fn0(h)[1]
+        return fn0, fn1, spec_cache
+
+    def attn(x):
         out, (kc, vc) = attn_branch_decode_lanes(
-            cfg, bp, rms_norm(h, bp["ln1"], eps), angles=angles,
-            window=window, k_cache=cache_slice["k"],
-            v_cache=cache_slice["v"], positions=positions)
+            cfg, bp, x, angles=angles, window=window,
+            k_cache=cache_slice["k"], v_cache=cache_slice["v"],
+            positions=positions)
         return out, {"k": kc, "v": vc}
 
-    def fn1(h):
-        return mlp_forward(bp["mlp"], rms_norm(h, bp["ln2"], eps), cfg.act)
-
-    def spec_cache(h):
-        kc, vc = _kv_write_lanes(cfg, bp, rms_norm(h, bp["ln1"], eps),
-                                 angles=angles, k_cache=cache_slice["k"],
+    def kv_write(x):
+        kc, vc = _kv_write_lanes(cfg, bp, x, angles=angles,
+                                 k_cache=cache_slice["k"],
                                  v_cache=cache_slice["v"],
                                  positions=positions)
         return {"k": kc, "v": vc}
+
+    def fn1(h):
+        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
+
+    if cfg.is_hybrid:
+        def fn0(h):
+            x = rms_norm(h, bp["ln1"], eps)
+            a_out, new = attn(x)
+            s_out, new["ssm_state"], new["conv_state"] = _ssm_decode(
+                cfg, bp, x, cache_slice)
+            return 0.5 * (a_out + s_out), new
+
+        def spec_cache(h):
+            x = rms_norm(h, bp["ln1"], eps)
+            new = kv_write(x)
+            _, new["ssm_state"], new["conv_state"] = _ssm_decode(
+                cfg, bp, x, cache_slice)
+            return new
+        return fn0, fn1, spec_cache
+
+    def fn0(h):
+        return attn(rms_norm(h, bp["ln1"], eps))
+
+    def spec_cache(h):
+        return kv_write(rms_norm(h, bp["ln1"], eps))
     return fn0, fn1, spec_cache

@@ -1,5 +1,5 @@
-"""Input embeddings: tokens, and the DiT's patches (image or video
-latents), timesteps and class labels."""
+"""Input embeddings: tokens, multi-codebook audio tokens, and the DiT's
+patches (image or video latents), timesteps and class labels."""
 from __future__ import annotations
 
 import math
@@ -12,6 +12,14 @@ import torch.nn.functional as F
 def token_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table [V, D] at integer ``tokens`` [...]."""
     return table[tokens.long()]
+
+
+def codebook_embed(tables: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """MusicGen-style: the sum of per-codebook embeddings. tables
+    [K, V, D]; tokens [B, K, T] -> [B, T, D]."""
+    book = torch.arange(tables.shape[0], device=tables.device)[None, :, None]
+    return tables[book, tokens.long()].sum(dim=1)
 
 
 def patchify(latents: torch.Tensor, patch: int) -> torch.Tensor:
@@ -53,12 +61,22 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     return emb
 
 
+# cuBLAS multiplies one f32 row through another kernel (a GEMV, with
+# another summation order) than two rows or more, so a request served
+# alone got a conditioning embedding one ulp away from the same request
+# in a batch, and its samples drifted from there. The time MLP's rows are
+# padded with zeros to a multiple of TIME_ROWS, so every lane width up to
+# it multiplies through one kernel.
+TIME_ROWS = 8
+
+
 def time_mlp(params: Dict[str, torch.Tensor], t: torch.Tensor,
              dim: int) -> torch.Tensor:
     """DiT timestep conditioning in f32: sinusoid -> MLP -> [B, D]."""
-    h = timestep_embedding(t, dim)
+    B = t.shape[0]
+    h = F.pad(timestep_embedding(t, dim), (0, 0, 0, -B % TIME_ROWS))
     h = F.silu(h @ params["w1"].to(torch.float32) + params["b1"])
-    return h @ params["w2"].to(torch.float32) + params["b2"]
+    return (h @ params["w2"].to(torch.float32) + params["b2"])[:B]
 
 
 def label_embed(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,16 @@ mask is a static Python sequence fixed when the step is built, so a
 skipped DiT layer is a plain ``if`` that launches nothing. A skipped
 decode layer still writes its cache (``blocks.block_decode_branches``).
 
-The LM half (``arch_type`` ``"dense"``/``"vlm"``): ``lm_forward`` (the
-prefill, optionally collecting the K/V cache), ``lm_decode_step`` (one
-token at one shared position) and ``decode_branches_step`` (one token per
-lane at per-lane positions, with the SpeCa seam). Caches are
-``{"k", "v"}`` of [L, B, S, KV, hd]; every decode returns new caches and
-leaves its inputs as they were.
+The LM half (every family of the reference: dense, VLM text, MoE, SSM,
+hybrid, audio): ``lm_forward`` (the prefill, optionally collecting the
+cache), ``lm_decode_step`` (one token at one shared position) and
+``decode_branches_step`` (one token per lane at per-lane positions, with
+the SpeCa seam). A cache is ``{"k", "v"}`` of [L, B, S, KV, hd] where
+the model has attention (S = the window for a ring buffer, when every
+layer is windowed) and ``{"ssm_state"}`` f32 [L, B, h, p, n] with
+``{"conv_state"}`` [L, B, W, C] where it has an SSD mixer; every decode
+returns new caches and leaves its inputs as they were. An audio model
+takes [B, K, T] codebook tokens and gives [B, T, K, V] logits.
 """
 from __future__ import annotations
 
@@ -54,8 +58,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     (``repro.layers.model.init_params``), drawn on the generator's device,
     then moved to ``device``. A DiT's AdaLN-Zero modulation leaves and
     final layer start at zero; an LM's norm weights start at zero (RMSNorm
-    applies ``1 + w``) and its embedding is N(0, 0.02²). MoE, SSM, hybrid
-    and audio LMs raise ``ValueError``."""
+    applies ``1 + w``) and its embedding is N(0, 0.02²); an SSD mixer's
+    ``A_log`` is log U(1, 16) and its ``dt_bias`` the inverse softplus of
+    U(0.001, 0.1), both f32."""
     dev = resolve_device(device)
     if cfg.is_diffusion:
         params = _init_dit(cfg, generator)
@@ -109,24 +114,62 @@ def _init_lm(cfg: ModelConfig, g: torch.Generator) -> Params:
         cfg.d_ff
     qd, kvd, V = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.padded_vocab
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=g.device)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=g.device)
 
-    blocks: Params = {
-        "ln1": zeros(L, d), "ln2": zeros(L, d),
-        "wq": _dense(g, (d, qd), dtype, layers=L),
-        "wk": _dense(g, (d, kvd), dtype, layers=L),
-        "wv": _dense(g, (d, kvd), dtype, layers=L),
-        "wo": _dense(g, (qd, d), dtype, scale=1.0 / math.sqrt(qd), layers=L),
-        "mlp": {"w_up": _dense(g, (d, f), dtype, layers=L),
-                "w_down": _dense(g, (f, d), dtype, layers=L)},
-    }
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=g, dtype=torch.float32,
+                          device=g.device) * (hi - lo) + lo
+
+    blocks: Params = {"ln1": zeros(L, d)}
+    if not cfg.is_ssm:
+        blocks["ln2"] = zeros(L, d)
+    if cfg.has_attention and cfg.num_heads > 0:
+        blocks.update(
+            wq=_dense(g, (d, qd), dtype, layers=L),
+            wk=_dense(g, (d, kvd), dtype, layers=L),
+            wv=_dense(g, (d, kvd), dtype, layers=L),
+            wo=_dense(g, (qd, d), dtype, scale=1.0 / math.sqrt(qd),
+                      layers=L))
+    if cfg.is_moe:
+        E = cfg.num_experts
+        blocks["moe"] = {
+            "router": _dense(g, (d, E), dtype, layers=L),
+            "w_gate": _dense(g, (E, d, f), dtype, scale=1.0 / math.sqrt(d),
+                             layers=L),
+            "w_up": _dense(g, (E, d, f), dtype, scale=1.0 / math.sqrt(d),
+                           layers=L),
+            "w_down": _dense(g, (E, f, d), dtype, scale=1.0 / math.sqrt(f),
+                             layers=L)}
+    elif f > 0:
+        blocks["mlp"] = {"w_up": _dense(g, (d, f), dtype, layers=L),
+                         "w_down": _dense(g, (f, d), dtype, layers=L)}
     if cfg.qkv_bias:
         blocks.update(bq=zeros(L, qd), bk=zeros(L, kvd), bv=zeros(L, kvd))
-    if cfg.act == "silu":
+    if "mlp" in blocks and cfg.act == "silu":
         blocks["mlp"]["w_gate"] = _dense(g, (d, f), dtype, layers=L)
-    params: Params = {"embed": {"tok": _dense(g, (V, d), dtype, scale=0.02)},
-                      "blocks": blocks, "final_norm": zeros(d)}
+    if cfg.is_ssm or cfg.is_hybrid:
+        di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_ssm_heads
+        cc = di + 2 * ns
+        blocks["ssm"] = {
+            "w_in": _dense(g, (d, 2 * di + 2 * ns + nh), dtype, layers=L),
+            "conv_w": _dense(g, (cfg.ssm_conv, cc), dtype,
+                             scale=1.0 / math.sqrt(cfg.ssm_conv), layers=L),
+            "conv_b": zeros(L, cc),
+            "A_log": torch.log(uniform(1.0, 16.0, L, nh)),
+            "Dp": torch.ones((L, nh), dtype=torch.float32, device=g.device),
+            "dt_bias": torch.log(torch.expm1(uniform(1e-3, 1e-1, L, nh))),
+            "ssm_norm": zeros(L, di),
+            "w_out": _dense(g, (di, d), dtype, layers=L)}
+    params: Params = {"blocks": blocks, "final_norm": zeros(d)}
+    if cfg.arch_type == "audio":
+        K = cfg.num_codebooks
+        params["embed"] = {"codebooks": _dense(g, (K, V, d), dtype,
+                                               scale=0.02)}
+        # the reference's fan-in rule reads the first axis here: N(0, 1/K)
+        params["head"] = {"w": _dense(g, (K, d, V), dtype)}
+        return params
+    params["embed"] = {"tok": _dense(g, (V, d), dtype, scale=0.02)}
     if not cfg.tie_embeddings:
         params["head"] = {"w": _dense(g, (d, V), dtype)}
     return params
@@ -174,7 +217,8 @@ def embed_inputs(cfg: ModelConfig, params: Params,
     DiT's patch tokens (image or video latents) and conditioning embedding
     (timestep, class label, the mean of the projected continuous
     ``cond``), or an LM's token embeddings — a VLM's ``patch_embeds``
-    ahead of them — and the RoPE angles of ``inputs["positions"]``
+    ahead of them, an audio model's summed codebook embeddings of [B, K,
+    T] tokens — and the RoPE angles of ``inputs["positions"]``
     (default 0..T−1 over the joined length)."""
     if cfg.is_diffusion:
         dtype = cfg.torch_dtype
@@ -191,7 +235,11 @@ def embed_inputs(cfg: ModelConfig, params: Params,
             c = inputs["cond"].to(dtype) @ pe["cond_w"] + pe["cond_b"]
             t_emb = t_emb + torch.mean(c, dim=1).to(torch.float32)
         return {"h": h, "t_emb": t_emb.to(dtype), "angles": None}
-    h = emb.token_embed(params["embed"]["tok"], inputs["tokens"])
+    if cfg.arch_type == "audio":
+        h = emb.codebook_embed(params["embed"]["codebooks"],
+                               inputs["tokens"])
+    else:
+        h = emb.token_embed(params["embed"]["tok"], inputs["tokens"])
     if cfg.arch_type == "vlm" and "patch_embeds" in inputs:
         h = torch.cat([inputs["patch_embeds"].to(h.dtype), h], dim=1)
     positions = inputs.get("positions")
@@ -217,8 +265,9 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
     compute_mask: [L] static bools — True runs the block for real, False
     substitutes ``branch_preds``. None = every layer real.
     Returns (h_final, {"branches": [L, 2, B, S, D]} when collected,
-    {"cache": {"k", "v"} [L, B, S, KV, hd]} when collected — zeros at a
-    substituted layer, as the reference's).
+    {"cache": the family's cache leaves ({"k", "v"} [L, B, S, KV, hd],
+    {"ssm_state", "conv_state"}) when collected — zeros at a substituted
+    layer, as the reference's).
     """
     L = cfg.num_layers
     mask = [True] * L if compute_mask is None \
@@ -233,39 +282,64 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
         raise ValueError("a masked forward needs branch_preds")
     branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
                            device=h.device) if collect_branches else None
-    kvs = []
+    caches = []
     for layer in range(L):
         if mask[layer]:
             fn0, fn1 = blk.block_branches_full(
                 cfg, layer_params(params["blocks"], layer), t_emb,
                 angles=angles, window=cfg.layer_window(layer),
                 use_flash=use_flash)
-            inc0, kv = fn0(h)
+            inc0, cache = fn0(h)
             inc1, _ = fn1(h + inc0)
         else:
             inc0, inc1 = branch_preds[layer, 0], branch_preds[layer, 1]
-            kv = None
+            cache = None
         h = h + inc0 + inc1
         if branches is not None:
             branches[layer, 0] = inc0
             branches[layer, 1] = inc1
         if collect_cache:
-            kvs.append(kv)
+            caches.append(cache)
     out: Dict[str, Any] = {}
     if branches is not None:
         out["branches"] = branches
     if collect_cache:
-        out["cache"] = _pack_cache(cfg, h, kvs)
+        out["cache"] = _pack_cache(cfg, h, caches)
     return h, out
 
 
-def _pack_cache(cfg: ModelConfig, h: torch.Tensor, kvs) -> Dict[str, Any]:
-    """Stack the layers' (k, v) into the [L, B, S, KV, hd] cache."""
+def cache_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The cache leaves of ``cfg``, in the order a block's full-sequence
+    branch returns them."""
+    keys: Tuple[str, ...] = ("k", "v") if cfg.has_attention else ()
+    if cfg.is_ssm or cfg.is_hybrid:
+        keys += ("ssm_state", "conv_state")
+    return keys
+
+
+def _cache_slice_shape(cfg: ModelConfig, key: str, B: int, S: int):
+    """(shape, dtype) of one layer's cache leaf ``key`` for B rows of S
+    positions; ``dtype`` None is the model dtype."""
+    if key in ("k", "v"):
+        return (B, S, cfg.num_kv_heads, cfg.resolved_head_dim), None
+    if key == "ssm_state":
+        return (B, cfg.resolved_ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state), torch.float32
+    return (B, cfg.ssm_conv, cfg.ssm_d_inner + 2 * cfg.ssm_state), None
+
+
+def _pack_cache(cfg: ModelConfig, h: torch.Tensor, caches
+                ) -> Dict[str, Any]:
+    """Stack the layers' cache tuples into [L, ...] leaves (zeros at a
+    substituted layer)."""
     B, S = h.shape[:2]
-    shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-    zero = torch.zeros(shape, dtype=h.dtype, device=h.device)
-    return {name: torch.stack([zero if kv is None else kv[i] for kv in kvs])
-            for i, name in enumerate(("k", "v"))}
+    out = {}
+    for i, key in enumerate(cache_keys(cfg)):
+        shape, dt = _cache_slice_shape(cfg, key, B, S)
+        zero = torch.zeros(shape, dtype=dt or h.dtype, device=h.device)
+        out[key] = torch.stack([zero if c is None else c[i]
+                                for c in caches])
+    return out
 
 
 def dit_output(cfg: ModelConfig, params: Params, h: torch.Tensor,
@@ -309,11 +383,14 @@ def dit_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
 
 def lm_logits(cfg: ModelConfig, params: Params,
               h: torch.Tensor) -> torch.Tensor:
-    """Final RMSNorm and the head (the embedding table when tied) ->
-    [..., padded_vocab]; the padding columns are −1e30 so that they never
-    win a softmax or an argmax."""
+    """Final RMSNorm and the head (the embedding table when tied; one head
+    per codebook for audio, [B, T, K, V]) -> [..., padded_vocab]; the
+    padding columns are −1e30 so that they never win a softmax or an
+    argmax."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.arch_type == "audio":
+        logits = torch.einsum("btd,kdv->btkv", h, params["head"]["w"])
+    elif cfg.tie_embeddings:
         logits = h @ params["embed"]["tok"].T
     else:
         logits = h @ params["head"]["w"]
@@ -326,8 +403,9 @@ def lm_logits(cfg: ModelConfig, params: Params,
 def lm_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
                collect_cache: bool = False, use_flash: bool = False
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """LM forward over ``inputs["tokens"]`` [B, T] -> (logits [B, T, V],
-    extras); ``collect_cache=True`` adds the prefill's K/V cache."""
+    """LM forward over ``inputs["tokens"]`` [B, T] (audio: [B, K, T]) ->
+    (logits [B, T, V] (audio: [B, T, K, V]), extras);
+    ``collect_cache=True`` adds the prefill's cache."""
     e = embed_inputs(cfg, params, inputs)
     h, extras = forward_full(cfg, params, e["h"], angles=e["angles"],
                              collect_cache=collect_cache,
@@ -337,19 +415,20 @@ def lm_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """Zero K/V caches {"k", "v"} [L, batch, max_len, KV, hd] in the model
-    dtype on ``device``. The reference's ring-buffer cache (every layer
-    windowed) is not ported yet."""
-    if blk.uses_ring_cache(cfg):
-        raise ValueError(
-            f"{cfg.name}: every layer is windowed (attn_window="
-            f"{cfg.attn_window}, global_every=0), which the reference serves "
-            "from a ring-buffer cache; that comes with the ring-cache slice")
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    """Zero decode caches on ``device``: K/V [L, batch, S, KV, hd] in the
+    model dtype where the model has attention, S = ``max_len`` or, when
+    every layer is windowed, a ring buffer of min(``max_len``, window)
+    slots; an SSD mixer's ``ssm_state`` f32 [L, batch, h, p, n] and
+    ``conv_state`` [L, batch, W, C] in the model dtype."""
     dev = resolve_device(device)
-    return {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-            for k in ("k", "v")}
+    S = min(max_len, cfg.attn_window) if blk.uses_ring_cache(cfg) \
+        else max_len
+    out = {}
+    for key in cache_keys(cfg):
+        shape, dt = _cache_slice_shape(cfg, key, batch, S)
+        out[key] = torch.zeros((cfg.num_layers,) + shape,
+                               dtype=dt or cfg.torch_dtype, device=dev)
+    return out
 
 
 def _decode_angles(cfg: ModelConfig,
@@ -368,7 +447,7 @@ def decode_step_h(cfg: ModelConfig, params: Params, h: torch.Tensor,
     position ``pos`` -> (h, new cache)."""
     angles = _decode_angles(cfg, torch.full(
         (h.shape[0],), int(pos), dtype=torch.int32, device=h.device))
-    new = {"k": [], "v": []}
+    new = {k: [] for k in cache}
     for layer in range(cfg.num_layers):
         h, sl = blk.block_decode(
             cfg, layer_params(params["blocks"], layer), h,
@@ -382,8 +461,12 @@ def decode_step_h(cfg: ModelConfig, params: Params, h: torch.Tensor,
 def lm_decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    cache: Dict[str, torch.Tensor], pos: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens [B, 1] at position ``pos`` -> (logits [B, 1, V], new cache)."""
-    h = emb.token_embed(params["embed"]["tok"], tokens)
+    """tokens [B, 1] (audio: [B, K, 1]) at position ``pos`` -> (logits
+    [B, 1, V] (audio: [B, 1, K, V]), new cache)."""
+    if cfg.arch_type == "audio":
+        h = emb.codebook_embed(params["embed"]["codebooks"], tokens)
+    else:
+        h = emb.token_embed(params["embed"]["tok"], tokens)
     h, new_cache = decode_step_h(cfg, params, h, cache, pos)
     return lm_logits(cfg, params, h), new_cache
 
@@ -397,12 +480,13 @@ def decode_branches_step(cfg: ModelConfig, params: Params, tok: torch.Tensor,
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                     Optional[torch.Tensor]]:
     """Lane-batched decode forward with the SpeCa branch seam: tok [B, 1]
-    int32 input tokens, cache {k, v} [L, B, S, KV, hd], positions [B]
-    int32 per-lane query positions. ``branch_preds`` [L, 2, B, 1, D]
-    substitutes forecast increments where the static ``compute_mask`` [L]
-    is False (None = every layer real). Every layer writes its cache
-    either way: a substituted layer writes the forecast stream's K/V
-    projections. Returns (logits [B, 1, V], new cache, branches
+    int32 input tokens, cache {k, v} [L, B, S, KV, hd] and/or {ssm_state,
+    conv_state}, positions [B] int32 per-lane query positions.
+    ``branch_preds`` [L, 2, B, 1, D] substitutes forecast increments where
+    the static ``compute_mask`` [L] is False (None = every layer real).
+    Every layer writes its cache either way: a substituted layer writes the
+    forecast stream's K/V projections and advances its SSD state from it.
+    Returns (logits [B, 1, V], new cache, branches
     [L, 2, B, 1, D] when collected, else None)."""
     h = emb.token_embed(params["embed"]["tok"], tok)
     L = cfg.num_layers
@@ -418,7 +502,7 @@ def decode_branches_step(cfg: ModelConfig, params: Params, tok: torch.Tensor,
     angles = _decode_angles(cfg, positions)
     branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
                            device=h.device) if collect_branches else None
-    new = {"k": [], "v": []}
+    new = {k: [] for k in cache}
     for layer in range(L):
         fn0, fn1, spec_cache = blk.block_decode_branches(
             cfg, layer_params(params["blocks"], layer),

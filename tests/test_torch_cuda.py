@@ -909,3 +909,109 @@ def test_obs_engine_bitwise_inert_on_card(cuda, kw):
     assert snap["speca_chain_err"]["count"] == sum(r.num_drafted
                                                    for r in ron)
     assert snap["speca_requests_completed_total"]["value"] == 4
+
+
+def _f32(*shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g) * scale
+
+
+@pytest.fixture
+def exact_f32():
+    """f32 products without TF32 for one test; the flag is restored
+    after it."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def moe_case(capacity_factor):
+    """The MoE FFN's CPU inputs (d 64, 4 experts top-2, 64 tokens) ->
+    (params, x, keyword arguments)."""
+    D, E, F = 64, 4, 96
+    prm = {"router": _f32(D, E, seed=0, scale=D ** -0.5),
+           "w_gate": _f32(E, D, F, seed=1, scale=D ** -0.5),
+           "w_up": _f32(E, D, F, seed=2, scale=D ** -0.5),
+           "w_down": _f32(E, F, D, seed=3, scale=F ** -0.5)}
+    return prm, _f32(4, 16, D, seed=4), dict(
+        num_experts=E, top_k=2, capacity_factor=capacity_factor)
+
+
+def ssd_case():
+    """The SSD chunk scan's CPU inputs (T = 48, chunk 16, an initial
+    state) -> (x, dA, B, C, chunk, initial_state)."""
+    x, dA = _f32(2, 48, 3, 8, seed=0), -_f32(2, 48, 3, seed=1).abs() * 0.3
+    return (x, dA, _f32(2, 48, 5, seed=2), _f32(2, 48, 5, seed=3), 16,
+            _f32(2, 3, 8, 5, seed=4))
+
+
+def mamba2_decode_case():
+    """One recurrent decode step's CPU inputs -> (params, (x, ssm_state,
+    conv_state), keyword arguments)."""
+    DI, NS, NH, HP, DM = 64, 8, 4, 16, 32
+    cc = DI + 2 * NS
+    prm = {"w_in": _f32(DM, 2 * DI + 2 * NS + NH, seed=5, scale=0.2),
+           "conv_w": _f32(4, cc, seed=6, scale=0.5),
+           "conv_b": _f32(cc, seed=7, scale=0.1),
+           "A_log": torch.log(torch.linspace(1.0, 16.0, NH)),
+           "Dp": torch.ones(NH),
+           "dt_bias": torch.log(torch.expm1(torch.linspace(1e-3, 0.1, NH))),
+           "ssm_norm": _f32(DI, seed=8, scale=0.1),
+           "w_out": _f32(DI, DM, seed=9, scale=0.15)}
+    args = (_f32(3, 1, DM, seed=10), _f32(3, NH, HP, NS, seed=11),
+            _f32(3, 4, cc, seed=12))
+    return prm, args, dict(d_inner=DI, n_state=NS, n_heads=NH, head_dim=HP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [4.0, 0.1])
+def test_moe_forward_on_card_matches_cpu(cuda, exact_f32, capacity_factor):
+    """The MoE FFN (``moe_case``; at capacity factor 0.1 most slots drop)
+    on the card against the same call on the CPU, f32 with TF32 off,
+    rtol = atol = 1e-5."""
+    from repro_torch.layers.moe import moe_forward
+    prm, x, kw = moe_case(capacity_factor)
+    want = moe_forward(prm, x, **kw)
+    got = moe_forward({k: v.to(cuda) for k, v in prm.items()}, x.to(cuda),
+                      **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_and_mamba2_decode_on_card_match_cpu(cuda, exact_f32):
+    """The SSD chunk scan (``ssd_case``) and one recurrent decode step
+    (``mamba2_decode_case``) on the card against the same calls on the
+    CPU, f32 with TF32 off, rtol = atol = 1e-5."""
+    from repro_torch.layers import ssm
+    *tensors, chunk, init = ssd_case()
+    want = ssm.ssd_chunked(*tensors, chunk, initial_state=init)
+    got = ssm.ssd_chunked(*(t.to(cuda) for t in tensors), chunk,
+                          initial_state=init.to(cuda))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    prm, args, kw = mamba2_decode_case()
+    want = ssm.mamba2_decode(prm, *args, **kw)
+    got = ssm.mamba2_decode({k: v.to(cuda) for k, v in prm.items()},
+                            *(a.to(cuda) for a in args), **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_decode_lanes_bitwise_alone_on_card(cuda, exact_f32, dtype):
+    """One decode step of 3 lanes (``mamba2_decode_case``) on the card is
+    bitwise each lane's step alone: the step's products run on lanes
+    padded to ``norms.DECODE_ROWS`` (fault W2: cuBLAS summed one lane's SSD
+    state product in another order than several)."""
+    from repro_torch.layers import ssm
+    prm, (x, state, conv), kw = mamba2_decode_case()
+    prm = {k: v.to(cuda, dtype) for k, v in prm.items()}
+    x, conv, state = x.to(cuda, dtype), conv.to(cuda, dtype), state.to(cuda)
+    whole = ssm.mamba2_decode(prm, x, state, conv, **kw)
+    for lane in range(x.shape[0]):
+        one = ssm.mamba2_decode(prm, x[lane:lane + 1], state[lane:lane + 1],
+                                conv[lane:lane + 1], **kw)
+        for a, b in zip(whole, one):
+            assert torch.equal(a[lane:lane + 1], b), lane

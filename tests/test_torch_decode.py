@@ -290,7 +290,9 @@ def test_padding_columns_never_win():
     assert (logits[..., 500:] == -1e30).all()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["granite-moe-1b-a400m",
+                                          "mamba2-130m", "hymba-1.5b",
+                                          "mixtral-8x7b", "musicgen-medium"])
 def test_init_params_layout_matches_reference(arch):
     cfg, _, pc, conv = _lm(arch)
     tp = PM.init_params(pc, torch.Generator().manual_seed(0), device="cpu")
@@ -300,18 +302,25 @@ def test_init_params_layout_matches_reference(arch):
                 else (tuple(v.shape), v.dtype) for k, v in tree.items()}
     assert shapes(tp) == shapes(conv)
     assert not tp["blocks"]["ln1"].any() and not tp["final_norm"].any()
-    assert ("head" in tp) == (not cfg.tie_embeddings)
+    assert ("head" in tp) == (not cfg.tie_embeddings
+                              or cfg.arch_type == "audio")
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m",
-                                  "hymba-1.5b", "musicgen-medium"])
-def test_later_families_are_rejected_by_name(arch):
-    pc = port_cfg(reduced(get_config(arch)))
-    with pytest.raises(ValueError, match="not ported yet"):
-        PM.init_params(pc, torch.Generator(), device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        DecodeWorkload(pc, None, PC.SpeCaConfig(), max_new_tokens=2,
-                       max_seq_len=8, device="cpu")
+@pytest.mark.parametrize("arch, match", [
+    ("musicgen-medium", "multi-codebook audio"),
+    ("mixtral-8x7b", "ring-buffer decode caches"),
+    ("llama3-8b+swa", "ring-buffer decode caches")])
+def test_decode_workload_rejects_audio_and_ring_as_reference(arch, match):
+    """The reference's ``DecodeWorkload`` refuses these configurations with
+    these messages; the port's says the same."""
+    cfg = reduced(get_config(arch))
+    with pytest.raises(ValueError, match=match) as want:
+        JDecodeWorkload(cfg, None, JSpeCaConfig(), max_new_tokens=2,
+                        max_seq_len=8)
+    with pytest.raises(ValueError, match=match) as got:
+        DecodeWorkload(port_cfg(cfg), None, PC.SpeCaConfig(),
+                       max_new_tokens=2, max_seq_len=8, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ def _port_files():
         REPO / "tools" / "profile_torch_decode.py",
         REPO / "tools" / "flash_ab.py", REPO / "tools" / "verify_ab.py",
         REPO / "tools" / "rollback_ab.py",
-        REPO / "tools" / "profiler_windows.py"]
+        REPO / "tools" / "profiler_windows.py",
+        REPO / "tools" / "width_probe.py"]
 
 
 def _imported_roots(path: pathlib.Path):
