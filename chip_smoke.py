@@ -230,9 +230,10 @@ Phases (any failure ends the run with a non-zero exit):
     11a–11c run after phase 12, once the Llama-3-8B weights are freed):
     granite-moe-1b-a400m (24 layers, d 1024, 16 heads on 8 KV heads, 32
     experts top-8, d_ff 512, vocabulary 49,155), mamba2-130m (24 layers,
-    d 768, SSD state 128, 24 heads of 64) and hymba-1.5b (32 layers, d
-    1600, 25 heads on 5 KV heads, window 1024 with every 16th layer
-    global, SSD state 16, d_ff 5504), each at full width and depth. First
+    d 768, SSD state 128, 24 heads of 64) and hymba-1.5b (d 1600, 25
+    heads on 5 KV heads, window 1024 with every 16th layer global, SSD
+    state 16, d_ff 5504), each at full width; the first two at full
+    depth, hymba at ``HYBRID_LAYERS`` = 16 of 32 layers. First
     the decode kernels at the family's own shapes against their plain
     versions, before its model is drawn: the lane predict, refresh and
     chain predict (K = 1 and 4) on its lane table [3, L, 2, 4, 1, d], the
@@ -276,7 +277,40 @@ Phases (any failure ends the run with a non-zero exit):
     decode requests 0-3, submitted alternately, at lanes=4 each; each
     side's samples, tokens, counters and FLOPs equal its solo run's at
     the same width, and both sessions' kernels launch.
-13. ``profiler``: every kernel count and device time above is read from
+13a. ``train_dit``: DiT-XL/2 at full width and depth in f32 (28 layers,
+    d 1152, 1,000 classes; 32×32×4 GM latents, DDPM cosine), 100 AdamW
+    steps (global batch 8, lr 1e-4, warmup 10, seed 0) through
+    ``train_diffusion``: every loss finite and the mean of the last 10
+    below that of the first 10; one step at 2 of 28 layers, batch 2, on
+    the card against the CPU from the same parameters and draws (loss
+    within rtol 1e-5, every gradient leaf within 1e-4·max|g|). s/step,
+    peak memory and the loss curve recorded.
+13b. ``checkpoint``: the trained parameters saved in the repo's format to
+    a temporary directory (deleted after), restored by
+    ``restore_checkpoint`` and by ``params_from_checkpoint``: both bitwise
+    the trained tree; size and seconds recorded.
+13c. ``e2e_dit``: on the restored weights, 4 labels and one noise tensor
+    through ``sample_full``, ``speca_sample`` (order 2, max_draft 8, τ0
+    0.3, β 0.9; the lane predict and refresh must launch, counted in the
+    rows' ``e2e_dit`` entry) and the baselines ``taylorseer`` 4 and 7,
+    ``fora`` 4 and 7, ``ab2(4)``, ``teacache(0.3)`` and
+    ``step_reduction_sample(0.5)``: every static baseline's anchor
+    schedule as its interval and order imply, every latent finite,
+    ``num_full + num_spec`` the step count; α, the relative L2 deviation
+    from ``sample_full``, the FLOPs ratio and the wall time recorded, not
+    gated.
+13d. ``train_lm``: Qwen1.5-0.5B at full width and depth (bf16, tied
+    embeddings) through ``launch/train.py``'s ``train`` with remat: batch
+    8, sequence 256, 20 steps at lr 1e-3, finite and falling as 13a; one
+    step at 2 of 24 layers in f32 on the card against the CPU as 13a;
+    remat on against off in bf16 on the card: the same loss, gradients
+    within 1e-6·max|g|.
+13e. ``cli``: ``python -m repro_torch.launch.serve --mode diffusion
+    --requests 4`` at ``--lanes 4`` and ``--lanes 1`` (per-request
+    ``full=/spec=`` counters equal), ``--mode lm --arch qwen1.5-0.5b``,
+    and ``python -m repro_torch.launch.train --arch mamba2-130m --reduced
+    --steps 5``, each as a subprocess that must exit 0.
+14. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
     windows), as is a pair of one-call windows of a 10c/10d forward whose
@@ -304,6 +338,7 @@ the card's name and power limit. Everything measured also goes to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -341,6 +376,9 @@ DECODE_PROMPT = (16, 128)         # seeded prompt lengths, inclusive
 # well inside its time limit, and the decode phases are host-bound
 DECODE_LAYERS = 8
 L2_FLUSH_BYTES = 128 * 2**20      # written between timed calls: > 50 MB L2
+# hymba-1.5b's depth in serve_hybrid (of 32; layer 16 stays global): the
+# host-bound phase took 210–256 s at full depth, the longest of the run
+HYBRID_LAYERS = 16
 # decode_ring: mixtral-8x7b at full width, its depth cut to fit the card,
 # 4,160 positions through its 4,096-slot ring (64 past the wrap)
 RING_LAYERS, RING_SEQ = 4, 4160
@@ -362,6 +400,10 @@ FLUX_GUIDANCE = 3.5
 # 29 frames at 256×256 through a 4× temporal, 8× spatial VAE: 8 latent
 # frames of 32×32, 2048 tokens
 VIDEO_FRAMES, VIDEO_LATENT, VIDEO_LANES = 8, 32, 2
+# train_dit: DiT-XL/2 f32 AdamW steps; train_lm: Qwen1.5-0.5B bf16 steps
+# and their LR (the launcher's 3e-4 moves a 152k-vocabulary loss from its
+# initial ~12.1 by ~0.01 in 20 steps, inside the batches' noise)
+TRAIN_DIT_STEPS, TRAIN_LM_STEPS, TRAIN_LM_LR = 100, 20, 1e-3
 # the __global__ functions of the serving kernels, as the profiler names
 # them
 DEVICE_NAMES = {"taylor_predict_lanes": "predict_lanes_kernel",
@@ -3261,11 +3303,13 @@ class Smoke:
         self._serve_family("serve_ssm", MAMBA2_130M, ("taylor",), 61)
 
     def serve_hybrid(self):
-        """hymba-1.5b decode lanes (32 layers, d 1600, 25 heads on 5 KV
-        heads, window 1024 with every 16th layer global, SSD state 16):
-        (a), (b) and a depth-4 chain as ``serve_ssm``'s."""
+        """hymba-1.5b decode lanes at full width (d 1600, 25 heads on 5 KV
+        heads, window 1024 with every 16th layer global, SSD state 16),
+        HYBRID_LAYERS of 32 layers: (a), (b) and a depth-4 chain as
+        ``serve_ssm``'s."""
         from repro_torch.configs import HYMBA_1_5B
-        self._serve_family("serve_hybrid", HYMBA_1_5B, ("taylor",), 71)
+        self._serve_family("serve_hybrid", dataclasses.replace(
+            HYMBA_1_5B, num_layers=HYBRID_LAYERS), ("taylor",), 71)
 
     def decode_ring(self):
         """mixtral-8x7b at full width, its depth cut to RING_LAYERS of 32
@@ -3547,6 +3591,333 @@ class Smoke:
             solo_diffusion_wall_s=dwall, solo_decode_wall_s=twall,
             alpha={r.workload + str(r.request_id): r.alpha for r in res})
 
+    # --- training, checkpoints, baselines and the launchers -----------------
+    def _falling(self, name, losses):
+        """Every loss finite and the mean of the last 10 below the mean of
+        the first 10."""
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        first, last = losses[:10], losses[-10:]
+        assert sum(last) / len(last) < sum(first) / len(first), \
+            (name, first, last)
+
+    def _hold_step(self, name, loss_fn, params, tol, tol_grad):
+        """``loss_fn(params, device)`` -> (loss, metrics) with its gradients
+        (``value_and_grad``) on the card and on the CPU from the same
+        parameters and draws: the loss within rtol ``tol``, every gradient
+        leaf within ``tol_grad``·max|g| of the CPU's."""
+        torch = self.torch
+        from repro_torch.training.autodiff import value_and_grad
+        from repro_torch.tree import tree_flatten_with_paths, tree_map
+        cpu = tree_map(lambda t: t.cpu(), params)
+        (lc, _), gc_ = value_and_grad(lambda p: loss_fn(p, "cpu"), cpu)
+        (lg, _), gg = value_and_grad(lambda p: loss_fn(p, self.dev), params)
+        rel = abs(lg.item() - lc.item()) / abs(lc.item())
+        worst = 0.0
+        for (k, a), (_, b) in zip(tree_flatten_with_paths(gg),
+                                  tree_flatten_with_paths(gc_)):
+            scale = b.abs().max().item() or 1.0
+            worst = max(worst, (a.cpu() - b).abs().max().item() / scale)
+        print(f"{name}: card vs CPU loss {lg.item():.6f} / {lc.item():.6f} "
+              f"(rel {rel:.2e}), worst gradient |Δ|/max|g| {worst:.2e}")
+        assert rel <= tol and worst <= tol_grad, (name, rel, worst)
+        return dict(loss_card=lg.item(), loss_cpu=lc.item(), loss_rel=rel,
+                    grad_worst_rel=worst)
+
+    def train_dit(self):
+        """DiT-XL/2 at full width and depth in f32 (28 layers, d 1152,
+        1,000 classes; 32×32×4 GM latents, DDPM cosine), 100 AdamW steps at
+        global batch 8, lr 1e-4, warmup 10, seed 0, through
+        ``train_diffusion``: every loss finite, the last 10 below the first
+        10 on average. Then one step from the same parameters and draws on
+        the card and on the CPU at DiT-XL/2 width and 2 of 28 layers,
+        batch 2: the loss within rtol 1e-5, every gradient leaf within
+        1e-4·max|g|. Keeps the trained parameters for ``checkpoint``."""
+        torch = self.torch
+        from repro_torch.configs import DIT_XL2, DiffusionConfig, TrainConfig
+        from repro_torch.data import synthetic as syn
+        from repro_torch.diffusion.loss import diffusion_loss
+        from repro_torch.layers.model import init_params
+        from repro_torch.training.diffusion_trainer import train_diffusion
+        cfg = dataclasses.replace(DIT_XL2, dtype="float32")
+        dcfg = DiffusionConfig(latent_size=32, schedule="cosine")
+        tcfg = TrainConfig(global_batch=8, steps=TRAIN_DIT_STEPS, lr=1e-4,
+                           warmup=10, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_diffusion(cfg, dcfg, tcfg, device=self.dev,
+                              verbose=False)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses, step_s = out["losses"], out["step_s"]
+        self._falling("train_dit", losses)
+        med = sorted(step_s[2:])[len(step_s[2:]) // 2]
+        print(f"train_dit: {len(losses)} steps in {wall:.1f} s, median "
+              f"{med:.4f} s/step, peak {peak:.2f} GiB, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first/last 10 mean "
+              f"{sum(losses[:10]) / 10:.4f}/{sum(losses[-10:]) / 10:.4f})")
+        self.trained = (cfg, out["state"]["params"])
+        del out
+        self._release()
+        small = dataclasses.replace(cfg, num_layers=2)
+        params = init_params(small, torch.Generator(
+            device=self.dev).manual_seed(1), device=self.dev)
+        gm = syn.GMLatentConfig(num_classes=cfg.num_classes, latent_size=32)
+        batch = syn.gm_latent_batch(gm, [0, 1])
+        gen = torch.Generator().manual_seed(2)
+        t = torch.randint(0, 1000, (2,), generator=gen)
+        noise = torch.randn(batch["latents"].shape, generator=gen)
+
+        def loss_fn(p, dev):
+            return diffusion_loss(small, dcfg, p, batch["latents"].to(dev),
+                                  {"labels": batch["labels"].to(dev)},
+                                  t=t.to(dev), noise=noise.to(dev))
+        held = self._hold_step("train_dit", loss_fn, params, 1e-5, 1e-4)
+        self.record["train_dit"] = dict(
+            steps=len(losses), wall_s=wall, step_s_median=med,
+            step_s=step_s, peak_gib=peak, losses=losses,
+            card_vs_cpu=held, card=smi_line())
+
+    def checkpoint(self):
+        """The trained DiT-XL/2 parameters saved in the repo's format
+        (``arrays.npz`` + ``manifest.json``) to a temporary directory,
+        restored through ``restore_checkpoint`` and
+        ``params_from_checkpoint``: both bitwise the trained tree. The
+        directory is deleted after; size and seconds recorded."""
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+        from repro_torch.convert import params_from_checkpoint
+        from repro_torch.tree import tree_flatten_with_paths
+        cfg, params = self.trained
+        path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            t0 = time.perf_counter()
+            save_checkpoint(path, params, step=TRAIN_DIT_STEPS)
+            save_s = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in Path(path).iterdir())
+            t0 = time.perf_counter()
+            back = restore_checkpoint(path, params, device=self.dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            conv = params_from_checkpoint(path, device=self.dev)
+            torch.cuda.synchronize()
+            convert_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        want = tree_flatten_with_paths(params)
+        for got in (back, conv):
+            have = tree_flatten_with_paths(got)
+            assert [k for k, _ in have] == [k for k, _ in want]
+            for (k, a), (_, b) in zip(have, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), k
+        print(f"checkpoint: {size / 2**30:.2f} GiB, save {save_s:.1f} s, "
+              f"restore_checkpoint {restore_s:.1f} s, params_from_checkpoint "
+              f"{convert_s:.1f} s; both bitwise the trained tree")
+        self.trained = (cfg, conv)
+        del back, params
+        self._release()
+        self.record["checkpoint"] = dict(bytes=size, save_s=save_s,
+                                         restore_s=restore_s,
+                                         params_from_checkpoint_s=convert_s)
+
+    def e2e_dit(self):
+        """The port's counterpart of ``examples/train_dit_speca_e2e.py`` at
+        full size on the restored weights: 4 labels and one noise tensor
+        through ``sample_full``, ``speca_sample`` (order 2, max_draft 8,
+        τ0 0.3, β 0.9) and the baselines (``taylorseer`` at 4 and 7,
+        ``fora`` at 4 and 7, ``ab2(4)``, ``teacache(0.3)``,
+        ``step_reduction_sample(0.5)``). Gated: every static baseline's
+        ``full_step`` is the schedule its interval and order imply, every
+        latent is finite, ``num_full + num_spec`` is the step count.
+        Recorded: α, the relative L2 deviation from ``sample_full``, the
+        ``run_flops`` ratio to 50 full forwards, the wall time."""
+        torch = self.torch
+        from repro_torch.configs import DiffusionConfig, SpeCaConfig
+        from repro_torch.core import baselines as B
+        from repro_torch.core.complexity import run_flops
+        from repro_torch.core.speca import speca_sample
+        from repro_torch.diffusion.pipeline import latent_shape, sample_full
+        from repro_torch.kernels import ops
+        cfg, params = self.trained
+        dcfg = DiffusionConfig()
+        S = dcfg.num_inference_steps
+        tokens = (dcfg.latent_size // cfg.patch_size) ** 2
+        cond = {"labels": torch.tensor([c % cfg.num_classes
+                                        for c in (1, 207, 360, 812)],
+                                       device=self.dev)}
+        noise = torch.randn(latent_shape(cfg, dcfg, 4),
+                            generator=torch.Generator().manual_seed(5))
+        kw = dict(noise=noise, device=self.dev)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        ref, ref_s = timed(lambda: sample_full(cfg, params, dcfg, cond, 4,
+                                               **kw))
+        assert torch.isfinite(ref).all()
+        scfg = SpeCaConfig(taylor_order=2, max_draft=8, tau0=0.3, beta=0.9)
+        ops.reset_launch_counts()                    # this phase's path:
+        (x, st), wall = timed(lambda: speca_sample(cfg, params, dcfg, scfg,
+                                                   cond, 4, **kw))
+        launches = ops.launch_counts()               # read just after
+        for k in ("taylor_predict_lanes", "taylor_update_lanes"):
+            assert launches.get(k, 0) > 0, (k, launches)
+            self.kernels.setdefault(k, {}).setdefault("e2e_dit", {})[
+                "launches"] = launches[k]
+        rows = {"sample_full": dict(alpha=0.0, dev=0.0, flops_ratio=1.0,
+                                    wall_s=ref_s, num_full=S, num_spec=0)}
+        full50 = S * run_flops(cfg, tokens, 1, 1)
+
+        def row(name, x, num_full, num_spec, alpha, wall, steps=S):
+            assert torch.isfinite(x).all(), name
+            assert num_full + num_spec == steps, (name, num_full, num_spec)
+            dev = ((x - ref).norm() / ref.norm()).item()
+            rows[name] = dict(alpha=alpha, dev=dev, wall_s=wall,
+                              num_full=num_full, num_spec=num_spec,
+                              flops_ratio=run_flops(cfg, tokens, steps,
+                                                    num_full) / full50)
+
+        row("speca", x, int(st["num_full"]), int(st["num_spec"]),
+            float(st["alpha"]), wall)
+        policies = {"taylorseer4": B.taylorseer(4),
+                    "taylorseer7": B.taylorseer(7), "fora4": B.fora(4),
+                    "fora7": B.fora(7), "ab2_4": B.ab2(4),
+                    "teacache0.3": B.teacache(0.3)}
+        for name, pol in policies.items():
+            (xb, sb), wall = timed(lambda: B.cached_sample(
+                cfg, params, dcfg, pol, cond, 4, **kw))
+            if pol.name != "teacache":
+                want = [s <= pol.order or (s - pol.order) % pol.interval == 0
+                        for s in range(S)]
+                assert sb["full_step"].tolist() == want, (name, sb)
+            row(name, xb, sb["num_full"], sb["num_spec"], sb["alpha"], wall)
+        (xr, sr), wall = timed(lambda: B.step_reduction_sample(
+            cfg, params, dcfg, 0.5, cond, 4, **kw))
+        assert torch.isfinite(xr).all() and sr["num_steps"] == 25
+        dev = ((xr - ref).norm() / ref.norm()).item()
+        rows["step_reduction0.5"] = dict(
+            alpha=0.0, dev=dev, wall_s=wall, num_full=25, num_spec=0,
+            flops_ratio=run_flops(cfg, tokens, 25, 25) / full50)
+        for name, r in rows.items():
+            print(f"e2e_dit {name:18s} alpha={r['alpha']:.3f} "
+                  f"full={r['num_full']:2d} rel-L2 dev={r['dev']:.3e} "
+                  f"flops {r['flops_ratio']:.3f}× of 50 full "
+                  f"wall {r['wall_s']:.2f} s")
+        self.record["e2e_dit"] = dict(rows=rows, launches=launches,
+                                      card=smi_line())
+        self.trained = None
+        self._release()
+
+    def train_lm(self):
+        """Qwen1.5-0.5B at full width and depth (24 layers, d 1024,
+        vocabulary 151,936, bf16, tied embeddings) through
+        ``launch/train.py``'s ``train``: remat on, batch 8, sequence 256,
+        20 steps at lr 1e-3 on the LM stream; every loss finite and
+        falling (the last
+        10 below the first 10 on average). Then one step at 2 of 24 layers
+        on the card against the CPU in f32 (TF32 off: both sides round the
+        same f32 operations; bf16 products round in each library's own
+        order) within rtol 1e-5 and 1e-4·max|g|, and remat on against off
+        on the card in bf16: the same loss, gradients within
+        1e-6·max|g|."""
+        torch = self.torch
+        from repro_torch.configs import QWEN1_5_0_5B
+        from repro_torch.data import synthetic as syn
+        from repro_torch.launch.train import train
+        from repro_torch.layers.model import init_params
+        from repro_torch.training import lm as T
+        from repro_torch.training.autodiff import value_and_grad
+        from repro_torch.tree import tree_flatten_with_paths
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train("qwen1.5-0.5b", steps=TRAIN_LM_STEPS, seq_len=256,
+                    batch=8, lr=TRAIN_LM_LR, device=self.dev, log=False)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses, step_s = out["losses"], out["step_s"]
+        del out
+        self._release()
+        self._falling("train_lm", losses)
+        med = sorted(step_s[2:])[len(step_s[2:]) // 2]
+        print(f"train_lm: {len(losses)} steps in {wall:.1f} s, median "
+              f"{med:.4f} s/step, peak {peak:.2f} GiB, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first/last 10 mean "
+              f"{sum(losses[:10]) / 10:.4f}/{sum(losses[-10:]) / 10:.4f})")
+        small = dataclasses.replace(QWEN1_5_0_5B, num_layers=2,
+                                    dtype="float32")
+        batch = syn.lm_batch(syn.LMStreamConfig(
+            vocab_size=small.vocab_size, seq_len=256), [0, 1])
+        params = init_params(small, torch.Generator(
+            device=self.dev).manual_seed(3), device=self.dev)
+
+        def loss_fn(p, dev, cfg=small, remat=True):
+            return T.lm_loss(cfg, p, {k: v.to(dev) for k, v in batch.items()},
+                             remat=remat)
+        held = self._hold_step("train_lm", loss_fn, params, 1e-5, 1e-4)
+        bf = dataclasses.replace(small, dtype="bfloat16")
+        params = init_params(bf, torch.Generator(
+            device=self.dev).manual_seed(3), device=self.dev)
+        (l_on, _), g_on = value_and_grad(
+            lambda p: loss_fn(p, self.dev, bf, True), params)
+        (l_off, _), g_off = value_and_grad(
+            lambda p: loss_fn(p, self.dev, bf, False), params)
+        worst = 0.0
+        for (k, a), (_, b) in zip(tree_flatten_with_paths(g_on),
+                                  tree_flatten_with_paths(g_off)):
+            scale = b.float().abs().max().item() or 1.0
+            worst = max(worst, (a.float() - b.float()).abs().max().item()
+                        / scale)
+        print(f"train_lm: remat on/off loss {l_on.item()} / {l_off.item()}, "
+              f"worst gradient |Δ|/max|g| {worst:.2e}")
+        assert l_on.item() == l_off.item() and worst <= 1e-6, \
+            (l_on.item(), l_off.item(), worst)
+        self.record["train_lm"] = dict(
+            steps=len(losses), wall_s=wall, step_s_median=med,
+            step_s=step_s, peak_gib=peak, losses=losses, card_vs_cpu=held,
+            remat_worst_rel=worst, card=smi_line())
+
+    def cli(self):
+        """The launchers as subprocesses: ``repro_torch.launch.serve --mode
+        diffusion --requests 4`` at ``--lanes 4`` and ``--lanes 1`` (the
+        per-request ``full=/spec=`` counters equal), ``--mode lm --arch
+        qwen1.5-0.5b``, and ``repro_torch.launch.train --arch mamba2-130m
+        --reduced --steps 5``; each must exit 0."""
+        import os
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        runs = {"serve_lanes4": ["serve", "--mode", "diffusion",
+                                 "--requests", "4", "--lanes", "4"],
+                "serve_lanes1": ["serve", "--mode", "diffusion",
+                                 "--requests", "4", "--lanes", "1"],
+                "serve_lm": ["serve", "--mode", "lm", "--arch",
+                             "qwen1.5-0.5b"],
+                "train": ["train", "--arch", "mamba2-130m", "--reduced",
+                          "--steps", "5"]}
+        rec, counters = {}, {}
+        for name, (mod, *args) in runs.items():
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", f"repro_torch.launch.{mod}", *args],
+                env=env, cwd=ROOT, capture_output=True, text=True,
+                timeout=600)
+            rec[name] = dict(rc=p.returncode, wall_s=time.perf_counter() - t0,
+                             stdout=p.stdout[-4000:], stderr=p.stderr[-4000:])
+            print(f"cli {name}: rc {p.returncode} in "
+                  f"{rec[name]['wall_s']:.1f} s; "
+                  + " | ".join(p.stdout.strip().splitlines()[-3:]))
+            assert p.returncode == 0, (name, p.stderr[-2000:])
+            counters[name] = re.findall(r"req (\d+): full=(\d+) spec=(\d+)",
+                                        p.stdout)
+        self.record["cli"] = rec
+        assert len(counters["serve_lanes4"]) == 4, counters
+        assert counters["serve_lanes4"] == counters["serve_lanes1"], counters
+
 
 def _leaves(tree):
     """The tensor leaves of a nested dict."""
@@ -3630,8 +4001,8 @@ MIXED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
 # FLUX-like table, with its launches in serve_decode and serve_flux;
 # "video": its launches in serve_video)
 ROW_EXTRAS = ("decode", "flux", "video", "serve_moe", "serve_ssm",
-              "serve_hybrid", "device_ms", "event_ms", "kernels_per_call",
-              "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
+              "serve_hybrid", "e2e_dit", "device_ms", "event_ms",
+              "kernels_per_call", "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
               "two_step_ms", "two_step_device_ms",
               "two_step_kernels_per_call", "device_ms_by_mask")
@@ -3697,6 +4068,18 @@ def main() -> int:
                      ("decode_ring", smoke.decode_ring),
                      ("decode_audio", smoke.decode_audio)):
         torch.cuda.reset_peak_memory_stats()
+        smoke.phase(name, fn)
+        smoke._release()
+    # training, checkpoints, the baselines and the launchers: the DiT-XL/2
+    # training state is freed before Qwen's
+    smoke.phase("train_dit", smoke.train_dit)
+    if "train_dit" not in smoke.failures:
+        smoke.phase("checkpoint", smoke.checkpoint)
+        if "checkpoint" not in smoke.failures:
+            smoke.phase("e2e_dit", smoke.e2e_dit)
+    smoke.trained = None
+    smoke._release()
+    for name, fn in (("train_lm", smoke.train_lm), ("cli", smoke.cli)):
         smoke.phase(name, fn)
         smoke._release()
     smoke.phase("profiler", smoke.profiler)

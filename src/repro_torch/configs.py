@@ -1,10 +1,9 @@
 """Configuration records: own copies of ``repro.configs.base``'s
-``ModelConfig``, ``DiffusionConfig`` and ``SpeCaConfig`` plus the
-DiT-XL/2 (``repro.configs.dit_xl2``), FLUX-like
-(``repro.configs.flux_like``), HunyuanVideo-like
-(``repro.configs.hunyuan_video_like``), Llama-3-8B
-(``repro.configs.llama3_8b``), granite-moe-1b-a400m, mamba2-130m,
-hymba-1.5b, mixtral-8x7b and musicgen-medium configurations.
+``ModelConfig``, ``DiffusionConfig``, ``SpeCaConfig``, ``TrainConfig`` and
+``reduced()``, and of the registry of ``repro.configs``: the ten assigned
+architectures (``ASSIGNED``) and the paper's three DiTs
+(``PAPER_ARCHS``), resolved by :func:`get_config` (with the ``+swa``
+sliding-window variant) and listed by :func:`list_archs`.
 
 Each record keeps the reference's fields that the port reads, with the
 reference's names and defaults. The port serves DiT image and video
@@ -17,7 +16,7 @@ maps to a torch dtype through :attr:`ModelConfig.torch_dtype`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -63,6 +62,7 @@ class ModelConfig:
     # --- MoE ---
     num_experts: int = 0
     num_experts_per_tok: int = 0
+    moe_aux_loss_weight: float = 0.01   # Switch load-balance loss weight
     moe_capacity_factor: float = 1.25
     # --- SSM (mamba2 SSD) ---
     ssm_state: int = 0
@@ -73,6 +73,9 @@ class ModelConfig:
     ssm_chunk: int = 64
     # --- audio (musicgen-style multi-codebook) ---
     num_codebooks: int = 0
+    # --- VLM frontend stub: patch embeddings ahead of the text ---
+    frontend_tokens: int = 0
+    frontend_dim: int = 0
     norm_eps: float = 1e-5
     act: str = "silu"             # silu (SwiGLU) | gelu
     tie_embeddings: bool = False
@@ -142,6 +145,43 @@ class ModelConfig:
             return 0
         return self.attn_window
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks + head), the
+        reference's formula."""
+        d, L = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d  # lm head
+        per_layer = 0
+        if self.has_attention:
+            per_layer += d * self.num_heads * hd            # q
+            per_layer += 2 * d * self.num_kv_heads * hd     # k, v
+            per_layer += self.num_heads * hd * d            # o
+        if self.is_moe:
+            per_layer += d * self.num_experts               # router
+            per_layer += self.num_experts * 3 * d * self.d_ff
+        elif self.d_ff > 0:
+            mult = 3 if self.act == "silu" else 2
+            per_layer += mult * d * self.d_ff
+        if self.is_ssm or self.is_hybrid:
+            di, ns = self.ssm_d_inner, self.ssm_state
+            nh = self.resolved_ssm_heads
+            per_layer += d * (2 * di + 2 * ns * nh + nh)  # in: x,z,B,C,dt
+            per_layer += di * d                              # out_proj
+            per_layer += (di + 2 * ns * nh) * self.ssm_conv  # conv
+        per_layer += 2 * d  # norms
+        return n + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: the top-k experts only)."""
+        full = self.param_count()
+        if not self.is_moe:
+            return full
+        inactive = self.num_experts - self.num_experts_per_tok
+        return full - self.num_layers * inactive * 3 * self.d_model \
+            * self.d_ff
+
 
 LM_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
@@ -175,6 +215,57 @@ class DiffusionConfig:
     latent_size: int = 32          # spatial latent H=W
     guidance_scale: float = 1.0    # CFG scale of SpeCaEngine(guidance=True)
     num_frames: int = 1            # >1 => video (3D tokens)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 1024
+    global_batch: int = 8
+    steps: int = 200
+    lr: float = 3e-4
+    warmup: int = 20
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    seed: int = 0
+    log_every: int = 20
+
+
+def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
+            d_ff: int = 0, vocab: int = 512, experts: int = 0,
+            heads: int = 0) -> ModelConfig:
+    """Smoke-test variant of the same family (≤2 layers, d_model ≤ 512),
+    field for field the reference's."""
+    num_heads = heads or max(min(cfg.num_heads, 4), 1)
+    ratio = max(cfg.num_heads // max(cfg.num_kv_heads, 1), 1)
+    num_kv = max(num_heads // ratio, 1)
+    changes = dict(
+        num_layers=layers,
+        d_model=d_model,
+        num_heads=num_heads,
+        num_kv_heads=num_kv,
+        d_ff=d_ff or (d_model * 2 if cfg.d_ff else 0),
+        vocab_size=min(cfg.vocab_size, vocab),
+        head_dim=d_model // num_heads if cfg.has_attention else 0,
+        attn_window=min(cfg.attn_window, 64) if cfg.attn_window else 0,
+        global_every=min(cfg.global_every, 2) if cfg.global_every else 0,
+        dtype="float32",
+    )
+    if cfg.is_moe:
+        changes["num_experts"] = experts or min(cfg.num_experts, 4)
+        changes["num_experts_per_tok"] = min(cfg.num_experts_per_tok, 2)
+        changes["moe_capacity_factor"] = 4.0  # deterministic small tests
+    if cfg.is_ssm or cfg.is_hybrid:
+        changes["ssm_state"] = min(cfg.ssm_state, 16)
+        changes["ssm_head_dim"] = 32
+        changes["ssm_chunk"] = 16
+    if cfg.mrope_sections:
+        hd = changes["head_dim"]
+        changes["mrope_sections"] = (hd // 2 - 2 * (hd // 8), hd // 8,
+                                     hd // 8)
+    if cfg.frontend_tokens:
+        changes["frontend_tokens"] = 16
+        changes["frontend_dim"] = d_model
+    return dataclasses.replace(cfg, **changes)
 
 
 # DiT-XL/2 — the paper's class-conditional image model [arXiv:2212.09748]:
@@ -335,3 +426,104 @@ MUSICGEN_MEDIUM = ModelConfig(
     rope_theta=10_000.0,
     source="arXiv:2306.05284",
 )
+
+# qwen1.5-0.5b — dense with QKV bias, tied embeddings [hf:Qwen/Qwen1.5-0.5B]
+QWEN1_5_0_5B = ModelConfig(
+    name="qwen1.5-0.5b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=2816,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)
+
+# granite-20b — llama-arch code model, MQA (one KV head), GELU MLP
+# [arXiv:2405.04324]
+GRANITE_20B = ModelConfig(
+    name="granite-20b",
+    arch_type="dense",
+    num_layers=52,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=1,
+    d_ff=24576,
+    vocab_size=49152,
+    act="gelu",
+    source="arXiv:2405.04324",
+)
+
+# qwen2-vl-72b — the language decoder of a VLM: M-RoPE, QKV bias; the
+# vision frontend is a stub of 1,024 precomputed patch embeddings
+# [arXiv:2409.12191]
+QWEN2_VL_72B = ModelConfig(
+    name="qwen2-vl-72b",
+    arch_type="vlm",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    mrope_sections=(16, 24, 24),
+    frontend_tokens=1024,
+    frontend_dim=8192,
+    source="arXiv:2409.12191",
+)
+
+# gemma3-27b — 5:1 local:global attention (window 1024, every 6th layer
+# global), 262k vocabulary, tied embeddings [hf:google/gemma-3-1b-pt]
+GEMMA3_27B = ModelConfig(
+    name="gemma3-27b",
+    arch_type="dense",
+    num_layers=62,
+    d_model=5376,
+    num_heads=32,
+    num_kv_heads=16,
+    d_ff=21504,
+    vocab_size=262144,
+    head_dim=128,
+    attn_window=1024,
+    global_every=6,
+    rope_theta=1_000_000.0,
+    act="gelu",
+    tie_embeddings=True,
+    source="hf:google/gemma-3-1b-pt",
+)
+
+# The 10 assigned architectures + the paper's own 3 models.
+ASSIGNED: Dict[str, ModelConfig] = {
+    c.name: c for c in (
+        GRANITE_MOE_1B_A400M, LLAMA3_8B, MAMBA2_130M, QWEN2_VL_72B,
+        GEMMA3_27B, HYMBA_1_5B, QWEN1_5_0_5B, MIXTRAL_8X7B, GRANITE_20B,
+        MUSICGEN_MEDIUM)
+}
+PAPER_ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (DIT_XL2, FLUX_LIKE, HUNYUAN_VIDEO_LIKE)
+}
+REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_ARCHS}
+SWA_FALLBACK_WINDOW = 4096
+
+
+def get_config(arch: str) -> ModelConfig:
+    """Resolve an ``--arch`` id, including the ``+swa`` variant suffix
+    (every layer a 4,096-token sliding window)."""
+    if arch.endswith("+swa"):
+        base = get_config(arch[: -len("+swa")])
+        return dataclasses.replace(base, attn_window=SWA_FALLBACK_WINDOW,
+                                   global_every=0, name=base.name + "+swa")
+    if arch not in REGISTRY:
+        raise KeyError(
+            f"unknown arch {arch!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[arch]
+
+
+def list_archs() -> List[str]:
+    return sorted(REGISTRY)

@@ -1,4 +1,5 @@
-"""Parameter conversion from the JAX package's DiT and LM trees.
+"""Parameter conversion from the JAX package's DiT and LM trees, and
+from checkpoints in the repo's npz + manifest format.
 
 ``repro.layers.model.init_params`` (and a trained state's ``params``)
 is a nested dict with stacked ``[L, …]`` block leaves and weights laid
@@ -9,12 +10,14 @@ cannot hand to torch directly, so they travel as their raw bits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import load_leaf, read_checkpoint
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import tree_set
 
 # the leaves the port reads of each family; anything else in the tree is
 # ignored. A group (or a key of it) that a configuration leaves out —
@@ -44,10 +47,10 @@ def _leaf(x: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(x: Any, device: torch.device) -> Any:
+def _tree(x: Any, leaf: Callable[[Any], torch.Tensor]) -> Any:
     if isinstance(x, dict):
-        return {k: _tree(v, device) for k, v in x.items()}
-    return _leaf(x, device)
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    return leaf(x)
 
 
 def params_from_jax(tree: Dict[str, Any], *,
@@ -61,6 +64,13 @@ def params_from_jax(tree: Dict[str, Any], *,
     [K, V, d] and has a [K, d, V] head; ``head`` is absent under tied
     embeddings)."""
     dev = resolve_device(device)
+    return _select(tree, lambda x: _leaf(x, dev))
+
+
+def _select(tree: Dict[str, Any],
+            leaf: Callable[[Any], torch.Tensor]) -> Dict[str, Any]:
+    """The family's groups and keys of ``tree`` (``DIT_KEYS`` or
+    ``LM_KEYS``), each leaf through ``leaf``."""
     lm = "final_norm" in tree
     groups = LM_KEYS if lm else DIT_KEYS
     required = LM_REQUIRED if lm else tuple(DIT_KEYS)
@@ -71,8 +81,26 @@ def params_from_jax(tree: Dict[str, Any], *,
                 raise KeyError(f"parameter tree has no {group!r} group")
             continue
         if keys is None:
-            out[group] = _leaf(tree[group], dev)
+            out[group] = leaf(tree[group])
         else:
-            out[group] = {k: _tree(tree[group][k], dev)
+            out[group] = {k: _tree(tree[group][k], leaf)
                           for k in keys if k in tree[group]}
     return out
+
+
+def params_from_checkpoint(path: str, *,
+                           device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The port's parameters from a checkpoint in the repo's format
+    (``arrays.npz`` + ``manifest.json``, written by either package's
+    ``save_checkpoint``), built from the manifest with no ``like`` tree:
+    each leaf in its manifest dtype on ``device``, through the same key
+    filter as :func:`params_from_jax`. A checkpoint of a whole train
+    state is read from its ``params`` group."""
+    dev = resolve_device(device)
+    manifest, data = read_checkpoint(path)
+    tree: Dict[str, Any] = {}
+    for key, meta in manifest["leaves"].items():
+        tree_set(tree, key, (key, meta["dtype"]))
+    if "params" in tree and "blocks" not in tree:
+        tree = tree["params"]
+    return _select(tree, lambda kd: load_leaf(data[kd[0]], kd[1], dev))

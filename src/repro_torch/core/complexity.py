@@ -1,9 +1,9 @@
-"""Analytic cost model (paper §3.5, Theorem G.3): the part of
-``repro.core.complexity`` the serving accounting needs, for the DiT
-(full-sequence forwards) and for LM decode of every family (one position
-against a KV cache and/or an SSD state; MoE FFNs count their active
-experts), and the verification cost ratio γ with the speedup model
-``S = 1 / (1 − α·(1 − γ − overhead))`` (eq. 8)."""
+"""Analytic cost model (paper §3.5, Theorem G.3), the reference's
+``repro.core.complexity``: the DiT's full-sequence forwards and LM decode
+of every family (one position against a KV cache and/or an SSD state;
+MoE FFNs count their active experts), the verification cost ratio γ with
+the speedup model ``S = 1 / (1 − α·(1 − γ − overhead))`` (eq. 8), a
+cached sampling run's FLOPs and a training step's."""
 from __future__ import annotations
 
 from repro_torch.configs import ModelConfig
@@ -72,11 +72,17 @@ def modulation_flops(cfg: ModelConfig) -> float:
 
 
 def glue_flops(cfg: ModelConfig, tokens: int) -> float:
-    """Embeddings, AdaLN modulation, output head — never skipped."""
+    """Embeddings, AdaLN modulation, output head — never skipped (an LM:
+    the embedding adds and the vocabulary head)."""
     d = cfg.d_model
-    p2c = cfg.patch_size ** 2 * cfg.in_channels
-    return 2.0 * tokens * d + 2.0 * tokens * p2c * d * 2 \
-        + cfg.num_layers * modulation_flops(cfg)
+    f = 2.0 * tokens * d
+    if cfg.is_diffusion:
+        p2c = cfg.patch_size ** 2 * cfg.in_channels
+        f += 2.0 * tokens * p2c * d * 2
+        f += cfg.num_layers * modulation_flops(cfg)
+    elif cfg.vocab_size:
+        f += 2.0 * tokens * d * cfg.vocab_size
+    return f
 
 
 def forward_flops(cfg: ModelConfig, tokens: int) -> float:
@@ -137,3 +143,22 @@ def decode_verify_flops(cfg: ModelConfig, kv_tokens: int) -> float:
     return decode_block_flops(cfg, kv_tokens) \
         + (cfg.num_layers - 1) * decode_spec_cache_flops(cfg) \
         + decode_glue_flops(cfg) + taylor
+
+
+def run_flops(cfg: ModelConfig, tokens: int, num_steps: int,
+              num_full: int) -> float:
+    """Total FLOPs of a cached sampling run with ``num_full`` anchor
+    steps (every other step a speculative one)."""
+    n_spec = num_steps - num_full
+    return num_full * forward_flops(cfg, tokens) \
+        + n_spec * verify_flops(cfg, tokens)
+
+
+def train_step_flops(cfg: ModelConfig, tokens: int) -> float:
+    """fwd + bwd ≈ 3× forward matmul FLOPs."""
+    return 3.0 * forward_flops(cfg, tokens)
+
+
+def model_flops_6nd(cfg: ModelConfig, tokens: int) -> float:
+    """MODEL_FLOPS = 6·N_active·D (roofline 'useful compute' reference)."""
+    return 6.0 * cfg.active_param_count() * tokens

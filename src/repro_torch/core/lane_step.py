@@ -82,6 +82,7 @@ from repro_torch.core import controller as CT
 from repro_torch.core import taylor
 from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.verify import relative_error, threshold_schedule
+from repro_torch.device import DeviceLike
 from repro_torch.diffusion.pipeline import guided_output
 from repro_torch.kernels import ops
 
@@ -525,3 +526,45 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
     if max_draft_depth == 1:
         return LaneStep(wl, **kw)
     return ChainStep(wl, depth=int(max_draft_depth), **kw)
+
+
+def init_lane_state(cfg: ModelConfig, dcfg: DiffusionConfig,
+                    scfg: SpeCaConfig, lanes: int,
+                    cond_template: Dict[str, Any], *,
+                    x: Optional[torch.Tensor] = None,
+                    active: bool = False,
+                    guidance: Union[bool, str] = False,
+                    device: DeviceLike = "cuda") -> State:
+    """Fresh DIFFUSION lane-batch state (the reference's original entry
+    point): :func:`init_workload_state` over a parameter-free
+    ``DiffusionWorkload`` on ``device``."""
+    from repro_torch.core.workload import DiffusionWorkload
+    wl = DiffusionWorkload(cfg, None, dcfg, scfg, device=device)
+    return init_workload_state(wl, lanes, cond_template, x=x, active=active,
+                               guidance=guidance)
+
+
+def build_lane_step(cfg: ModelConfig, params: Dict[str, Any],
+                    dcfg: DiffusionConfig, scfg: SpeCaConfig, *,
+                    lanes: int, draft_mode: str = "taylor",
+                    accept_mode: str = "per_sample",
+                    verify_backend: str = "jnp",
+                    use_flash: bool = False,
+                    guidance: Union[bool, str] = False,
+                    max_draft_depth: int = 1,
+                    forecaster: Any = None,
+                    controller: bool = False,
+                    device: DeviceLike = "cuda") -> LaneStep:
+    """The DIFFUSION lane step (the reference's original entry point):
+    :func:`build_workload_step` over a ``DiffusionWorkload`` on
+    ``device``. ``use_flash`` is accepted for the reference's signature:
+    DiT attention is bidirectional and never reaches the flash kernel."""
+    from repro_torch.core.workload import make_diffusion_workload
+    wl = make_diffusion_workload(cfg, params, dcfg, scfg,
+                                 use_flash=use_flash, device=device)
+    return build_workload_step(wl, lanes=lanes, draft_mode=draft_mode,
+                               accept_mode=accept_mode,
+                               verify_backend=verify_backend,
+                               guidance=guidance,
+                               max_draft_depth=max_draft_depth,
+                               forecaster=forecaster, controller=controller)

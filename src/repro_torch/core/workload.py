@@ -370,3 +370,14 @@ class DecodeWorkload(Workload):
         """The lane's emitted tokens so far, an int32 CPU copy."""
         n = max(min(done, self.num_steps), 0)
         return state["tokens"][lane, :n].to("cpu", copy=True)
+
+
+def make_diffusion_workload(cfg: ModelConfig, params, dcfg: DiffusionConfig,
+                            scfg: SpeCaConfig, *, use_flash: bool = False,
+                            device: DeviceLike = "cuda"
+                            ) -> DiffusionWorkload:
+    """The reference's factory name for a :class:`DiffusionWorkload`;
+    ``use_flash`` is accepted for its signature (DiT attention never
+    reaches the flash kernel)."""
+    del use_flash
+    return DiffusionWorkload(cfg, params, dcfg, scfg, device=device)

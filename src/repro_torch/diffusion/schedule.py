@@ -69,6 +69,13 @@ def ddim_step(sched: DDPMSchedule, x: torch.Tensor, eps: torch.Tensor,
 
 # --- rectified flow -------------------------------------------------------
 
+def q_sample(sched: DDPMSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward process: x_t = √ᾱ_t·x0 + √(1−ᾱ_t)·ε; t [B] ints."""
+    ab = sched.alphas_bar[t].reshape((-1,) + (1,) * (x0.dim() - 1))
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+
 def rf_timesteps(num_inference: int, device: torch.device) -> torch.Tensor:
     """σ grid 1 → 0 (exclusive of the final 0), FLUX-style uniform:
     σ_i = 1 − i·(1/n) in f32 — the arithmetic XLA compiles

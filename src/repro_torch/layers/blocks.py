@@ -24,7 +24,7 @@ block the state advance is the mixer itself.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,14 +82,15 @@ def uses_ring_cache(cfg: ModelConfig) -> bool:
 
 
 def ffn_branch(cfg: ModelConfig, bp: Params, x: torch.Tensor
-               ) -> torch.Tensor:
-    """The MLP, or the top-k expert FFN of an MoE block."""
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The MLP, or the top-k expert FFN of an MoE block -> (out, the
+    MoE's load-balance loss, None for an MLP)."""
     if cfg.is_moe:
         return moe_lib.moe_forward(
             bp["moe"], x, num_experts=cfg.num_experts,
             top_k=cfg.num_experts_per_tok, act=cfg.act,
             capacity_factor=cfg.moe_capacity_factor)
-    return mlp_forward(bp["mlp"], x, cfg.act)
+    return mlp_forward(bp["mlp"], x, cfg.act), None
 
 
 def ssm_branch_full(cfg: ModelConfig, bp: Params, x: torch.Tensor
@@ -134,10 +135,11 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
                         t_emb: torch.Tensor = None, *, angles=None,
                         window: int = 0, use_flash: bool = False
                         ) -> Tuple[Branch, Branch]:
-    """Returns (fn0, fn1): fn_i(h) -> (inc_i, cache_i) for one block;
-    cache_0 is the attention's (k, v), the SSD's (final state, conv tail)
-    or, in a hybrid block, (k, v, final state, conv tail); cache_1 is
-    ``()``."""
+    """Returns (fn0, fn1) for one block: ``fn0(h) -> (inc0, cache)``,
+    the cache being the attention's (k, v), the SSD's (final state, conv
+    tail) or, in a hybrid block, (k, v, final state, conv tail);
+    ``fn1(h) -> (inc1, aux)``, ``aux`` the MoE's load-balance loss (None
+    without experts)."""
     eps = cfg.norm_eps
     if cfg.is_diffusion:
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = dit_modulation(bp, t_emb)
@@ -151,7 +153,7 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
             x = _ln(h, eps) * (1 + sc_m[:, None]) + sh_m[:, None]
             mlp = bp["mlp"]
             return g_m[:, None] * gelu_mlp(x.to(h.dtype), mlp["w_up"],
-                                           mlp["w_down"]), ()
+                                           mlp["w_down"]), None
         return fn0, fn1
 
     if cfg.is_ssm:
@@ -159,11 +161,11 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
             return ssm_branch_full(cfg, bp, rms_norm(h, bp["ln1"], eps))
 
         def fn1(h):
-            return torch.zeros_like(h), ()
+            return torch.zeros_like(h), None
         return fn0, fn1
 
     def fn1(h):
-        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps)), ()
+        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
 
     if cfg.is_hybrid:
         def fn0(h):
@@ -226,7 +228,7 @@ def block_decode(cfg: ModelConfig, bp: Params, h: torch.Tensor,
         h = h + 0.5 * (a_out + s_out)
     else:
         h = h + a_out
-    out = ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
+    out, _ = ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
     return h + out, new
 
 
@@ -301,7 +303,7 @@ def block_decode_branches(cfg: ModelConfig, bp: Params,
         return {"k": kc, "v": vc}
 
     def fn1(h):
-        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
+        return ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))[0]
 
     if cfg.is_hybrid:
         def fn0(h):

@@ -24,11 +24,13 @@ takes [B, K, T] codebook tokens and gives [B, T, K, V] logits.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig, check_lm
 from repro_torch.device import DeviceLike, resolve_device
@@ -257,17 +259,23 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
                  branch_preds: Optional[torch.Tensor] = None,
                  compute_mask: Optional[Sequence[bool]] = None,
                  collect_branches: bool = False,
-                 collect_cache: bool = False, use_flash: bool = False
+                 collect_cache: bool = False, use_flash: bool = False,
+                 remat: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The layer loop.
 
     branch_preds: [L, 2, B, S, D] forecast residual increments (SpeCa).
     compute_mask: [L] static bools — True runs the block for real, False
     substitutes ``branch_preds``. None = every layer real.
-    Returns (h_final, {"branches": [L, 2, B, S, D]} when collected,
-    {"cache": the family's cache leaves ({"k", "v"} [L, B, S, KV, hd],
-    {"ssm_state", "conv_state"}) when collected — zeros at a substituted
-    layer, as the reference's).
+    remat: recompute each real layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), the reference's
+    ``jax.checkpoint`` of its scan body: the values are the same.
+    Returns (h_final, {"aux_loss": the MoE load-balance losses summed
+    over the real layers, an f32 scalar, 0 without experts;
+    "branches": [L, 2, B, S, D] when collected; "cache": the family's
+    cache leaves ({"k", "v"} [L, B, S, KV, hd], {"ssm_state",
+    "conv_state"}) when collected — zeros at a substituted layer, as the
+    reference's}).
     """
     L = cfg.num_layers
     mask = [True] * L if compute_mask is None \
@@ -283,14 +291,18 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
     branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
                            device=h.device) if collect_branches else None
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in range(L):
         if mask[layer]:
-            fn0, fn1 = blk.block_branches_full(
-                cfg, layer_params(params["blocks"], layer), t_emb,
-                angles=angles, window=cfg.layer_window(layer),
-                use_flash=use_flash)
-            inc0, cache = fn0(h)
-            inc1, _ = fn1(h + inc0)
+            run = functools.partial(_real_layer, cfg, params, layer, t_emb,
+                                    angles, use_flash)
+            if remat and torch.is_grad_enabled():
+                inc0, inc1, cache, aux_l = checkpoint(run, h,
+                                                      use_reentrant=False)
+            else:
+                inc0, inc1, cache, aux_l = run(h)
+            if aux_l is not None:
+                aux = aux + aux_l
         else:
             inc0, inc1 = branch_preds[layer, 0], branch_preds[layer, 1]
             cache = None
@@ -300,12 +312,23 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
             branches[layer, 1] = inc1
         if collect_cache:
             caches.append(cache)
-    out: Dict[str, Any] = {}
+    out: Dict[str, Any] = {"aux_loss": aux}
     if branches is not None:
         out["branches"] = branches
     if collect_cache:
         out["cache"] = _pack_cache(cfg, h, caches)
     return h, out
+
+
+def _real_layer(cfg: ModelConfig, params: Params, layer: int, t_emb,
+                angles, use_flash: bool, h: torch.Tensor):
+    """One computed block -> (inc0, inc1, cache, MoE aux loss or None)."""
+    fn0, fn1 = blk.block_branches_full(
+        cfg, layer_params(params["blocks"], layer), t_emb, angles=angles,
+        window=cfg.layer_window(layer), use_flash=use_flash)
+    inc0, cache = fn0(h)
+    inc1, aux = fn1(h + inc0)
+    return inc0, inc1, cache, aux
 
 
 def cache_keys(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -367,7 +390,8 @@ def dit_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Denoiser forward: latents [B, (F,) H, W, C], t [B] (and ``labels``
     [B] and/or ``cond`` [B, T_text, cond_dim]) -> eps (or velocity)
-    prediction in the model dtype, in the latents' shape."""
+    prediction in the model dtype, in the latents' shape, and
+    ``forward_full``'s extras."""
     spatial = tuple(inputs["latents"].shape[1:-1])
     e = embed_inputs(cfg, params, inputs)
     h, extras = forward_full(cfg, params, e["h"], t_emb=e["t_emb"],
@@ -401,15 +425,17 @@ def lm_logits(cfg: ModelConfig, params: Params,
 
 
 def lm_forward(cfg: ModelConfig, params: Params, inputs: Dict[str, Any], *,
-               collect_cache: bool = False, use_flash: bool = False
+               collect_cache: bool = False, use_flash: bool = False,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """LM forward over ``inputs["tokens"]`` [B, T] (audio: [B, K, T]) ->
-    (logits [B, T, V] (audio: [B, T, K, V]), extras);
-    ``collect_cache=True`` adds the prefill's cache."""
+    (logits [B, T, V] (audio: [B, T, K, V]), extras with ``aux_loss``);
+    ``collect_cache=True`` adds the prefill's cache; ``remat=True``
+    recomputes each layer in the backward pass."""
     e = embed_inputs(cfg, params, inputs)
     h, extras = forward_full(cfg, params, e["h"], angles=e["angles"],
                              collect_cache=collect_cache,
-                             use_flash=use_flash)
+                             use_flash=use_flash, remat=remat)
     return lm_logits(cfg, params, h), extras
 
 

@@ -22,14 +22,15 @@ Three places where the reference's rounding and order are kept:
   write to one spare row past the buffer, which is cut off.
 
 The per-expert products are batched matmuls over the [E, capacity, D]
-buffer; the reference computes them outside any Pallas kernel. The
-reference also returns the Switch load-balance loss, a training term;
-it comes with the trainers, and serving does not pay for it here.
+buffer; the reference computes them outside any Pallas kernel. Beside
+the output comes the reference's Switch load-balance loss
+``E·Σ_e f_e·p̄_e`` (f_e: the share of tokens whose first choice is e,
+p̄_e: the mean router probability of e), a training term.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,8 +49,10 @@ def capacity(n_tokens: int, top_k: int, num_experts: int,
 
 def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                 num_experts: int, top_k: int, act: str = "silu",
-                capacity_factor: float = 1.25) -> torch.Tensor:
-    """The top-k expert FFN of x [B, T, D] -> [B, T, D] in x's dtype."""
+                capacity_factor: float = 1.25
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k expert FFN of x [B, T, D] -> ([B, T, D] in x's dtype,
+    the f32 load-balance loss)."""
     B, T, D = x.shape
     E, K = num_experts, top_k
     n_tok = B * T
@@ -60,6 +63,10 @@ def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = order.values[:, :K], order.indices[:, :K]
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+
+    # Switch-style load-balance auxiliary loss: E * Σ_e f_e · p̄_e
+    f = torch.mean(F.one_hot(gate_idx[:, 0], E).to(torch.float32), dim=0)
+    aux_loss = E * torch.sum(f * torch.mean(probs, dim=0))
 
     # --- static-capacity dispatch
     n_slots = n_tok * K
@@ -86,4 +93,4 @@ def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
 
     # --- combine: gather each slot's row, weight it, sum a token's K
     out_k = ye[slot] * (flat_g * keep.to(torch.float32)).to(x.dtype)[:, None]
-    return out_k.reshape(n_tok, K, D).sum(dim=1).reshape(B, T, D)
+    return out_k.reshape(n_tok, K, D).sum(dim=1).reshape(B, T, D), aux_loss

@@ -106,8 +106,12 @@ def _numpy_tree(tree):
                                    "sample_full", "lm_init_params",
                                    "lm_params_from_jax", "decode_workload",
                                    "engine_workloads",
-                                   "init_controller_state"])
-def test_entry_points_default_to_cuda(no_gpu, entry):
+                                   "init_controller_state",
+                                   "train_diffusion", "lm_make_train_state",
+                                   "cached_sample", "restore_checkpoint",
+                                   "params_from_checkpoint", "serve_cli",
+                                   "serve_cli_diffusion", "train_cli"])
+def test_entry_points_default_to_cuda(no_gpu, entry, tmp_path):
     from repro_torch import configs as PC
     from repro_torch.convert import params_from_jax
     from repro_torch.core.controller import init_controller_state
@@ -116,6 +120,14 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch.diffusion.pipeline import sample_full
     from repro_torch.layers.model import init_params
     from repro_torch.serving import SpeCaEngine
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.convert import params_from_checkpoint
+    from repro_torch.core.baselines import cached_sample, fora
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import lm as T
+    from repro_torch.training.diffusion_trainer import train_diffusion
 
     cfg = PC.ModelConfig(name="t", num_layers=1, d_model=8, num_heads=2,
                          d_ff=16, num_classes=2, dtype="float32")
@@ -144,7 +156,23 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
         "engine_workloads": lambda: SpeCaEngine(
             workloads={"decode": decode}),
         "init_controller_state": lambda: init_controller_state(2, 2),
+        "train_diffusion": lambda: train_diffusion(
+            cfg, dcfg, PC.TrainConfig(steps=1, global_batch=2),
+            verbose=False),
+        "lm_make_train_state": lambda: T.make_train_state(
+            lm, torch.Generator(), AdamWConfig()),
+        "cached_sample": lambda: cached_sample(cfg, params, dcfg, fora(2),
+                                               cond, 1),
+        "restore_checkpoint": lambda: restore_checkpoint(ck, params),
+        "params_from_checkpoint": lambda: params_from_checkpoint(ck),
+        "serve_cli": lambda: serve_cli.main(["--mode", "lm", "--arch",
+                                             "mamba2-130m"]),
+        "serve_cli_diffusion": lambda: serve_cli.main(["--requests", "1"]),
+        "train_cli": lambda: train_cli.main(["--arch", "mamba2-130m",
+                                             "--reduced", "--steps", "1"]),
     }
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 

@@ -62,8 +62,10 @@ def _moe_params(act="silu", tie=False, seed=0):
 def _both(params, x, **kw):
     yj, _ = jmoe.moe_forward({k: jnp.asarray(v) for k, v in params.items()},
                              jnp.asarray(x), num_experts=E, top_k=K, **kw)
-    yp = pmoe.moe_forward({k: torch.from_numpy(v) for k, v in params.items()},
-                          torch.from_numpy(x), num_experts=E, top_k=K, **kw)
+    yp, _ = pmoe.moe_forward({k: torch.from_numpy(v)
+                              for k, v in params.items()},
+                             torch.from_numpy(x), num_experts=E, top_k=K,
+                             **kw)
     return np.asarray(yj), yp.numpy()
 
 

@@ -1658,3 +1658,51 @@ def test_mixed_diffusion_decode_lifecycle(both, engines):
                                        np.asarray(ref.sample), **TOL)
     assert res[0].flops != res[2].flops
     assert sum(r.num_spec for r in res[2:]) > 0
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines (repro.core.baselines) on the trained tiny DiT
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["fora3", "taylorseer4", "taylorseer4_newton",
+                                  "ab2_4", "teacache2", "step_reduction"])
+def test_baselines_match_reference(both, name):
+    """Each non-verifying baseline against the reference's from the same
+    noise: the anchor schedule (``full_step``) identical, the latents
+    within rtol = atol = 1e-5. TeaCache at threshold 2.0 fires every
+    third step here (a change of 0.953 a step on this schedule), so the
+    run mixes anchors and reuse."""
+    from repro.core import baselines as JB
+    from repro_torch.core import baselines as PB
+    (cfg, dcfg, params), (pcfg, pdcfg, tp) = both
+    make = {"fora3": lambda m: m.fora(3),
+            "taylorseer4": lambda m: m.taylorseer(4),
+            "taylorseer4_newton": lambda m: m.taylorseer(
+                4, draft_mode="newton"),
+            "ab2_4": lambda m: m.ab2(4),
+            "teacache2": lambda m: m.teacache(2.0)}
+    labels = [2, 5]
+    key = jax.random.PRNGKey(13)
+    noise = np.array(jax.random.normal(key, latent_shape(cfg, dcfg, 2),
+                                       jnp.float32))
+    jcond = {"labels": jnp.asarray(labels)}
+    pcond = {"labels": torch.tensor(labels)}
+    if name == "step_reduction":
+        xj, sj = JB.step_reduction_sample(cfg, params, dcfg, 0.5, key,
+                                          jcond, 2)
+        xp, sp = PB.step_reduction_sample(pcfg, tp, pdcfg, 0.5, pcond, 2,
+                                          noise=torch.from_numpy(noise),
+                                          device="cpu")
+        assert sp == {k: int(v) for k, v in sj.items()}
+    else:
+        xj, sj = jax.jit(lambda k: JB.cached_sample(
+            cfg, params, dcfg, make[name](JB), k, jcond, 2))(key)
+        xp, sp = PB.cached_sample(pcfg, tp, pdcfg, make[name](PB), pcond, 2,
+                                  noise=torch.from_numpy(noise),
+                                  device="cpu")
+        np.testing.assert_array_equal(sp["full_step"].numpy(),
+                                      np.asarray(sj["full_step"]))
+        assert sp["num_full"] == int(sj["num_full"])
+        assert 0 < sp["num_spec"] < sp["num_steps"]
+        assert sp["alpha"] == pytest.approx(float(sj["alpha"]))
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj), **TOL)

@@ -286,7 +286,7 @@ def repeat_card_cases(n: int, dev) -> dict:
 
     def moe_call(case):
         prm, x, kw = case
-        return (moe.moe_forward(prm, x, **kw),)
+        return moe.moe_forward(prm, x, **kw)     # (output, aux loss)
     cases = {"ssd_chunked": (ssd, T.ssd_case()),
              "mamba2_decode": (mamba, T.mamba2_decode_case()),
              "moe_forward_cf4": (moe_call, T.moe_case(4.0)),
