@@ -277,6 +277,27 @@ Phases (any failure ends the run with a non-zero exit):
     decode requests 0-3, submitted alternately, at lanes=4 each; each
     side's samples, tokens, counters and FLOPs equal its solo run's at
     the same width, and both sessions' kernels launch.
+12a. ``shard_kernels``: the eight lane-sharded routings
+    (``ops.*_sharded``) over D = 2 and 4 shards on this card (one card
+    suffices: a ``LaneMesh`` may repeat a device), in bf16 and
+    f32, at the serving shapes of phase 2 (the pair verifies on 2·D
+    lanes): the blocks gathered are bitwise the unsharded kernel's
+    result, held against the plain version as phase 2 holds it; one
+    call launches the kernel D times (the routing's count and the
+    kernel's); the pair verifies at 4 lanes on 4 shards raise the pair
+    rule. bf16 ms a call (CUDA events) beside the unsharded call, under
+    each kernel row's ``sharded`` entry.
+12b. ``serve_sharded``: DiT-XL/2 on ``SpeCaEngine(mesh=)``: phase 3's 8
+    requests at lanes=4 over D = 2 and 4 shards; at D = 2 phase 6's
+    guided pairs beside unguided lanes (width 4 = 2·D), phase 4's
+    depth-4 chains, phase 5's spectral chains, and phase 3's requests
+    0-3 under ``accept_mode="batch"`` beside an unsharded batch run.
+    Each run against its unsharded run: accepts, counters, FLOPs and
+    host syncs equal, samples within 1e-5 (the max recorded); every
+    kernel of its path launched, each launch through its routing.
+12c. ``serve_decode_sharded``: Llama-3-8B decode lanes over 2 shards at
+    phase 11's τ0: its 8 requests × 64 tokens at lanes=4 equal (b)'s
+    tokens, accepts, counters and host syncs.
 13a. ``train_dit``: DiT-XL/2 at full width and depth in f32 (28 layers,
     d 1152, 1,000 classes; 32×32×4 GM latents, DDPM cosine), 100 AdamW
     steps (global batch 8, lr 1e-4, warmup 10, seed 0) through
@@ -307,7 +328,10 @@ Phases (any failure ends the run with a non-zero exit):
     within 1e-6·max|g|.
 13e. ``cli``: ``python -m repro_torch.launch.serve --mode diffusion
     --requests 4`` at ``--lanes 4`` and ``--lanes 1`` (per-request
-    ``full=/spec=`` counters equal), ``--mode lm --arch qwen1.5-0.5b``,
+    ``full=/spec=`` counters equal), at ``--lanes 4 --device cpu`` with
+    ``--mesh 1`` and ``--mesh 2`` (equal counters), ``--mesh 2`` on the
+    card (with one card visible it must exit non-zero naming the lane
+    mesh), ``--mode lm --arch qwen1.5-0.5b``,
     and ``python -m repro_torch.launch.train --arch mamba2-130m --reduced
     --steps 5``, each as a subprocess that must exit 0.
 14. ``profiler``: every kernel count and device time above is read from
@@ -325,7 +349,10 @@ row's ``decode`` entry holds its decode-shape numbers and its launches in
 and its launches in ``serve_flux``; its ``video`` entry its numbers at
 the HunyuanVideo-like table and its launches in ``serve_video``; its
 ``serve_moe``, ``serve_ssm`` and ``serve_hybrid`` entries its numbers at
-that family's shapes and its launches in that phase. Every width
+that family's shapes and its launches in that phase; its ``sharded``
+entry, per routing that launches it, the routing's launches a call and
+ms at D = 2 and 4 (``shard_kernels``), its launches in the first
+``serve_sharded`` run of its path and in ``serve_decode_sharded``. Every width
 comparison of phases 3–7 and 10c (lanes 4 against 1 or 2) holds accepts
 and counters (FLOPs too) and records the samples' largest difference;
 phase 3 and 10c hold the samples within 1e-5 as well.
@@ -339,6 +366,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1596,6 +1624,7 @@ class Smoke:
                 f"request {a.request_id}: deep and depth-1 trajectories differ"
         assert dmax <= 1e-5, f"deep samples differ from depth-1 by {dmax}"
         assert ticks < self.record["serve"]["ticks"], "no fewer ticks"
+        self.deep_results = res
         width = self._hold_width(
             "serve_deep", res[:LANES],
             engine.serve_batched(reqs[:LANES], lanes=1), (LANES, 1))
@@ -1640,6 +1669,7 @@ class Smoke:
               f"lanes={LANES} in {wall:.3f} s: {syncs} host syncs over "
               f"{ticks} ticks, peak {peak:.2f} GiB")
         assert all(launches[n] > 0 for n in SPECTRAL_KERNELS), launches
+        self.spectral_results = res
         width = self._hold_width(
             "serve_spectral", res, engine.serve_batched(reqs, lanes=1),
             (LANES, 1))
@@ -1734,6 +1764,7 @@ class Smoke:
                 f"unguided request {n_g + i} left phase 3's trajectory"
             dmax = max(dmax, (r.sample - base.sample).abs().max().item())
         assert dmax <= 1e-5, f"unguided samples moved by {dmax}"
+        self.guided_results = res
         width = self._hold_width("serve_guided", res,
                                  engine.serve_batched(reqs, lanes=2),
                                  (LANES, 2))
@@ -3141,6 +3172,7 @@ class Smoke:
               f"{rejected} rejected drafts, peak {peak:.2f} GiB")
         assert all(launches[n] > 0 for n in DECODE_KERNELS), launches
         assert spec > 0 and rejected > 0, (spec, rejected)
+        self.lm_results = res
         for r in res:
             assert r.completed and r.sample.shape == (DECODE_NEW,)
             assert 0 <= int(r.sample.min()) and \
@@ -3200,6 +3232,7 @@ class Smoke:
                 "spectral_update_lanes"]
         lm = self.lm_cfg
         self.decode_tau0 = rec["tau0"]
+        self.decode_results = self.lm_results
         self.record["serve_decode"] = dict(
             rec, init_s=init_s, kv_cache_bytes=2 * lm.num_layers * LANES
             * DECODE_SEQ * lm.num_kv_heads * lm.resolved_head_dim * 2)
@@ -3591,6 +3624,296 @@ class Smoke:
             solo_diffusion_wall_s=dwall, solo_decode_wall_s=twall,
             alpha={r.workload + str(r.request_id): r.alpha for r in res})
 
+    # --- lane sharding (D shards on one card) ------------------------------
+    def _shard_mesh(self, D):
+        """D lane shards on this card."""
+        from repro_torch.launch.mesh import LaneMesh
+        return LaneMesh([self.torch.device(
+            "cuda", self.torch.cuda.current_device())] * D)
+
+    def _shard_cases(self, dtype, D):
+        """routing -> (its unsharded wrapper, (tensor, lane axis)
+        arguments, the outputs' lane axes, the hold against the plain
+        version, the plain result) at DiT-XL/2's serving shapes: the table
+        [3, 28, 2, 4, 256, 1152], chains of K = CHAIN_K, the rollback on
+        the latent snapshots [5, 4, 32, 32, 4] (lane axis 0: the routing
+        and the wrapper are called with ``lane_axis=0``), the verify
+        planes [4, 294912]; the pair verifies on 2·D lanes of [2·D,
+        294912] (a pair never straddles a shard)."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        main = SHARD_TABLE
+        diffs, feats, w, mask = self._inputs(main, dtype, 1)
+        wc = self._weights(3, LANES, CHAIN_K)
+        lat = self._latent_chain(dtype)
+        idx = self._rollback_indices(LANES)[1]
+        pred, real = self._verify_planes(main, dtype)
+        ones = torch.ones(LANES, device=self.dev)
+        tau = (ref.verify_accept_ref(pred, real, ones)[0] * torch.tensor(
+            [2.0, 0.5, 1.0, 0.9], device=self.dev)).contiguous()
+        W2 = 2 * D                     # the pair verifies' lanes
+        ppred, preal = self._planes(W2, main[4] * main[5], dtype)
+        paired = torch.tensor([True, True, False, False] * (W2 // 4),
+                              device=self.dev)
+        gs = torch.tensor([1.5, 1.5, 4.0, 4.0] * (W2 // 4), device=self.dev)
+        ptau = (ref.verify_accept_mixed_ref(
+            ppred, preal, torch.ones(W2, device=self.dev), gs, paired)[0]
+            * torch.linspace(0.5, 2.0, W2, device=self.dev)).contiguous()
+        tol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+
+        def near(got, want):
+            torch.testing.assert_close(got.float(), want, rtol=tol,
+                                       atol=1e-6)
+
+        def chain_near(got, want):
+            terms = ref.taylor_predict_chain_lanes_ref(diffs.float().abs(),
+                                                       wc.abs())
+            excess = ((got.float() - want).abs() - tol * want.abs()
+                      - 2.0 ** -21 * terms).max().item()
+            assert excess <= 0.0, f"chain off the plain sum by {excess}"
+
+        def verify_near(t):
+            def hold(got, want):
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                           atol=0.0)
+                far = (want[0] - t).abs() > 1e-5
+                assert torch.equal(got[1][far], want[1][far]), "accepts"
+            return hold
+
+        def exact(got, want):
+            assert torch.equal(got, want)
+        pair_ref = ref.verify_accept_mixed_ref(
+            ppred, preal, ptau[0::2].repeat_interleave(2), gs,
+            torch.ones(W2, dtype=torch.bool, device=self.dev))
+        return {
+            "taylor_predict_lanes_sharded": (
+                ops.taylor_predict_lanes, [(diffs, 3), (w, 1)], [2], near,
+                ref.taylor_predict_lanes_ref(diffs.float(), w)),
+            "taylor_predict_chain_lanes_sharded": (
+                ops.taylor_predict_chain_lanes, [(diffs, 3), (wc, 2)], [3],
+                chain_near, ref.taylor_predict_chain_lanes_ref(diffs.float(),
+                                                               wc)),
+            "lane_rollback_sharded": (
+                ops.lane_rollback, [(lat, 1), (idx, 0)], [0], exact,
+                ref.lane_rollback_ref(lat, idx, lane_axis=0)),
+            "taylor_update_lanes_sharded": (
+                ops.taylor_update_lanes, [(diffs, 3), (feats, 2), (mask, 0)],
+                [3], exact, ref.taylor_update_lanes_ref(diffs, feats, mask)),
+            "spectral_update_lanes_sharded": (
+                ops.spectral_update_lanes,
+                [(diffs, 3), (feats, 2), (mask, 0)], [3], exact,
+                ref.spectral_update_lanes_ref(diffs, feats, mask)),
+            "verify_accept_sharded": (
+                ops.verify_accept, [(pred, 0), (real, 0), (tau, 0)], [0, 0],
+                verify_near(tau), ref.verify_accept_ref(pred, real, tau)),
+            "verify_accept_mixed_sharded": (
+                ops.verify_accept_mixed,
+                [(ppred, 0), (preal, 0), (ptau, 0), (gs, 0), (paired, 0)],
+                [0, 0], verify_near(ptau),
+                ref.verify_accept_mixed_ref(ppred, preal, ptau, gs, paired)),
+            "verify_accept_pairs_sharded": (
+                ops.verify_accept_pairs,
+                [(ppred, 0), (preal, 0), (ptau[0::2].contiguous(), 0),
+                 (gs[0::2].contiguous(), 0)], [0, 0],
+                verify_near(ptau[0::2]), (pair_ref[0][0::2],
+                                          pair_ref[1][0::2])),
+        }
+
+    def check_shard_kernels(self):
+        """shard_kernels: each lane-sharded routing over D = 2 and 4 shards
+        on this card, in bf16 and f32, at ``_shard_cases``' shapes: the
+        blocks gathered are bitwise the unsharded kernel's result, which
+        is held against the plain version as the ``kernels`` phase holds
+        it; a call launches the kernel D times (the routing's count and
+        the kernel's); the pair verifies at 4 lanes on 4 shards raise the
+        pair rule. bf16 ms a call (CUDA events) beside the unsharded
+        kernel's, under each kernel row's ``sharded`` entry."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.sharding import specs as SH
+        rows = []
+        for D in SHARD_COUNTS:
+            mesh = self._shard_mesh(D)
+            for dtype in (torch.bfloat16, torch.float32):
+                cases = self._shard_cases(dtype, D)
+                for name, (plain, args, axes, hold, want) in cases.items():
+                    blocks = [SH.split_lanes(t, mesh, a) for t, a in args]
+                    kw = {"lane_axis": 0} if name == "lane_rollback_sharded" \
+                        else {}
+                    fn = functools.partial(getattr(ops, name), **kw)
+                    plain = functools.partial(plain, **kw)
+                    unsharded = plain(*[t for t, _ in args])
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    got = fn(*blocks, mesh=mesh)
+                    torch.cuda.synchronize()
+                    n = ops.launch_counts()
+                    kernel = SHARDED_KERNEL[name]
+                    assert n[name] == D and n[kernel] == D \
+                        and sum(n.values()) == 2 * D, (name, n)
+                    got = got if isinstance(got, tuple) else (got,)
+                    unsharded = unsharded if isinstance(unsharded, tuple) \
+                        else (unsharded,)
+                    joined = tuple(SH.gather_lanes(g, a)
+                                   for g, a in zip(got, axes))
+                    for j, u in zip(joined, unsharded):
+                        assert torch.equal(j, u), \
+                            f"{name} D={D} {dtype}: not the unsharded kernel"
+                    hold(joined[0] if len(joined) == 1 else joined, want)
+                    row = dict(routing=name, kernel=kernel, D=D,
+                               dtype=str(dtype), launches_per_call=n[name],
+                               bitwise_unsharded=True)
+                    if dtype == torch.bfloat16:
+                        row["ms"] = time_ms(torch,
+                                            lambda: fn(*blocks, mesh=mesh))
+                        row["unsharded_ms"] = time_ms(
+                            torch, lambda: plain(*[t for t, _ in args]))
+                        self.kernels.setdefault(kernel, {}).setdefault(
+                            "sharded", {}).setdefault(name, {})[f"d{D}"] = \
+                            {k: row[k] for k in ("launches_per_call", "ms",
+                                                 "unsharded_ms")}
+                    rows.append(row)
+                    print(f"shard_kernels: {row}", flush=True)
+        # the pair rule: 4 lanes on 4 shards would split every pair
+        mesh = self._shard_mesh(4)
+        p, r = self._planes(LANES, 64, torch.float32)
+        v = torch.ones(LANES, device=self.dev)
+
+        def lanes(t):
+            return SH.split_lanes(t, mesh)
+        for name, extra in (("verify_accept_mixed_sharded",
+                             (lanes(v), lanes(v), lanes(v.bool()))),
+                            ("verify_accept_pairs_sharded",
+                             ([v[:0]] * 4, [v[:0]] * 4))):
+            try:
+                getattr(ops, name)(lanes(p), lanes(r), *extra, mesh=mesh)
+            except ValueError as e:
+                assert "2·D=8" in str(e), e
+            else:
+                raise AssertionError(f"{name}: 4 lanes on 4 shards ran")
+        self.record["shard_kernels"] = rows
+
+    def _hold_shards(self, name, base, base_syncs, run):
+        """A sharded run (``_timed_serve``'s ``run``) against the unsharded
+        run ``base`` of the same requests and width: equal accepts,
+        counters and FLOPs, the same host syncs, samples within 1e-5
+        (bitwise expected: W1's and W2's pins make a lane's result
+        independent of the rows beside it); returns the run's record with
+        the samples' largest difference."""
+        res, launches, wall, syncs, peak = run
+        for a, b in zip(base, res):
+            assert (a.request_id, a.accepts, a.num_full, a.num_spec,
+                    a.num_drafted, a.flops) == \
+                (b.request_id, b.accepts, b.num_full, b.num_spec,
+                 b.num_drafted, b.flops), \
+                f"{name} request {a.request_id}: sharded != unsharded"
+        dmax = max((a.sample.float() - b.sample.float()).abs().max().item()
+                   for a, b in zip(base, res))
+        ticks = max(r.finish_tick for r in res)
+        print(f"{name}: {len(res)} requests in {wall:.3f} s, {ticks} ticks, "
+              f"{syncs} host syncs ({syncs / ticks:.2f} a tick; unsharded "
+              f"{base_syncs}), max |Δ sample| {dmax}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        assert syncs == base_syncs, f"{name}: {syncs} host syncs"
+        assert dmax <= SHARD_SAMPLE_TOL, f"{name}: samples differ by {dmax}"
+        return dict(wall_s=wall, ticks=ticks, host_syncs=syncs,
+                    syncs_per_tick=syncs / ticks, peak_gib=peak,
+                    max_abs_diff=dmax, launches=launches)
+
+    def _sharded_launches(self, name, launches, kernels):
+        """Every kernel of the path launched, each launch through its
+        routing (the routing's count is the kernel's)."""
+        for k in kernels:
+            routing = SHARDED_ROUTING[k]
+            assert launches[routing] > 0 and \
+                launches[routing] == launches[k], (name, k, launches)
+
+    def serve_sharded(self):
+        """serve_sharded: DiT-XL/2 on ``SpeCaEngine(mesh=)`` over D shards
+        of this card: phase 3's 8 requests at lanes=4 over D = 2 and 4;
+        then at D = 2 phase 6's guided pairs beside unguided lanes (width
+        4 = 2·D), phase 4's depth-4 chains, phase 5's spectral chains and
+        phase 3's first 4 requests under ``accept_mode="batch"`` (beside
+        the same on an unsharded engine). Each run: launch counts set to 0
+        just before and read just after, every kernel of its path
+        launched once a shard through its routing, and ``_hold_shards``
+        against the unsharded run."""
+        from repro_torch.configs import SpeCaConfig
+        from repro_torch.serving import RequestPolicy, SpeCaEngine
+        scfg = SpeCaConfig(taylor_order=2)
+        rec = self.record["serve_sharded"] = {}
+
+        def engine(D, **kw):
+            mesh = None if D is None else self._shard_mesh(D)
+            return SpeCaEngine(self.cfg, self.params, self.dcfg, scfg,
+                               mesh=mesh, device=self.dev, **kw)
+
+        def run(key, D, reqs, base, base_syncs, kernels, **kw):
+            eng = engine(D, **kw)
+            eng.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=3)
+            out = self._timed_serve(eng, reqs, LANES)
+            rec[key] = self._hold_shards(f"serve_sharded {key}", base,
+                                         base_syncs, out)
+            self._sharded_launches(key, out[1], kernels)
+            for k in kernels:
+                # a row keeps the count of the first sharded run of its
+                # kernel
+                r = SHARDED_ROUTING[k]
+                self.kernels.setdefault(k, {}).setdefault("sharded", {}) \
+                    .setdefault(r, {}).setdefault("launches", out[1][r])
+
+        run("d2", 2, self._requests(N_REQUESTS), self.serve_results,
+            self.record["serve"]["host_syncs"], SERVE_KERNELS)
+        run("d4", 4, self._requests(N_REQUESTS), self.serve_results,
+            self.record["serve"]["host_syncs"], SERVE_KERNELS)
+        run("guided_d2", 2, self._guided_requests(), self.guided_results,
+            self.record["serve_guided"]["host_syncs"], GUIDED_KERNELS)
+        run("deep_d2", 2, self._requests(N_REQUESTS, lambda i: RequestPolicy(
+            draft_depth=DEEP_DEPTHS[i % len(DEEP_DEPTHS)])),
+            self.deep_results, self.record["serve_deep"]["host_syncs"],
+            DEEP_KERNELS, max_draft_depth=CHAIN_K)
+        run("spectral_d2", 2, self._requests(LANES, lambda i: RequestPolicy(
+            draft_depth=CHAIN_K)), self.spectral_results,
+            self.record["serve_spectral"]["host_syncs"], SPECTRAL_KERNELS,
+            forecaster="spectral", max_draft_depth=CHAIN_K)
+        reqs = self._requests(LANES)
+        batch = engine(None, accept_mode="batch")
+        batch.serve_batched(reqs, lanes=LANES, max_ticks=3)
+        base = self._timed_serve(batch, reqs, LANES)
+        rec["batch_unsharded"] = dict(wall_s=base[2], host_syncs=base[3])
+        run("batch_d2", 2, reqs, base[0], base[3], SERVE_KERNELS,
+            accept_mode="batch")
+        assert any(r.num_spec > 0 for r in base[0]), "batch: no accept"
+
+    def serve_decode_sharded(self):
+        """serve_decode_sharded: Llama-3-8B decode lanes (DECODE_LAYERS
+        deep) over 2 shards of this card at serve_decode's τ0: its 8
+        requests × 64 tokens at lanes=4 give every request (b)'s tokens,
+        accepts, counters and FLOPs at (b)'s host syncs; the launch counts
+        set to 0 just before and read just after, the decode kernels
+        launched through their routings."""
+        from repro_torch.serving import SpeCaEngine
+        reqs = self._decode_requests()
+        eng = SpeCaEngine(workloads={"decode": self._decode_workload(
+            self.decode_tau0)}, mesh=self._shard_mesh(2), device=self.dev)
+        eng.serve_batched(reqs[:LANES], lanes=LANES, max_ticks=3)
+        out = self._timed_serve(eng, reqs, LANES)
+        for a, b in zip(self.decode_results, out[0]):
+            assert self.torch.equal(a.sample, b.sample), \
+                f"decode request {a.request_id}: sharded tokens differ"
+        rec = self._hold_shards(
+            "serve_decode_sharded", self.decode_results,
+            self.record["serve_decode"]["host_syncs"], out)
+        self._sharded_launches("serve_decode_sharded", out[1],
+                               DECODE_KERNELS)
+        rec["tokens_per_s"] = N_REQUESTS * DECODE_NEW / rec["wall_s"]
+        rec["unsharded_wall_s"] = self.record["serve_decode"]["wall_s"]
+        self.record["serve_decode_sharded"] = rec
+        for k in DECODE_KERNELS:
+            self.kernels.setdefault(k, {}).setdefault("sharded", {}) \
+                .setdefault(SHARDED_ROUTING[k], {})["decode_launches"] = \
+                out[1][SHARDED_ROUTING[k]]
+
     # --- training, checkpoints, baselines and the launchers -----------------
     def _falling(self, name, losses):
         """Every loss finite and the mean of the last 10 below the mean of
@@ -3886,19 +4209,30 @@ class Smoke:
     def cli(self):
         """The launchers as subprocesses: ``repro_torch.launch.serve --mode
         diffusion --requests 4`` at ``--lanes 4`` and ``--lanes 1`` (the
-        per-request ``full=/spec=`` counters equal), ``--mode lm --arch
-        qwen1.5-0.5b``, and ``repro_torch.launch.train --arch mamba2-130m
-        --reduced --steps 5``; each must exit 0."""
+        per-request ``full=/spec=`` counters equal), the same at ``--lanes
+        4 --device cpu`` with ``--mesh 1`` and ``--mesh 2`` (equal
+        counters), ``--mode lm --arch qwen1.5-0.5b``, and
+        ``repro_torch.launch.train --arch mamba2-130m --reduced --steps
+        5``; each must exit 0. ``--mesh 2`` on the card must exit non-zero
+        with the launcher's message when fewer than 2 cards are visible."""
         import os
+        torch = self.torch
         env = dict(os.environ, PYTHONPATH=str(SRC))
-        runs = {"serve_lanes4": ["serve", "--mode", "diffusion",
-                                 "--requests", "4", "--lanes", "4"],
+        serve4 = ["serve", "--mode", "diffusion", "--requests", "4",
+                  "--lanes", "4"]
+        runs = {"serve_lanes4": serve4,
                 "serve_lanes1": ["serve", "--mode", "diffusion",
                                  "--requests", "4", "--lanes", "1"],
+                "serve_cpu_mesh1": serve4 + ["--device", "cpu"],
+                "serve_cpu_mesh2": serve4 + ["--device", "cpu", "--mesh",
+                                             "2"],
+                "serve_mesh2": serve4 + ["--mesh", "2"],
                 "serve_lm": ["serve", "--mode", "lm", "--arch",
                              "qwen1.5-0.5b"],
                 "train": ["train", "--arch", "mamba2-130m", "--reduced",
                           "--steps", "5"]}
+        # --mesh 2 on the card: too few cards is an error, before training
+        fails = torch.cuda.device_count() < 2
         rec, counters = {}, {}
         for name, (mod, *args) in runs.items():
             t0 = time.perf_counter()
@@ -3911,12 +4245,20 @@ class Smoke:
             print(f"cli {name}: rc {p.returncode} in "
                   f"{rec[name]['wall_s']:.1f} s; "
                   + " | ".join(p.stdout.strip().splitlines()[-3:]))
+            if name == "serve_mesh2" and fails:
+                assert p.returncode != 0 and \
+                    "lane mesh over 2 devices" in p.stderr, p.stderr[-2000:]
+                continue
             assert p.returncode == 0, (name, p.stderr[-2000:])
             counters[name] = re.findall(r"req (\d+): full=(\d+) spec=(\d+)",
                                         p.stdout)
         self.record["cli"] = rec
         assert len(counters["serve_lanes4"]) == 4, counters
         assert counters["serve_lanes4"] == counters["serve_lanes1"], counters
+        assert len(counters["serve_cpu_mesh1"]) == 4, counters
+        assert counters["serve_cpu_mesh1"] == counters["serve_cpu_mesh2"], \
+            counters
+        assert "x 2 shards" in rec["serve_cpu_mesh2"]["stdout"]
 
 
 def _leaves(tree):
@@ -3996,11 +4338,28 @@ DECODE_SPECTRAL_KERNELS = ("spectral_update_lanes",
                            "verify_accept")
 MIXED_KERNELS = ("taylor_predict_lanes", "taylor_update_lanes",
                  "verify_accept", "verify_accept_mixed")
+# lane sharding: the shard counts on one card, and each sharded routing's
+# kernel row (the launch-count key of the kernel it launches once a shard)
+SHARD_COUNTS = (2, 4)
+SHARD_TABLE = (3, 28, 2, LANES, 256, 1152)    # DiT-XL/2's serving table
+SHARD_SAMPLE_TOL = 1e-5          # sharded against unsharded samples
+SHARDED_KERNEL = {"taylor_predict_lanes_sharded": "taylor_predict_lanes",
+                  "taylor_predict_chain_lanes_sharded":
+                      "taylor_predict_chain_lanes",
+                  "lane_rollback_sharded": "lane_rollback",
+                  "taylor_update_lanes_sharded": "taylor_update_lanes",
+                  "spectral_update_lanes_sharded": "spectral_update_lanes",
+                  "verify_accept_sharded": "verify_accept",
+                  "verify_accept_mixed_sharded": "verify_accept_mixed",
+                  "verify_accept_pairs_sharded": "verify_accept_mixed"}
+# the routing the sharded engine reaches each kernel through
+SHARDED_ROUTING = {k: r for r, k in SHARDED_KERNEL.items()
+                   if r != "verify_accept_pairs_sharded"}
 # per-kernel numbers the kernels line carries beside the contract's keys
 # ("decode", "flux": the kernel at the decode phases' shapes and at the
 # FLUX-like table, with its launches in serve_decode and serve_flux;
 # "video": its launches in serve_video)
-ROW_EXTRAS = ("decode", "flux", "video", "serve_moe", "serve_ssm",
+ROW_EXTRAS = ("sharded", "decode", "flux", "video", "serve_moe", "serve_ssm",
               "serve_hybrid", "e2e_dit", "device_ms", "event_ms",
               "kernels_per_call", "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",
@@ -4059,6 +4418,13 @@ def main() -> int:
     smoke.phase("serve_decode", smoke.serve_decode)
     if not {"serve", "serve_decode"} & set(smoke.failures):
         smoke.phase("serve_mixed", smoke.serve_mixed)
+    # lane sharding: D shards on this card, held against the unsharded
+    # phases above
+    smoke.phase("shard_kernels", smoke.check_shard_kernels)
+    if "serve" not in smoke.failures:
+        smoke.phase("serve_sharded", smoke.serve_sharded)
+    if "serve_decode" not in smoke.failures:
+        smoke.phase("serve_decode_sharded", smoke.serve_decode_sharded)
     smoke.lm_params = None
     smoke._release()
     # the rest of decode: each draws its model on the card and frees it

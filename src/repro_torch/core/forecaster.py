@@ -19,11 +19,16 @@ the reference:
 caps the forecast order — Taylor trusts only Δ⁰..Δ^cap, spectral keeps only
 the bands ν_k ≤ cap. ``None`` leaves the weights as they are; the
 controller (``repro_torch.core.controller``) passes its per-lane order.
+
+``mesh=`` (both forecasters, as ``repro_torch.core.taylor``'s): the table
+is lane-sharded, every per-lane argument is a sequence of D per-shard
+values, the kernels run once per shard through their ``ops.*_sharded``
+routings, and the result is one value per shard.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -50,17 +55,17 @@ class Forecaster:
         raise NotImplementedError
 
     def predict_lanes(self, tstate, step, *, mode: str = "taylor",
-                      order_cap: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      order_cap: Optional[torch.Tensor] = None,
+                      mesh: Optional[Any] = None) -> torch.Tensor:
         raise NotImplementedError
 
     def predict_chain_lanes(self, tstate, steps, *, mode: str = "taylor",
-                            order_cap: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            order_cap: Optional[torch.Tensor] = None,
+                            mesh: Optional[Any] = None) -> torch.Tensor:
         raise NotImplementedError
 
-    def update_lanes(self, tstate, feats, step, mask
-                     ) -> Dict[str, torch.Tensor]:
+    def update_lanes(self, tstate, feats, step, mask, *,
+                     mesh: Optional[Any] = None) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
 
@@ -75,17 +80,18 @@ class TaylorForecaster(Forecaster):
     def warm(self, tstate, scfg):
         return tstate["n_anchors"] > scfg.taylor_order
 
-    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None):
+    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None,
+                      mesh=None):
         return taylor.predict_lanes(tstate, step, mode=mode,
-                                    order_cap=order_cap)
+                                    order_cap=order_cap, mesh=mesh)
 
     def predict_chain_lanes(self, tstate, steps, *, mode="taylor",
-                            order_cap=None):
+                            order_cap=None, mesh=None):
         return taylor.predict_chain_lanes(tstate, steps, mode=mode,
-                                          order_cap=order_cap)
+                                          order_cap=order_cap, mesh=mesh)
 
-    def update_lanes(self, tstate, feats, step, mask):
-        return taylor.update_lanes(tstate, feats, step, mask)
+    def update_lanes(self, tstate, feats, step, mask, *, mesh=None):
+        return taylor.update_lanes(tstate, feats, step, mask, mesh=mesh)
 
 
 def spectral_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
@@ -162,18 +168,37 @@ class SpectralForecaster(Forecaster):
                              band_decay=self.band_decay, order_cap=order_cap)
         return w.to(torch.float32).contiguous()
 
-    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None):
+    def _shard_weights(self, tstate, steps, order_cap):
+        return [self._weights(t, s, c) for t, s, c in zip(
+            tstate, steps, taylor.per_shard(order_cap, len(tstate)))]
+
+    def predict_lanes(self, tstate, step, *, mode="taylor", order_cap=None,
+                      mesh=None):
+        if mesh is not None:
+            return ops.spectral_predict_lanes_sharded(
+                [t["diffs"] for t in tstate],
+                self._shard_weights(tstate, step, order_cap), mesh=mesh)
         return ops.spectral_predict_lanes(
             tstate["diffs"], self._weights(tstate, step, order_cap))
 
     def predict_chain_lanes(self, tstate, steps, *, mode="taylor",
-                            order_cap=None):
+                            order_cap=None, mesh=None):
+        if mesh is not None:
+            return ops.spectral_predict_chain_lanes_sharded(
+                [t["diffs"] for t in tstate],
+                self._shard_weights(tstate, steps, order_cap), mesh=mesh)
         return ops.spectral_predict_chain_lanes(
             tstate["diffs"], self._weights(tstate, steps, order_cap))
 
-    def update_lanes(self, tstate, feats, step, mask):
+    def update_lanes(self, tstate, feats, step, mask, *, mesh=None):
+        # the anchor metadata refreshes exactly as the Taylor table's (so
+        # does each shard's)
+        if mesh is not None:
+            diffs = ops.spectral_update_lanes_sharded(
+                [t["diffs"] for t in tstate], feats, mask, mesh=mesh)
+            return [{"diffs": d, **taylor.update_lanes_meta(t, s, m)}
+                    for d, t, s, m in zip(diffs, tstate, step, mask)]
         diffs = ops.spectral_update_lanes(tstate["diffs"], feats, mask)
-        # the anchor metadata refreshes exactly as the Taylor table's
         meta = taylor.update_lanes_meta(tstate, step, mask)
         return {"diffs": diffs, **meta}
 

@@ -31,6 +31,19 @@ device sync per branch; :attr:`LaneStep.host_syncs` counts them (two per
 tick at depth 1, at most K+1 per chain tick). Both branches are never
 computed.
 
+Lane sharding (``mesh=``, a ``repro_torch.launch.mesh.LaneMesh`` of D
+shards): the state is D per-shard dicts of W/D lanes each
+(``repro_torch.sharding.specs``), and each shard runs the step body of a
+W/D-lane step on its own device. The body is a generator: its global
+decisions (the branches' "any lane", ``accept_mode="batch"``'s "every
+drafting lane") and its kernel calls are requests it yields.
+:class:`LaneStep` answers them on its own lanes; :class:`ShardedStep`
+advances the D bodies to the same request, so every shard's work is
+queued before the host reads anything, then answers it across the
+shards — one host read per decision, as unsharded, and each kernel
+through its ``ops.*_sharded`` routing, once per shard — and so serves
+every lane the decisions the unsharded step would.
+
 Guidance (``guidance=True`` or ``"mixed"``): lanes (2k, 2k+1) form pair
 slot k, the cond and uncond (or negative) streams of one guided request
 where the per-lane ``paired`` mask is set. A paired slot drafts iff both
@@ -72,7 +85,7 @@ controller update adapts the controller-on lanes' ``tau0``, ``draft_k`` and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -85,6 +98,7 @@ from repro_torch.core.verify import relative_error, threshold_schedule
 from repro_torch.device import DeviceLike
 from repro_torch.diffusion.pipeline import guided_output
 from repro_torch.kernels import ops
+from repro_torch.sharding import specs as SH
 
 ACCEPT_MODES = ("batch", "per_sample")
 VERIFY_BACKENDS = ("fused", "jnp")
@@ -129,12 +143,27 @@ def _check_pairing(wl, guidance: Union[bool, str], lanes: int) -> None:
                          "lane pairs")
 
 
+def _check_mesh_width(lanes: int, mesh, pairing: bool) -> int:
+    """The lanes a shard owns: ``lanes`` must divide into D blocks, and
+    into whole pairs per block when pairs can be admitted."""
+    mult = SH.lane_width_multiple(mesh, streams=2 if pairing else 1)
+    if lanes % mult != 0:
+        raise ValueError(
+            f"lanes={lanes} not divisible by {mult} (lane-shard count "
+            f"{SH.lane_shard_count(mesh)}"
+            + (" × 2 streams — a pair slot must never straddle a shard "
+               "boundary)" if pairing else ")"))
+    return lanes // SH.lane_shard_count(mesh)
+
+
 def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
                         x: Optional[torch.Tensor] = None,
                         active: bool = False,
                         guidance: Union[bool, str] = False,
                         forecaster: Any = None,
-                        controller: bool = False) -> State:
+                        controller: bool = False,
+                        mesh: Optional[Any] = None
+                        ) -> Union[State, List[State]]:
     """Fresh lane-batch state on the workload's device. ``cond_template``
     supplies per-key shapes (its leading axis is replaced by ``lanes``;
     ignored when the workload's conditioning is not lane state);
@@ -143,9 +172,22 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
     Taylor) lays out the table. ``guidance=True`` adds ``gscale`` (all
     ones) and ``paired`` all True and needs an even ``lanes``;
     ``"mixed"`` starts ``paired`` all False. ``controller=True`` adds the
-    controller's all-off ``ctl_*`` tensors."""
+    controller's all-off ``ctl_*`` tensors.
+
+    With ``mesh``: D per-shard states of ``lanes / D`` lanes, shard i on
+    ``mesh.devices[i]`` (``x`` split by lane), equal to the unsharded
+    state split by ``repro_torch.sharding.specs.split_lane_state``;
+    ``lanes`` must divide by D, and by 2·D in a guidance mode."""
     W, dev = lanes, wl.device
     _check_pairing(wl, guidance, W)
+    if mesh is not None:
+        block = _check_mesh_width(W, mesh, bool(guidance))
+        xs = [None] * mesh.size if x is None else SH.split_lanes(x, mesh)
+        return [init_workload_state(wl.on(d), block, cond_template, x=xb,
+                                    active=active, guidance=guidance,
+                                    forecaster=forecaster,
+                                    controller=controller)
+                for d, xb in zip(mesh.devices, xs)]
     fc = get_forecaster(forecaster)
     feat_shape = taylor.feature_shape_for(wl.cfg.num_layers, W,
                                           wl.num_tokens, wl.cfg.d_model)
@@ -204,14 +246,62 @@ class LaneStep:
         self.controller = bool(controller)
         self.host_syncs = 0
 
+    def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
+        body, answer = self._body(state), None
+        while True:
+            done, out = _resume(body, answer)
+            if done:
+                return out
+            answer = self._answer(*out)
+
+    # --- the body's requests -------------------------------------------------
+    # ("any", t): is any lane of t set (a branch, one host sync); ("all", t):
+    # t [] bool over every lane, as a device tensor (batch accept); and the
+    # kernel calls ("predict", "predict_chain", "update", "rollback",
+    # "verify", "verify_mixed"), whose arguments are one lane batch's —
+    # or, with ``mesh``, lists of every shard's, answered by :meth:`kernel`
+    # once per shard
+    def _answer(self, op: str, *args):
+        if op == "any":
+            return self._any(args[0])
+        if op == "all":
+            return args[0]
+        return self.kernel(op, args)
+
+    def kernel(self, op: str, args, mesh: Optional[Any] = None):
+        """Run a kernel request of the body (per shard with ``mesh``)."""
+        fc, eps = self.fc, self.wl.scfg.eps
+        if op in ("predict", "predict_chain"):
+            tstate, steps, cap = args
+            fn = fc.predict_lanes if op == "predict" \
+                else fc.predict_chain_lanes
+            return fn(tstate, steps, mode=self.draft_mode, order_cap=cap,
+                      mesh=mesh)
+        if op == "update":
+            return fc.update_lanes(*args, mesh=mesh)
+        if op == "rollback":
+            return self.wl.rollback(*args, mesh=mesh)
+        if op == "verify":
+            if mesh is None:
+                return ops.verify_accept(*args, eps=eps)
+            return list(zip(*ops.verify_accept_sharded(*args, mesh=mesh,
+                                                       eps=eps)))
+        if op == "verify_mixed":
+            if mesh is None:
+                return ops.verify_accept_mixed(*args, eps=eps)
+            return list(zip(*ops.verify_accept_mixed_sharded(
+                *args, mesh=mesh, eps=eps)))
+        raise ValueError(f"unknown lane-step request {op!r}")
+
     def _nan(self) -> torch.Tensor:
         return torch.full((self.W,), float("nan"), dtype=torch.float32,
                           device=self.wl.device)
 
     def _combine(self, want, ok):
         if self.accept_mode == "batch":
-            # parity mode: every drafting lane must pass or all reject
-            return want & torch.all(ok | ~want)
+            # parity mode: every drafting lane (of every shard) must pass
+            # or all reject
+            return want & (yield ("all", torch.all(ok | ~want)))
         return want & ok
 
     def _any(self, t: torch.Tensor) -> bool:
@@ -262,46 +352,33 @@ class LaneStep:
                                                        want), want)
 
     # --- verification --------------------------------------------------------
-    def verify(self, pred_vl, real_vl, tau):
-        """(err [W], ok [W]) — the same math on every execution path."""
+    def _verify(self, state, pred_vl, real_vl, tau):
+        """(err [W], ok [W]) — the same math on every execution path: the
+        fused kernels through a request (slot-width in the guidance modes:
+        ONE guided-residual decision per paired slot, both lanes report
+        it), the metric-general path here."""
         W, scfg = self.W, self.wl.scfg
         if self.verify_backend == "fused":
-            return ops.verify_accept(pred_vl.reshape(W, -1),
-                                     real_vl.reshape(W, -1), tau,
-                                     eps=scfg.eps)
+            p, r = pred_vl.reshape(W, -1), real_vl.reshape(W, -1)
+            if self.pairing:
+                return (yield ("verify_mixed", p, r, tau, state["gscale"],
+                               state["paired"]))
+            return (yield ("verify", p, r, tau))
         err = relative_error(pred_vl, real_vl, metric=scfg.error_metric,
                              eps=scfg.eps, batch_axis=0)
-        return err, err <= tau
-
-    def verify_mixed(self, pred_vl, real_vl, tau, gs, paired):
-        """Slot-width verify: ONE guided-residual decision per paired slot
-        (both lanes report it), per-lane decisions elsewhere. The
-        metric-general path keeps unpaired lanes in the plain program's
-        math and combines pairs in f32, as the fused kernel does."""
-        W, scfg = self.W, self.wl.scfg
-        if self.verify_backend == "fused":
-            return ops.verify_accept_mixed(pred_vl.reshape(W, -1),
-                                           real_vl.reshape(W, -1), tau, gs,
-                                           paired, eps=scfg.eps)
-        err_lane = relative_error(pred_vl, real_vl,
-                                  metric=scfg.error_metric, eps=scfg.eps,
-                                  batch_axis=0)
-        ph = self.pair_head(pred_vl).to(torch.float32)
-        rh = self.pair_head(real_vl).to(torch.float32)
-        gs_p = self.pair_head(gs)[:, 0]
-        err_p = relative_error(guided_output(ph[:, 0], ph[:, 1], gs_p),
-                               guided_output(rh[:, 0], rh[:, 1], gs_p),
-                               metric=scfg.error_metric, eps=scfg.eps,
-                               batch_axis=0)
-        err = torch.where(paired, self.pair_broadcast(err_p, err_lane),
-                          err_lane)
-        return err, err <= tau
-
-    def _verify(self, state, pred_vl, real_vl, tau):
         if self.pairing:
-            return self.verify_mixed(pred_vl, real_vl, tau, state["gscale"],
-                                     state["paired"])
-        return self.verify(pred_vl, real_vl, tau)
+            # unpaired lanes keep the plain program's math; pairs combine
+            # in f32, as the fused kernel does
+            ph = self.pair_head(pred_vl).to(torch.float32)
+            rh = self.pair_head(real_vl).to(torch.float32)
+            gs_p = self.pair_head(state["gscale"])[:, 0]
+            err_p = relative_error(guided_output(ph[:, 0], ph[:, 1], gs_p),
+                                   guided_output(rh[:, 0], rh[:, 1], gs_p),
+                                   metric=scfg.error_metric, eps=scfg.eps,
+                                   batch_axis=0)
+            err = torch.where(state["paired"],
+                              self.pair_broadcast(err_p, err), err)
+        return err, err <= tau
 
     def _want(self, state, want):
         return self.pair_want(want, state["paired"]) if self.pairing \
@@ -311,7 +388,7 @@ class LaneStep:
         return self.pair_combine(out, state["gscale"], state["paired"]) \
             if self.pairing else out
 
-    def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
+    def _body(self, state: State):
         wl, fc, W = self.wl, self.fc, self.W
         scfg, vl = wl.scfg, wl.verify_layer
         dyn = {k: state[k] for k in wl.dyn_keys}
@@ -326,23 +403,22 @@ class LaneStep:
         tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"], scfg.beta)
         nan = self._nan()
 
-        if self._any(want):
-            preds = fc.predict_lanes(tstate, s_eff, mode=self.draft_mode,
-                                     order_cap=self._order_cap(state))
+        if (yield ("any", want)):
+            preds = yield ("predict", tstate, s_eff, self._order_cap(state))
             out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
             pred_vl = preds[vl][0] + preds[vl][1]
-            err, ok = self._verify(state, pred_vl, real_vl, tau)
+            err, ok = yield from self._verify(state, pred_vl, real_vl, tau)
             # NaN marks "did not draft": it fails every `err <= tau`
             err, ok = torch.where(want, err, nan), ok & want
         else:
             out_spec = wl.zero_out(W)
             err, ok = nan, torch.zeros_like(want)
-        accept = self._combine(want, ok)
+        accept = yield from self._combine(want, ok)
         full = active & ~accept
 
-        if self._any(full):
+        if (yield ("any", full)):
             out_full, branches = wl.full_forward(dyn, cond, ctx)
-            tstate = fc.update_lanes(tstate, branches, s_eff, full)
+            tstate = yield ("update", tstate, branches, s_eff, full)
         else:
             out_full = wl.zero_out(W)
         out = self._out(state, wl.select_out(accept, out_spec, out_full))
@@ -398,7 +474,7 @@ class ChainStep(LaneStep):
         super().__init__(wl, lanes=lanes, **kw)
         self.K = depth
 
-    def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
+    def _body(self, state: State):
         wl, fc, W, K = self.wl, self.fc, self.W, self.K
         scfg, vl, S = wl.scfg, wl.verify_layer, wl.num_steps
         dyn = {k: state[k] for k in wl.dyn_keys}
@@ -429,20 +505,21 @@ class ChainStep(LaneStep):
                               & (since < scfg.max_draft))
             tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"],
                                      scfg.beta)
-            drafting = drafting and self._any(want)
+            drafting = drafting and (yield ("any", want))
             if drafting:
                 if preds_chain is None:
-                    preds_chain = fc.predict_chain_lanes(
-                        tstate, steps_chain, mode=self.draft_mode,
-                        order_cap=self._order_cap(state))
+                    preds_chain = yield ("predict_chain", tstate,
+                                         steps_chain,
+                                         self._order_cap(state))
                 preds = preds_chain[j]
                 out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
                 pred_vl = preds[vl][0] + preds[vl][1]
-                err, ok = self._verify(state, pred_vl, real_vl, tau)
+                err, ok = yield from self._verify(state, pred_vl, real_vl,
+                                                  tau)
                 err, ok = torch.where(want, err, self._nan()), ok & want
             else:
                 err, ok = self._nan(), torch.zeros_like(want)
-            acc = self._combine(want, ok)
+            acc = yield from self._combine(want, ok)
             # a lane with budget at j that did not advance is served by
             # the closing full; one whose budget ran out stops clean
             stop_full = stop_full | (alive & budget & ~acc)
@@ -473,15 +550,15 @@ class ChainStep(LaneStep):
         # state the step returned (Workload.fill_payload) and never
         # reads an older one again.
         if len(snaps) > 1:
-            dyn = wl.rollback({k: [sn[k] for sn in snaps]
-                               for k in wl.dyn_keys}, n_acc)
+            dyn = yield ("rollback", {k: [sn[k] for sn in snaps]
+                                      for k in wl.dyn_keys}, n_acc)
         # ONE closing full forward serves every stopped lane at its
         # rolled-back step and refreshes only those lanes' table slices
         s_eff = torch.clamp(s, max=S - 1)
-        if self._any(stop_full):
+        if (yield ("any", stop_full)):
             ctx = wl.step_context(state, s_eff)
             out_full, branches = wl.full_forward(dyn, cond, ctx)
-            tstate = fc.update_lanes(tstate, branches, s_eff, stop_full)
+            tstate = yield ("update", tstate, branches, s_eff, stop_full)
             out_full = self._out(state, out_full)
             dyn = wl.select_dyn(stop_full,
                                 wl.advance(dyn, out_full, ctx, s_eff), dyn)
@@ -500,13 +577,86 @@ class ChainStep(LaneStep):
         return new_state, flags
 
 
+def _resume(body, value) -> Tuple[bool, Any]:
+    """(False, the body's next request) or (True, its result)."""
+    try:
+        return False, body.send(value)
+    except StopIteration as done:
+        return True, done.value
+
+
+class ShardedStep:
+    """The lane step over a :class:`~repro_torch.launch.mesh.LaneMesh`:
+    ``step(shards) -> (shards, flags)`` with the state and the flags as D
+    per-shard dicts, shard i on ``mesh.devices[i]``. ``steps[i]`` is the
+    W/D-lane step of shard i's workload replica (shards on one device
+    share it). Each tick advances the D step bodies to the same request
+    and answers it for all of them: a branch's "any lane" from one host
+    read of the D shards' answers (so ``host_syncs`` counts what the
+    unsharded step counts), batch accept's "every lane" on the device,
+    and each kernel once per shard through its ``ops.*_sharded``
+    routing."""
+
+    def __init__(self, steps: List[LaneStep], mesh) -> None:
+        if len(steps) != mesh.size:
+            raise ValueError(f"{len(steps)} shard steps for a mesh of "
+                             f"{mesh.size}")
+        self.steps, self.mesh = list(steps), mesh
+        self.host_syncs = 0
+
+    def __call__(self, shards: List[State]
+                 ) -> Tuple[List[State], List[Dict[str, Any]]]:
+        bodies = [st._body(sh) for st, sh in zip(self.steps, shards)]
+        answers: List[Any] = [None] * len(bodies)
+        while True:
+            out = [_resume(b, a) for b, a in zip(bodies, answers)]
+            finished = {f for f, _ in out}
+            requests = [r for _, r in out]
+            if finished == {True}:
+                return [r[0] for r in requests], [r[1] for r in requests]
+            ops_ = {r[0] for r in requests} if finished == {False} else ()
+            if len(ops_) != 1:
+                seen = ["done" if f else r[0] for f, r in out]
+                raise RuntimeError(f"lane shards diverged in the step: {seen}")
+            answers = self._answer_all(requests[0][0],
+                                       [r[1:] for r in requests])
+
+    def _answer_all(self, op: str, args: List[tuple]) -> List[Any]:
+        devs = self.mesh.devices
+        if op == "any":
+            self.host_syncs += 1
+            flag = bool(torch.stack([a[0].any().to(devs[0])
+                                     for a in args]).any())
+            return [flag] * len(args)
+        if op == "all":
+            every = torch.stack([a[0].to(devs[0]) for a in args]).all()
+            return [every.to(d) for d in devs]
+        return self.steps[0].kernel(op, [list(c) for c in zip(*args)],
+                                    mesh=self.mesh)
+
+
+def gather_flags(flags: Union[Dict[str, Any], List[Dict[str, Any]]],
+                 keys: Optional[Tuple[str, ...]] = None) -> Dict[str, Any]:
+    """A tick's flags (``keys`` of them, default all) over every lane: a
+    sharded step's per-shard flags joined on shard 0's device along their
+    lane (last) axis — device copies only, no host sync; an unsharded
+    step's as they are."""
+    if isinstance(flags, dict):
+        return flags if keys is None else {k: flags[k] for k in keys}
+    dev = flags[0]["advanced"].device
+    return {k: torch.cat([f[k].to(dev) for f in flags], dim=-1)
+            for k in (keys or flags[0])}
+
+
 def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                         accept_mode: str = "per_sample",
                         verify_backend: str = "jnp",
                         guidance: Union[bool, str] = False,
                         max_draft_depth: int = 1,
                         forecaster: Any = None,
-                        controller: bool = False) -> LaneStep:
+                        controller: bool = False,
+                        mesh: Optional[Any] = None
+                        ) -> Union[LaneStep, ShardedStep]:
     """Build the lane step for a ``Workload``: the depth-1
     :class:`LaneStep` at ``max_draft_depth=1``, else a :class:`ChainStep`
     of K = ``max_draft_depth`` positions (each lane's horizon is its
@@ -516,16 +666,28 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
     ``paired`` mask decides, slot by slot); ``forecaster`` is a name or
     ``Forecaster`` instance (``None`` = Taylor); ``controller=True`` builds
     the closed-loop step (state from ``init_workload_state(...,
-    controller=True)``)."""
+    controller=True)``). ``mesh`` builds the :class:`ShardedStep` over
+    that many ``lanes / D``-lane shard steps, one per distinct device on
+    its workload replica (state from ``init_workload_state(...,
+    mesh=mesh)``); ``lanes`` must divide by D, and by 2·D in a guidance
+    mode."""
     if max_draft_depth < 1:
         raise ValueError(f"max_draft_depth must be >= 1, "
                          f"got {max_draft_depth}")
-    kw = dict(lanes=lanes, draft_mode=draft_mode, accept_mode=accept_mode,
+    kw = dict(draft_mode=draft_mode, accept_mode=accept_mode,
               verify_backend=verify_backend, guidance=guidance,
               forecaster=forecaster, controller=controller)
+    if mesh is not None:
+        _check_pairing(wl, guidance, lanes)
+        block = _check_mesh_width(lanes, mesh, bool(guidance))
+        per_device = {d: build_workload_step(wl.on(d), lanes=block,
+                                             max_draft_depth=max_draft_depth,
+                                             **kw)
+                      for d in mesh.distinct_devices()}
+        return ShardedStep([per_device[d] for d in mesh.devices], mesh)
     if max_draft_depth == 1:
-        return LaneStep(wl, **kw)
-    return ChainStep(wl, depth=int(max_draft_depth), **kw)
+        return LaneStep(wl, lanes=lanes, **kw)
+    return ChainStep(wl, lanes=lanes, depth=int(max_draft_depth), **kw)
 
 
 def init_lane_state(cfg: ModelConfig, dcfg: DiffusionConfig,
@@ -534,14 +696,16 @@ def init_lane_state(cfg: ModelConfig, dcfg: DiffusionConfig,
                     x: Optional[torch.Tensor] = None,
                     active: bool = False,
                     guidance: Union[bool, str] = False,
-                    device: DeviceLike = "cuda") -> State:
+                    device: DeviceLike = "cuda",
+                    mesh: Optional[Any] = None
+                    ) -> Union[State, List[State]]:
     """Fresh DIFFUSION lane-batch state (the reference's original entry
     point): :func:`init_workload_state` over a parameter-free
-    ``DiffusionWorkload`` on ``device``."""
+    ``DiffusionWorkload`` on ``device`` (per shard with ``mesh``)."""
     from repro_torch.core.workload import DiffusionWorkload
     wl = DiffusionWorkload(cfg, None, dcfg, scfg, device=device)
     return init_workload_state(wl, lanes, cond_template, x=x, active=active,
-                               guidance=guidance)
+                               guidance=guidance, mesh=mesh)
 
 
 def build_lane_step(cfg: ModelConfig, params: Dict[str, Any],
@@ -554,11 +718,14 @@ def build_lane_step(cfg: ModelConfig, params: Dict[str, Any],
                     max_draft_depth: int = 1,
                     forecaster: Any = None,
                     controller: bool = False,
-                    device: DeviceLike = "cuda") -> LaneStep:
+                    device: DeviceLike = "cuda",
+                    mesh: Optional[Any] = None
+                    ) -> Union[LaneStep, ShardedStep]:
     """The DIFFUSION lane step (the reference's original entry point):
     :func:`build_workload_step` over a ``DiffusionWorkload`` on
-    ``device``. ``use_flash`` is accepted for the reference's signature:
-    DiT attention is bidirectional and never reaches the flash kernel."""
+    ``device`` (over ``mesh``'s shards with ``mesh``). ``use_flash`` is
+    accepted for the reference's signature: DiT attention is
+    bidirectional and never reaches the flash kernel."""
     from repro_torch.core.workload import make_diffusion_workload
     wl = make_diffusion_workload(cfg, params, dcfg, scfg,
                                  use_flash=use_flash, device=device)
@@ -567,4 +734,5 @@ def build_lane_step(cfg: ModelConfig, params: Dict[str, Any],
                                verify_backend=verify_backend,
                                guidance=guidance,
                                max_draft_depth=max_draft_depth,
-                               forecaster=forecaster, controller=controller)
+                               forecaster=forecaster, controller=controller,
+                               mesh=mesh)

@@ -16,11 +16,17 @@ serving, and the per-lane table work runs through the fused kernels of
 table with scalar metadata (``init_state(..., lanes=None)``) refreshes and
 forecasts the whole batch at once through :func:`update` and
 :func:`predict`, in plain PyTorch as in the reference.
+
+``mesh=`` (a ``repro_torch.launch.mesh.LaneMesh``) on the per-lane
+functions: the table is lane-sharded, so ``state`` (and every per-lane
+argument) is a sequence of D per-shard values, and the kernel runs once
+per shard through its ``ops.*_sharded`` routing; the result is one value
+per shard.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -66,11 +72,17 @@ def update(state: State, feats: torch.Tensor, step) -> State:
 
 
 def update_lanes(state: State, feats: torch.Tensor, step: torch.Tensor,
-                 mask: torch.Tensor) -> State:
+                 mask: torch.Tensor, *, mesh: Optional[Any] = None) -> State:
     """Masked per-lane anchor refresh: lanes in ``mask`` [B] refresh their
     table slice and metadata; the others keep both untouched. ``feats``
     has the (L, 2, B, T, D) feature layout; ``step`` is a scalar or
-    per-lane [B] step index."""
+    per-lane [B] step index. With ``mesh``, every argument is per shard
+    and so is the result."""
+    if mesh is not None:
+        diffs = ops.taylor_update_lanes_sharded(
+            [s["diffs"] for s in state], feats, mask, mesh=mesh)
+        return [{"diffs": d, **update_lanes_meta(s, st, m)}
+                for d, s, st, m in zip(diffs, state, step, mask)]
     diffs = ops.taylor_update_lanes(state["diffs"], feats, mask)
     return {"diffs": diffs, **update_lanes_meta(state, step, mask)}
 
@@ -169,49 +181,80 @@ def predict(state: State, step, mode: str = "taylor") -> torch.Tensor:
     return pred.to(diffs.dtype)
 
 
-def predict_lanes(state: State, step: torch.Tensor,
-                  mode: str = "taylor", *,
-                  order_cap: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-lane forecast: each lane extrapolates its own table to ``step``
-    (scalar or per-lane [B]) through the fused predict kernel.
-    ``order_cap`` [B] (the controller's) zeroes each lane's orders above
-    it."""
-    d = (step.to(torch.int32) - state["anchor_step"]).to(torch.float32)
-    order = state["diffs"].shape[0] - 1
-    w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode,
-                           order_cap=order_cap)
-    return ops.taylor_predict_lanes(state["diffs"],
-                                    w.to(torch.float32).contiguous())
-
-
-def predict_chain_lanes(state: State, steps: torch.Tensor,
-                        mode: str = "taylor", *,
-                        order_cap: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """Per-lane forecast of a whole drafted chain: ``steps`` [K, B] (chain
-    position k of lane b extrapolates to step ``steps[k, b]``) ->
-    [K, ...feat] from one read of the table; position k is bitwise
-    :func:`predict_lanes` called with ``steps[k]`` (and the same
-    ``order_cap``)."""
+def _lane_weights(state: State, steps: torch.Tensor, mode: str,
+                  order_cap: Optional[torch.Tensor]) -> torch.Tensor:
+    """f32 Taylor weights [m+1, *steps.shape] of each lane's table at
+    ``steps``, contiguous for the kernels."""
     d = (steps.to(torch.int32) - state["anchor_step"]).to(torch.float32)
     order = state["diffs"].shape[0] - 1
     w = prediction_weights(order, d, state["gap"], state["n_anchors"], mode,
                            order_cap=order_cap)
+    return w.to(torch.float32).contiguous()
+
+
+def per_shard(value, n: int):
+    """A per-shard argument of n shards that may be ``None`` for all."""
+    return [None] * n if value is None else value
+
+
+def predict_lanes(state: State, step: torch.Tensor,
+                  mode: str = "taylor", *,
+                  order_cap: Optional[torch.Tensor] = None,
+                  mesh: Optional[Any] = None) -> torch.Tensor:
+    """Per-lane forecast: each lane extrapolates its own table to ``step``
+    (scalar or per-lane [B]) through the fused predict kernel.
+    ``order_cap`` [B] (the controller's) zeroes each lane's orders above
+    it. With ``mesh``, every argument is per shard (``order_cap`` may be
+    ``None``) and so is the result."""
+    if mesh is not None:
+        w = [_lane_weights(s, st, mode, c) for s, st, c in
+             zip(state, step, per_shard(order_cap, len(state)))]
+        return ops.taylor_predict_lanes_sharded([s["diffs"] for s in state],
+                                                w, mesh=mesh)
+    return ops.taylor_predict_lanes(state["diffs"],
+                                    _lane_weights(state, step, mode,
+                                                  order_cap))
+
+
+def predict_chain_lanes(state: State, steps: torch.Tensor,
+                        mode: str = "taylor", *,
+                        order_cap: Optional[torch.Tensor] = None,
+                        mesh: Optional[Any] = None) -> torch.Tensor:
+    """Per-lane forecast of a whole drafted chain: ``steps`` [K, B] (chain
+    position k of lane b extrapolates to step ``steps[k, b]``) ->
+    [K, ...feat] from one read of the table; position k is bitwise
+    :func:`predict_lanes` called with ``steps[k]`` (and the same
+    ``order_cap``). ``mesh`` as in :func:`predict_lanes`."""
+    if mesh is not None:
+        w = [_lane_weights(s, st, mode, c) for s, st, c in
+             zip(state, steps, per_shard(order_cap, len(state)))]
+        return ops.taylor_predict_chain_lanes_sharded(
+            [s["diffs"] for s in state], w, mesh=mesh)
     return ops.taylor_predict_chain_lanes(state["diffs"],
-                                          w.to(torch.float32).contiguous())
+                                          _lane_weights(state, steps, mode,
+                                                        order_cap))
 
 
-def lane_rollback(chain, idx: torch.Tensor, *,
-                  lane_axis: int = 2) -> torch.Tensor:
+def _int32(idx: torch.Tensor) -> torch.Tensor:
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    return idx
+
+
+def lane_rollback(chain, idx: torch.Tensor, *, lane_axis: int = 2,
+                  mesh: Optional[Any] = None) -> torch.Tensor:
     """Per-lane snapshot restore: ``chain`` holds the snapshots before and
     after each drafted chain position, as one [K+1, ...feat] tensor or a
     sequence of K+1 [...feat] tensors (handed to the kernel as they are),
     ``idx`` [B] (0..K) is each lane's accepted-prefix length ->
     chain[idx[lane]] per lane, exact copies. ``lane_axis`` is the lane
-    axis of the feature layout."""
-    if idx.dtype != torch.int32 or not idx.is_contiguous():
-        idx = idx.to(torch.int32).contiguous()
-    return ops.lane_rollback(chain, idx, lane_axis=lane_axis)
+    axis of the feature layout. With ``mesh``, ``chain`` and ``idx`` are
+    per shard (each shard's snapshots read where they lie) and so is the
+    result."""
+    if mesh is not None:
+        return ops.lane_rollback_sharded(chain, [_int32(i) for i in idx],
+                                         mesh=mesh, lane_axis=lane_axis)
+    return ops.lane_rollback(chain, _int32(idx), lane_axis=lane_axis)
 
 
 def feature_shape_for(num_layers: int, batch: int, tokens: int,

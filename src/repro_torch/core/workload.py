@@ -26,6 +26,13 @@ harvested lives behind the ``Workload`` adapter. Two adapters ship:
 Rollback (both): the exact-copy restore of a draft-K chain's snapshots
 through the rollback kernel, which copies bytes and so takes every leaf,
 int32 tokens included.
+
+Lane sharding (``repro_torch.launch.mesh``): a shard runs the step hooks
+of the workload replica on its own device (:meth:`Workload.on`, one per
+distinct device, parameters copied once), and the host hooks
+(``init_payload``, ``fill_payload``, ``emit``) of the owning shard's
+replica on that shard's block of the state, so a fill writes only the
+owning shard's slices.
 """
 from __future__ import annotations
 
@@ -44,8 +51,10 @@ from repro_torch.core.lane_step import num_tokens, table_dtype, verify_layer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.pipeline import (latent_shape, make_stepper,
                                             model_inputs)
+from repro_torch.launch.mesh import canonical_device
 from repro_torch.layers import blocks as blk
 from repro_torch.layers import model as M
+from repro_torch.tree import tree_map
 
 NoiseFn = Callable[[int], torch.Tensor]
 
@@ -79,12 +88,37 @@ class Workload:
     cond_in_state: bool = True
     fill_syncs: int = 0
 
-    def rollback(self, chain: Dict[str, Any], n_acc: torch.Tensor
-                 ) -> Dict[str, torch.Tensor]:
+    def on(self, device: DeviceLike) -> "Workload":
+        """This workload on ``device``: itself where it lives there, else
+        its replica there, made once (the parameters copied) and kept."""
+        dev = canonical_device(device)
+        if dev == canonical_device(self.device):
+            return self
+        replicas = self.__dict__.setdefault("_replicas", {})
+        if dev not in replicas:
+            replicas[dev] = self._replica(dev)
+        return replicas[dev]
+
+    def _replica(self, device: torch.device) -> "Workload":
+        raise NotImplementedError(f"workload {self.tag!r} has no replica "
+                                  "on another device")
+
+    def rollback(self, chain: Dict[str, Any], n_acc: torch.Tensor, *,
+                 mesh: Optional[Any] = None) -> Dict[str, torch.Tensor]:
         """Restore every payload leaf to snapshot ``n_acc[lane]`` through
         the rollback kernel, which copies bytes and so takes any dtype.
         A leaf's snapshots come as one [K+1, ...] tensor or as a sequence
-        of K+1 tensors, which the kernel reads where they lie."""
+        of K+1 tensors, which the kernel reads where they lie. With
+        ``mesh``, ``chain`` and ``n_acc`` are per shard (each shard's
+        leaves through ``ops.lane_rollback_sharded``) and so is the
+        result."""
+        if mesh is not None:
+            leaves = {k: taylor.lane_rollback([c[k] for c in chain], n_acc,
+                                              lane_axis=self.dyn_axes[k],
+                                              mesh=mesh)
+                      for k in chain[0]}
+            return [{k: v[i] for k, v in leaves.items()}
+                    for i in range(len(chain))]
         return {k: taylor.lane_rollback(v, n_acc, lane_axis=self.dyn_axes[k])
                 for k, v in chain.items()}
 
@@ -128,6 +162,12 @@ class DiffusionWorkload(Workload):
         # static per-layer mask of the speculative forward
         self._cmask = [layer == self.verify_layer
                        for layer in range(cfg.num_layers)]
+
+    def _replica(self, device):
+        params = tree_map(lambda t: t.to(device), self.params) \
+            if self.params is not None else None
+        return DiffusionWorkload(self.cfg, params, self.dcfg, self.scfg,
+                                 device=device, noise_fn=self.noise_fn)
 
     # --- step hooks --------------------------------------------------------
     def t_frac(self, s_eff):
@@ -246,6 +286,12 @@ class DecodeWorkload(Workload):
         self.verify_flops = decode_verify_flops(cfg, self.max_seq_len)
         self._cmask = [layer == self.verify_layer
                        for layer in range(cfg.num_layers)]
+
+    def _replica(self, device):
+        return DecodeWorkload(self.cfg,
+                              tree_map(lambda t: t.to(device), self.params),
+                              self.scfg, max_new_tokens=self.num_steps,
+                              max_seq_len=self.max_seq_len, device=device)
 
     # --- step hooks --------------------------------------------------------
     def t_frac(self, s_eff):

@@ -1,6 +1,7 @@
-"""Wrappers around the Hopper kernels: the serving path's, and the
+"""Wrappers around the Hopper kernels: the serving path's, the
 reference's public kernel surface (scalar-anchor Taylor predict and
-refresh, the τ-less verify sums and error, flash attention).
+refresh, the τ-less verify sums and error, flash attention), and the
+lane-sharded routings of the serving path's kernels (``*_sharded``).
 
 Each wrapper checks its arguments, runs the plain PyTorch version
 (``ref``) when the tensors lie on the CPU, and otherwise launches its
@@ -17,12 +18,13 @@ pad, the kernels mask the ragged tail of C themselves.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.sharding.specs import LANE_AXIS, lane_shard_count
 
 LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "taylor_update_lanes": 0,
@@ -37,6 +39,15 @@ LAUNCHES: Dict[str, int] = {"taylor_predict_lanes": 0,
                             "verify_error": 0,
                             "flash_attention": 0,
                             "flash_attention_sm90": 0}
+# the lane-sharded routings: one count per shard that launched its kernel
+# (the kernel's own key above counts the same launch)
+SHARDED_ROUTINGS = ("taylor_predict_lanes_sharded",
+                    "taylor_predict_chain_lanes_sharded",
+                    "lane_rollback_sharded", "taylor_update_lanes_sharded",
+                    "spectral_update_lanes_sharded", "verify_accept_sharded",
+                    "verify_accept_mixed_sharded",
+                    "verify_accept_pairs_sharded")
+LAUNCHES.update({k: 0 for k in SHARDED_ROUTINGS})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
@@ -672,3 +683,185 @@ def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
 # same kernels under the reference's names (repro.kernels.ops).
 spectral_predict_lanes = taylor_predict_lanes
 spectral_predict_chain_lanes = taylor_predict_chain_lanes
+
+
+# ---------------------------------------------------------------------------
+# Lane-sharded routings
+# ---------------------------------------------------------------------------
+# The reference routes each per-lane kernel through ``shard_map``, so every
+# device runs the kernel on its own lane block (``repro.kernels.ops``,
+# "Mesh-sharded lane wrappers"). Here a lane-sharded operand is the list of
+# its D blocks, block i a tensor on ``mesh.devices[i]`` (the per-shard
+# state of ``repro_torch.sharding.specs``). Each routing calls the wrapper
+# above once per shard on that shard's block — on the card one launch per
+# shard, which raises on a non-contiguous block as the wrapper does; the
+# plain version for a CPU block — and never gathers. The kernels are
+# per-lane independent, so the blocks' results are bitwise the unsharded
+# call's lanes.
+
+def _block_device(block) -> torch.device:
+    """A block's device (a sequence of snapshots: its first's)."""
+    t = block if isinstance(block, torch.Tensor) else next(iter(block))
+    return t.device
+
+
+def _shard_devices(mesh, axis_name: str, *operands) -> None:
+    """Every operand holds one block per shard, block i on shard i's
+    device."""
+    D = lane_shard_count(mesh, axis_name)
+    for blocks in operands:
+        if len(blocks) != D:
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {D} "
+                             "shards")
+        for i, (b, dev) in enumerate(zip(blocks, mesh.devices)):
+            if _block_device(b) != dev:
+                raise ValueError(f"block {i} lies on {_block_device(b)}, "
+                                 f"shard {i} on {dev}")
+
+
+def _count_shards(key: str, blocks) -> None:
+    """One count per block that launched (a CUDA block)."""
+    LAUNCHES[key] += sum(_block_device(b).type == "cuda" for b in blocks)
+
+
+def taylor_predict_lanes_sharded(diffs: Sequence[torch.Tensor],
+                                 weights: Sequence[torch.Tensor], *, mesh,
+                                 lane_axis: int = 2,
+                                 axis_name: str = LANE_AXIS
+                                 ) -> List[torch.Tensor]:
+    """:func:`taylor_predict_lanes` per shard: diffs[i] [m+1, ...feat_i]
+    (lane axis ``lane_axis`` of the feature part), weights[i] [m+1, B_i]
+    -> predictions [...feat_i], one per shard."""
+    _shard_devices(mesh, axis_name, diffs, weights)
+    out = [taylor_predict_lanes(d, w, lane_axis=lane_axis)
+           for d, w in zip(diffs, weights)]
+    _count_shards("taylor_predict_lanes_sharded", diffs)
+    return out
+
+
+def taylor_predict_chain_lanes_sharded(diffs: Sequence[torch.Tensor],
+                                       weights: Sequence[torch.Tensor], *,
+                                       mesh, lane_axis: int = 2,
+                                       axis_name: str = LANE_AXIS
+                                       ) -> List[torch.Tensor]:
+    """:func:`taylor_predict_chain_lanes` per shard: weights[i]
+    [m+1, K, B_i] -> predictions [K, ...feat_i], one per shard."""
+    _shard_devices(mesh, axis_name, diffs, weights)
+    out = [taylor_predict_chain_lanes(d, w, lane_axis=lane_axis)
+           for d, w in zip(diffs, weights)]
+    _count_shards("taylor_predict_chain_lanes_sharded", diffs)
+    return out
+
+
+def lane_rollback_sharded(chain: Sequence, idx: Sequence[torch.Tensor], *,
+                          mesh, lane_axis: int = 2,
+                          axis_name: str = LANE_AXIS) -> List[torch.Tensor]:
+    """:func:`lane_rollback` per shard: chain[i] is shard i's K+1
+    snapshots (one stacked tensor or a sequence read where it lies),
+    idx[i] [B_i] int32 -> restored [...feat_i], one per shard."""
+    _shard_devices(mesh, axis_name, chain, idx)
+    out = [lane_rollback(c, i, lane_axis=lane_axis)
+           for c, i in zip(chain, idx)]
+    _count_shards("lane_rollback_sharded", chain)
+    return out
+
+
+def taylor_update_lanes_sharded(old_diffs: Sequence[torch.Tensor],
+                                feats: Sequence[torch.Tensor],
+                                mask: Sequence[torch.Tensor], *, mesh,
+                                lane_axis: int = 2,
+                                axis_name: str = LANE_AXIS
+                                ) -> List[torch.Tensor]:
+    """:func:`taylor_update_lanes` per shard: each shard refreshes its own
+    lanes' table block; the table is never gathered."""
+    _shard_devices(mesh, axis_name, old_diffs, feats, mask)
+    out = [taylor_update_lanes(d, f, m, lane_axis=lane_axis)
+           for d, f, m in zip(old_diffs, feats, mask)]
+    _count_shards("taylor_update_lanes_sharded", old_diffs)
+    return out
+
+
+def spectral_update_lanes_sharded(old_ring: Sequence[torch.Tensor],
+                                  feats: Sequence[torch.Tensor],
+                                  mask: Sequence[torch.Tensor], *, mesh,
+                                  lane_axis: int = 2,
+                                  axis_name: str = LANE_AXIS
+                                  ) -> List[torch.Tensor]:
+    """:func:`spectral_update_lanes` per shard: each shard shifts its own
+    lanes' ring block."""
+    _shard_devices(mesh, axis_name, old_ring, feats, mask)
+    out = [spectral_update_lanes(r, f, m, lane_axis=lane_axis)
+           for r, f, m in zip(old_ring, feats, mask)]
+    _count_shards("spectral_update_lanes_sharded", old_ring)
+    return out
+
+
+# the sharded spectral prediction: the shared contraction, spectral weights
+spectral_predict_lanes_sharded = taylor_predict_lanes_sharded
+spectral_predict_chain_lanes_sharded = taylor_predict_chain_lanes_sharded
+
+
+def verify_accept_sharded(pred: Sequence[torch.Tensor],
+                          ref_: Sequence[torch.Tensor],
+                          tau: Sequence[torch.Tensor], *, mesh,
+                          axis_name: str = LANE_AXIS, eps: float = 1e-8
+                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`verify_accept` per shard: pred[i]/ref[i] [B_i, ...],
+    tau[i] [B_i] -> (errs, accepts), one block each; every lane's
+    reduction is shard-local."""
+    _shard_devices(mesh, axis_name, pred, ref_, tau)
+    out = [verify_accept(p, r, t, eps=eps) for p, r, t in zip(pred, ref_, tau)]
+    _count_shards("verify_accept_sharded", pred)
+    return [e for e, _ in out], [a for _, a in out]
+
+
+def _whole_pairs(pred: Sequence[torch.Tensor], D: int, what: str) -> None:
+    """The pair rule: W lanes in D equal blocks, W a multiple of 2·D."""
+    widths = [p.shape[0] for p in pred]
+    W = sum(widths)
+    if W % (2 * D) != 0 or len(set(widths)) != 1:
+        raise ValueError(
+            f"lane count {W} in blocks {widths} must be a multiple of "
+            f"2·D={2 * D} in equal blocks so {what} never straddle a shard "
+            "boundary")
+
+
+def verify_accept_mixed_sharded(pred: Sequence[torch.Tensor],
+                                ref_: Sequence[torch.Tensor],
+                                tau: Sequence[torch.Tensor],
+                                gscale: Sequence[torch.Tensor],
+                                paired: Sequence[torch.Tensor], *, mesh,
+                                axis_name: str = LANE_AXIS,
+                                eps: float = 1e-8
+                                ) -> Tuple[List[torch.Tensor],
+                                           List[torch.Tensor]]:
+    """:func:`verify_accept_mixed` per shard. W must be a multiple of
+    ``2·D`` (the engine's mixed-session width rounding guarantees it) so
+    each shard holds whole pair slots and the guided residual stays
+    shard-local; anything else raises ``ValueError``."""
+    _shard_devices(mesh, axis_name, pred, ref_, tau, gscale, paired)
+    _whole_pairs(pred, len(pred), "pair slots")
+    out = [verify_accept_mixed(p, r, t, g, m, eps=eps)
+           for p, r, t, g, m in zip(pred, ref_, tau, gscale, paired)]
+    _count_shards("verify_accept_mixed_sharded", pred)
+    return [e for e, _ in out], [a for _, a in out]
+
+
+def verify_accept_pairs_sharded(pred: Sequence[torch.Tensor],
+                                ref_: Sequence[torch.Tensor],
+                                tau: Sequence[torch.Tensor],
+                                gscale: Sequence[torch.Tensor], *, mesh,
+                                axis_name: str = LANE_AXIS,
+                                eps: float = 1e-8
+                                ) -> Tuple[List[torch.Tensor],
+                                           List[torch.Tensor]]:
+    """:func:`verify_accept_pairs` per shard: tau[i]/gscale[i] per pair
+    [B_i/2] -> (errs, accepts) per pair. W must be a multiple of ``2·D``
+    so cond/uncond pairs never straddle a shard; anything else raises
+    ``ValueError``."""
+    _shard_devices(mesh, axis_name, pred, ref_, tau, gscale)
+    _whole_pairs(pred, len(pred), "cond/uncond pairs")
+    out = [verify_accept_pairs(p, r, t, g, eps=eps)
+           for p, r, t, g in zip(pred, ref_, tau, gscale)]
+    _count_shards("verify_accept_pairs_sharded", pred)
+    return [e for e, _ in out], [a for _, a in out]

@@ -1,8 +1,10 @@
 """Serving launcher: SpeCa diffusion serving or LM decode at a reduced
-scale (the reference's ``repro.launch.serve``), on one device.
+scale (the reference's ``repro.launch.serve``).
 
 Usage:
   python -m repro_torch.launch.serve --mode diffusion --requests 6 --lanes 4
+  python -m repro_torch.launch.serve --mode diffusion --requests 6 \
+      --lanes 4 --mesh 2
   python -m repro_torch.launch.serve --mode diffusion --requests 6 \
       --lanes 4 --guidance-scale 4.0
   python -m repro_torch.launch.serve --mode diffusion --requests 8 \
@@ -14,10 +16,13 @@ serves it through ``SpeCaEngine``: ``--lanes N`` packs N lanes (``1`` is
 the sequential batch=1 loop), ``--guidance-scale S`` (S > 0) serves each
 request as a cond/uncond lane pair, ``--mixed`` alternates guided and
 unguided requests with distinct τ on one engine, ``--scheduler`` picks
-the admission order. It prints each request's ``full=/spec=`` counters
-and the ``allocation_report``. The LM mode runs a prefill and then
-decodes ``--gen`` tokens. ``--device`` defaults to ``cuda``; ``--mesh``
-above 1 (lane sharding over devices) is not ported yet.
+the admission order, ``--mesh D`` lane-shards the engine over D devices
+(``make_lane_mesh(D, device=--device)``: D cards, or D CPU shards with
+``--device cpu``; asking for more cards than are visible exits with an
+error before anything runs). It prints each request's ``full=/spec=``
+counters and the ``allocation_report``. The LM mode runs a prefill and
+then decodes ``--gen`` tokens on one device. ``--device`` defaults to
+``cuda``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.configs import (DiffusionConfig, SpeCaConfig, TrainConfig,
                                  get_config, reduced)
 from repro_torch.core.complexity import forward_flops
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_lane_mesh
 from repro_torch.layers import model as M
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving import (Request, RequestPolicy, SpeCaEngine,
@@ -40,8 +46,8 @@ from repro_torch.training import lm as T
 from repro_torch.training.diffusion_trainer import train_diffusion
 
 
-def serve_diffusion(args) -> None:
-    dev = resolve_device(args.device)
+def serve_diffusion(args, mesh=None) -> None:
+    dev = resolve_device(args.device) if mesh is None else mesh.devices[0]
     cfg = dataclasses.replace(reduced(get_config("dit-xl2")), num_layers=2,
                               d_model=128, d_ff=256, num_heads=4,
                               num_kv_heads=4, num_classes=8)
@@ -55,7 +61,7 @@ def serve_diffusion(args) -> None:
     engine = SpeCaEngine(cfg, out["state"]["params"], dcfg, scfg,
                          accept_mode=args.accept_mode,
                          guidance=guided and not args.mixed,
-                         scheduler=args.scheduler, device=dev)
+                         scheduler=args.scheduler, mesh=mesh, device=dev)
     gs = args.guidance_scale if guided else None
 
     def labels(i):
@@ -93,6 +99,8 @@ def serve_diffusion(args) -> None:
         mode += f", cfg pairs s={args.guidance_scale}"
     if args.scheduler != "fifo":
         mode += f", {args.scheduler}"
+    if mesh is not None:
+        mode += f" x {mesh.size} shards"
     print(f"served {len(reqs)} requests in {wall:.1f}s "
           f"({len(reqs) / wall:.2f} req/s, {mode}, {dev})")
     fwd = forward_flops(cfg, (dcfg.latent_size // cfg.patch_size) ** 2)
@@ -157,8 +165,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--lanes", type=int, default=4,
                     help="serving lane width; 1 = sequential batch=1 loop")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="lane-shard the engine over this many devices "
-                         "(not ported yet: only 1)")
+                    help="lane-shard the diffusion engine over this many "
+                         "devices (('data',) mesh): cards on cuda, CPU "
+                         "shards on cpu")
     ap.add_argument("--accept-mode", default="per_sample",
                     choices=["per_sample", "batch"])
     ap.add_argument("--guidance-scale", type=float, default=0.0,
@@ -179,13 +188,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        raise SystemExit(
-            f"--mesh {args.mesh}: lane sharding over several GPUs is not "
-            "ported yet (ROADMAP Queue 1 item 4); this launcher serves on "
-            "one device")
     if args.mode == "diffusion":
-        serve_diffusion(args)
+        mesh = None
+        if args.mesh > 1:
+            # before the model trains: too few cards fails at once
+            mesh = make_lane_mesh(args.mesh, device=args.device)
+        serve_diffusion(args, mesh)
     else:
         serve_lm(args)
 

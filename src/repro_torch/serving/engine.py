@@ -60,8 +60,22 @@ request completes. With a deep or controlled request in flight a lane
 moves 0..K steps per tick, so the tick's ``advanced`` counters are
 fetched. The lane step itself syncs to decide its branches, and a
 decode lane's prefill reads its first token back at admission.
-``SpeCaEngine.host_syncs`` counts all three. The reference's meshes are
-not ported yet.
+``SpeCaEngine.host_syncs`` counts all three.
+
+Lane sharding (``SpeCaEngine(mesh=)``, a ``repro_torch.launch.mesh``
+``LaneMesh`` of D shards): each session's lane batch is D contiguous
+blocks of W/D lanes, shard i's on ``mesh.devices[i]`` with the workload's
+replica there (parameters copied once per distinct device; D shards on
+one card share one copy). The width rounds to a multiple of D, and of 2·D
+where guided pairs can be admitted, so a pair never straddles a shard. A
+lane fills, releases and emits on its owning shard's block; the step
+(``lane_step.ShardedStep``) runs every shard's body in lockstep, decides
+each branch once over all lanes and launches each kernel once per shard.
+The flags stay per shard on their devices; the engine reads them, joined
+in shard order, only where it reads them unsharded. Every request gets
+the accepts, counters and FLOPs of the unsharded engine. One process
+drives every shard; between distinct GPUs only the decisions and the
+flags it reads are copied, device to device.
 
 Observability (``SpeCaEngine(obs=True)`` or an ``Observability``): the
 flight recorder's submit/admit/finish/drop/compile events, per-request
@@ -90,11 +104,13 @@ from repro_torch.core.forecaster import get_forecaster
 from repro_torch.core.workload import DiffusionWorkload, NoiseFn, Workload
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.pipeline import null_cond_like
+from repro_torch.launch.mesh import canonical_device
 from repro_torch.obs import (Clock, Observability, Timings, Trace,
                              build_trace, resolve_clock)
 from repro_torch.serving.policy import QueueFull, RequestPolicy, Ticket
 from repro_torch.serving.scheduler import (QueueItem, Scheduler,
                                            fresh_scheduler, make_scheduler)
+from repro_torch.sharding import specs as SH
 
 # histogram bucket grids of the per-request observability metrics: rates
 # live in [0, 1]; latency seconds get a coarse log grid
@@ -212,13 +228,20 @@ class _Session:
     without pairing, decode, is always plain). Each tick adds its device
     syncs to the engine's ``host_syncs`` as they happen: the lane step's
     branches and the ``advanced`` fetch while a deep or controlled request
-    is in flight; so does each lane fill that syncs (a decode prefill)."""
+    is in flight; so does each lane fill that syncs (a decode prefill).
+    On the engine's mesh the state is one dict per shard, and lane l
+    belongs to shard l // (W/D)."""
 
     def __init__(self, engine: "SpeCaEngine", width: int, *,
                  paired: bool, workload: Workload) -> None:
         self.e = engine
         self.wl = workload
         self.W = width
+        self.mesh = engine.mesh
+        # the lanes each shard owns, and each shard's workload replica
+        self.block = SH.lane_block(width, engine._lane_shards)
+        self.shard_wls = [workload] if self.mesh is None \
+            else [workload.on(d) for d in self.mesh.devices]
         self.paired = bool(paired) and width >= 2 \
             and self.wl.supports_pairing
         self.step_fn = engine._lane_step(
@@ -237,6 +260,18 @@ class _Session:
 
     def busy(self) -> bool:
         return any(e is not None for e in self.lane_entry)
+
+    def _shard(self, lane: int) -> Tuple[int, Workload, Dict[str, Any], int]:
+        """(shard, its workload, its state dict, the lane within it) of
+        session lane ``lane``; unsharded, shard 0 is the whole batch."""
+        i, j = divmod(lane, self.block)
+        return (i, self.shard_wls[i],
+                self.state if self.mesh is None else self.state[i], j)
+
+    def emit(self, lane: int, done: int) -> Any:
+        """The lane's sample so far, read on its owning shard."""
+        _, wl, st, j = self._shard(lane)
+        return wl.emit(st, j, done)
 
     def entries(self) -> List[_Entry]:
         out: List[_Entry] = []
@@ -305,25 +340,28 @@ class _Session:
         if self.state is None:
             self.state = LS.init_workload_state(
                 wl, self.W, cond, guidance="mixed" if self.paired else False,
-                forecaster=e.forecaster, controller=e.controller)
+                forecaster=e.forecaster, controller=e.controller,
+                mesh=self.mesh)
         tau0 = float(wl.scfg.tau0 if pol.tau0 is None else pol.tau0)
         lane0 = entry.lanes[0]
         # draft_k is pair-equal: a guided pair drafts pair-coherently
         self._fill_lane(lane0, cond, tau0, entry)
+        # a pair slot lies in one shard (the width is a multiple of 2·D)
+        _, _, st, j = self._shard(lane0)
         if entry.streams == 2:
             nc = pol.negative_cond
             if nc is None:
                 nc = e.null_cond if e.null_cond is not None \
                     else null_cond_like(wl.cfg, cond)
             self._fill_lane(lane0 + 1, nc, tau0, entry)
-            self.state["gscale"][lane0:lane0 + 2] = float(pol.guidance_scale)
-            self.state["paired"][lane0:lane0 + 2] = True
+            st["gscale"][j:j + 2] = float(pol.guidance_scale)
+            st["paired"][j:j + 2] = True
         elif self.paired:
-            self.state["paired"][lane0] = False
+            st["paired"][j] = False
 
-    def _fill_lane(self, lane: int, cond: Dict[str, Any], tau0: float,
-                   entry: _Entry) -> None:
-        wl, st = self.wl, self.state
+    def _fill_lane(self, session_lane: int, cond: Dict[str, Any],
+                   tau0: float, entry: _Entry) -> None:
+        i, wl, st, lane = self._shard(session_lane)
         st["draft_k"][lane] = entry.draft_k
         st["max_step"][lane] = entry.item.steps
         st["diffs"][:, :, :, lane] = 0
@@ -344,8 +382,11 @@ class _Session:
                 st[k][lane] = v
         for k, v in st["cond"].items():
             v[lane] = torch.as_tensor(cond[k])[0]
-        self.state = wl.fill_payload(st, lane, entry.item.request,
-                                     entry.item.steps)
+        st = wl.fill_payload(st, lane, entry.item.request, entry.item.steps)
+        if self.mesh is None:
+            self.state = st
+        else:
+            self.state[i] = st
         self.e._host_syncs += wl.fill_syncs
 
     def advance(self) -> List[Tuple[_Entry, Result]]:
@@ -362,11 +403,14 @@ class _Session:
         self._flag_log.append(flags)
         self.tick += 1
         if self._acc is not None:
-            self._acc.update(flags)         # device ops only, no sync
+            # device ops only, no sync (a sharded step's flags are joined
+            # on one device first)
+            self._acc.update(LS.gather_flags(flags))
         adv = None
         if any(e.draft_k > 1 or e.item.policy.controller is not None
                for e in self.entries()):
-            adv = flags["advanced"].cpu().numpy()
+            adv = LS.gather_flags(flags, ("advanced",))["advanced"] \
+                .cpu().numpy()
             self.e._host_syncs += 1
         completed: List[Tuple[_Entry, Result]] = []
         for entry in self.entries():
@@ -382,18 +426,19 @@ class _Session:
         return completed
 
     def _release(self, entry: _Entry) -> None:
-        lane0, k = entry.lanes[0], entry.streams
+        k = entry.streams
         for lane in entry.lanes:
             self.lane_entry[lane] = None
-        self.state["active"][lane0:lane0 + k] = False
+        _, _, st, j = self._shard(entry.lanes[0])
+        st["active"][j:j + k] = False
         if self.paired and k == 2:
-            self.state["paired"][lane0:lane0 + 2] = False
+            st["paired"][j:j + 2] = False
 
     def _fetch(self, t: int) -> Dict[str, np.ndarray]:
         if t not in self._flag_np:
+            flags = LS.gather_flags(self._flag_log[t], LS.COUNTER_FLAGS)
             self._flag_np[t] = {k: v.cpu().numpy()
-                                for k, v in self._flag_log[t].items()
-                                if k in LS.COUNTER_FLAGS}
+                                for k, v in flags.items()}
         return self._flag_np[t]
 
     def _gc_flags(self) -> None:
@@ -433,7 +478,7 @@ class _Session:
             admit_tick=entry.start_tick, finish_tick=self.tick)
         res = Result(
             request_id=item.request.request_id,
-            sample=self.wl.emit(self.state, lane, entry.done),
+            sample=self.emit(lane, entry.done),
             num_full=n_full, num_spec=entry.done - n_full,
             num_drafted=n_drafted,
             flops=n_full * k * self.wl.full_flops
@@ -559,7 +604,12 @@ class SpeCaEngine:
     DecodeWorkload(lm_cfg, lm_params, scfg, ...)}``; requests route by
     ``RequestPolicy.workload``. The diffusion quartet may be left out for
     an engine without diffusion lanes. ``device`` must be every
-    workload's device.
+    workload's device. mesh: a ``LaneMesh``
+    (``repro_torch.launch.mesh.make_lane_mesh``, or D shards on one card
+    as ``LaneMesh([torch.device("cuda:0")] * D)``) with a ``"data"`` axis
+    and ``device`` among its devices lane-shards every session over its D
+    shards (see the module docstring); ``None`` serves on ``device``
+    alone.
     """
 
     def __init__(self, cfg: Optional[ModelConfig] = None, params=None,
@@ -579,6 +629,7 @@ class SpeCaEngine:
                  obs: Union[bool, Observability] = False,
                  clock: Optional[Clock] = None,
                  workloads: Optional[Dict[str, Workload]] = None,
+                 mesh: Optional[Any] = None,
                  device: DeviceLike = "cuda"):
         if accept_mode not in LS.ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
@@ -589,6 +640,16 @@ class SpeCaEngine:
             raise ValueError(f"unknown verify_backend {verify_backend!r}")
         self._sched: Scheduler = make_scheduler(scheduler)   # fails fast
         self.device = resolve_device(device)
+        if mesh is not None:
+            if SH.LANE_AXIS not in mesh.axis_names:
+                raise ValueError("serving mesh needs a 'data' axis "
+                                 f"(got {mesh.axis_names})")
+            if canonical_device(self.device) not in mesh.devices:
+                raise ValueError(f"the engine's device {self.device} is "
+                                 f"not a device of {mesh}")
+        self.mesh = mesh
+        # lanes divide into this many shards (1 without a mesh)
+        self._lane_shards = SH.lane_shard_count(mesh)
         self.workloads: Dict[str, Workload] = {}
         if cfg is not None:
             if dcfg is None or scfg is None:
@@ -653,10 +714,11 @@ class SpeCaEngine:
     @property
     def host_syncs(self) -> int:
         """Device syncs this engine's sessions have made so far: the lane
-        step's branches (two per depth-1 tick, up to K+1 per chain tick),
-        one ``advanced`` fetch per tick with a deep or controlled request
-        in flight, and one per decode admission (the prefill's first
-        token). Result and preview reads are not counted."""
+        step's branches (two per depth-1 tick, up to K+1 per chain tick;
+        on a mesh one read of every shard's answer a branch), one
+        ``advanced`` fetch per tick with a deep or controlled request in
+        flight, and one per decode admission (the prefill's first token).
+        Result and preview reads are not counted."""
         return self._host_syncs
 
     def resolve_policy(self, req: Request,
@@ -725,7 +787,8 @@ class SpeCaEngine:
                 accept_mode=self.accept_mode,
                 verify_backend=self.verify_backend, guidance=mode,
                 max_draft_depth=self.max_draft_depth,
-                forecaster=self.forecaster, controller=self.controller)
+                forecaster=self.forecaster, controller=self.controller,
+                mesh=self.mesh)
             if self._obs is not None:
                 self._obs.metrics.counter("speca_programs_built_total",
                                           workload=tag).inc()
@@ -743,12 +806,15 @@ class SpeCaEngine:
 
     def _width_for(self, lanes: int, policies: List[RequestPolicy]) -> int:
         """Slot-width sizing for a request list: clamped to the total
-        stream demand, room for the widest request, and rounded up to
-        even as soon as any request is guided."""
+        stream demand, room for the widest request, and rounded up to a
+        multiple of the widest request's streams times the lane-shard
+        count (2·D as soon as any request is guided: pairs stay inside a
+        shard)."""
         total = sum(p.streams for p in policies)
         widest = max(p.streams for p in policies)
         W = max(min(lanes, total), widest)
-        return -(-W // widest) * widest
+        mult = widest * self._lane_shards
+        return -(-W // mult) * mult
 
     # --- lifecycle -----------------------------------------------------------
     @property
@@ -768,19 +834,18 @@ class SpeCaEngine:
         """Start one workload's lifecycle session (else the first
         ``submit`` routed to it starts it at the engine's ``lanes``). A
         diffusion session is always pair-capable: the width rounds up to
-        whole pairs, so guided and unguided submissions mix; a decode
-        session is plain."""
+        whole pairs (per shard: a multiple of 2·D), so guided and unguided
+        submissions mix; a decode session is plain (a multiple of D)."""
         wl = self._workload(workload)
         if workload in self._sessions:
             raise RuntimeError(f"serving session for workload {workload!r} "
                                "already started; shutdown() first to resize")
         W = lanes if lanes is not None else self.default_lanes
-        if wl.supports_pairing:
-            W = max(W, 2)
-            sess = _Session(self, -(-W // 2) * 2, paired=True, workload=wl)
-        else:
-            sess = _Session(self, max(W, 1), paired=False, workload=wl)
-        self._sessions[workload] = sess
+        streams = 2 if wl.supports_pairing else 1
+        mult = streams * self._lane_shards
+        W = -(-max(W, streams) // mult) * mult
+        self._sessions[workload] = _Session(self, W, paired=streams == 2,
+                                            workload=wl)
 
     def submit(self, req: Request,
                policy: Optional[RequestPolicy] = None) -> Ticket:
@@ -920,7 +985,7 @@ class SpeCaEngine:
         return [Preview(ticket_id=e.item.ticket_id,
                         request_id=e.item.request.request_id, tick=sess.tick,
                         step=min(e.done, e.item.steps),
-                        sample=sess.wl.emit(sess.state, e.lanes[0], e.done),
+                        sample=sess.emit(e.lanes[0], e.done),
                         workload=sess.wl.tag)
                 for sess in self._sessions.values() for e in sess.entries()
                 if (want is None or e.item.ticket_id in want) and e.done > 0]

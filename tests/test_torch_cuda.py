@@ -21,7 +21,10 @@ bitwise ``verify_accept`` on the same planes and its paired rows bitwise
 rtol 1e-5 against its plain version; guided serving keeps its counters
 across lane widths; so does serving under the controller, and ``warmup``
 loads every kernel library the step launches, so that serving after it
-loads none.
+loads none. The lane-sharded routings at D = 2 shards on one card:
+bitwise the unsharded kernels, one launch a shard; a non-contiguous block
+raises before anything is allocated; a sharded engine keeps the unsharded
+engine's counters.
 """
 import warnings
 
@@ -90,7 +93,8 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
                                    "verify_sums": 0,
                                    "verify_error": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_sm90": 0}
+                                   "flash_attention_sm90": 0,
+                                   **{k: 0 for k in ops.SHARDED_ROUTINGS}}
 
 
 @pytest.mark.cuda
@@ -1016,3 +1020,155 @@ def test_mamba2_decode_lanes_bitwise_alone_on_card(cuda, exact_f32, dtype):
                                 conv[lane:lane + 1], **kw)
         for a, b in zip(whole, one):
             assert torch.equal(a[lane:lane + 1], b), lane
+
+
+# --- lane-sharded routings ---------------------------------------------------
+
+def _shard_cases(dev, dtype):
+    """(routing, unsharded call, (tensor, lane axis) arguments, lane axes
+    of the outputs) at W = 4 lanes, table [3, 2, 2, 4, 9, 72]."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    W, K, table = 4, 3, (3, 2, 2, 4, 9, 72)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    d, f = rn(*table).to(dtype), rn(*table[1:]).to(dtype)
+    w = torch.rand((3, W), generator=g, device=dev) + 0.1
+    wc = torch.rand((3, K, W), generator=g, device=dev) + 0.1
+    mask = torch.tensor([True, False, False, True], device=dev)
+    chain = rn(K + 1, *table[1:]).to(dtype)
+    idx = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=dev)
+    p = rn(W, 3000).to(dtype)
+    r = (p.float() + 0.05 * rn(W, 3000)).to(dtype)
+    tau = torch.tensor([0.01, 0.1, 1.0, 10.0], device=dev)
+    gs = torch.tensor([3.0, 3.0, 1.5, 1.5], device=dev)
+    paired = torch.tensor([True, True, False, False], device=dev)
+    return {
+        "taylor_predict_lanes_sharded": (
+            ops.taylor_predict_lanes, [(d, 3), (w, 1)], [2]),
+        "taylor_predict_chain_lanes_sharded": (
+            ops.taylor_predict_chain_lanes, [(d, 3), (wc, 2)], [3]),
+        "lane_rollback_sharded": (ops.lane_rollback, [(chain, 3), (idx, 0)],
+                                  [2]),
+        "taylor_update_lanes_sharded": (
+            ops.taylor_update_lanes, [(d, 3), (f, 2), (mask, 0)], [3]),
+        "spectral_update_lanes_sharded": (
+            ops.spectral_update_lanes, [(d, 3), (f, 2), (mask, 0)], [3]),
+        "verify_accept_sharded": (ops.verify_accept,
+                                  [(p, 0), (r, 0), (tau, 0)], [0, 0]),
+        "verify_accept_mixed_sharded": (
+            ops.verify_accept_mixed,
+            [(p, 0), (r, 0), (tau, 0), (gs, 0), (paired, 0)], [0, 0]),
+        "verify_accept_pairs_sharded": (
+            ops.verify_accept_pairs,
+            [(p, 0), (r, 0), (tau[0::2], 0), (gs[0::2], 0)], [0, 0]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(ops.SHARDED_ROUTINGS))
+def test_sharded_routings_bitwise_on_card(cuda, dtype, name):
+    """Each routing at D = 2 shards on one card: bitwise the unsharded
+    kernel's lanes, one launch a shard (counted under the kernel and the
+    routing)."""
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.sharding import specs as SH
+    mesh = LaneMesh([torch.device("cuda", torch.cuda.current_device())] * 2)
+    plain, args, axes = _shard_cases(cuda, dtype)[name]
+    blocks = [SH.split_lanes(t, mesh, a) for t, a in args]
+    want = plain(*[t for t, _ in args])
+    want = list(want) if isinstance(want, tuple) else [want]
+    ops.reset_launch_counts()
+    got = getattr(ops, name)(*blocks, mesh=mesh)
+    got = list(got) if isinstance(got, tuple) else [got]
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    assert n[name] == 2 and sum(n.values()) == 4, n
+    for g, w, a in zip(got, want, axes):
+        assert all(b.device.type == "cuda" for b in g)
+        assert torch.equal(SH.gather_lanes(g, a), w), name
+
+
+@pytest.mark.cuda
+def test_sharded_routing_rejects_non_contiguous_block_on_card(cuda):
+    """A lane block that is a view of the whole table (lane axis 3: not
+    contiguous) raises on the card and allocates nothing: the routing
+    never copies a block."""
+    from repro_torch.launch.mesh import LaneMesh
+    mesh = LaneMesh([torch.device("cuda", torch.cuda.current_device())] * 2)
+    d, f, w, mask = _inputs((3, 2, 2, 4, 8, 16), torch.float32, cuda)
+    views = [d[:, :, :, :2], d[:, :, :, 2:]]
+    ws = [w[:, :2].contiguous(), w[:, 2:].contiguous()]
+    fs = [f[:, :, :2].contiguous(), f[:, :, 2:].contiguous()]
+    ms = [mask[:2].contiguous(), mask[2:].contiguous()]
+    assert not views[0].is_contiguous()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.taylor_predict_lanes_sharded(views, ws, mesh=mesh)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.taylor_update_lanes_sharded(views, fs, ms, mesh=mesh)
+    assert torch.cuda.memory_allocated() == before
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_engine_keeps_counters_on_card(cuda, D):
+    """The small DiT at lanes 4 over D shards on one card: the unsharded
+    engine's counters and host syncs, samples within 1e-5, every kernel
+    of the path launched through its routing."""
+    from repro_torch.launch.mesh import LaneMesh
+    from repro_torch.serving import Request, SpeCaEngine
+    cfg, params, dcfg = _small_dit(cuda)
+    reqs = [Request(request_id=i, cond={"labels": torch.tensor([i])},
+                    seed=i) for i in range(6)]
+    base = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), device=cuda)
+    want = base.serve_batched(reqs, lanes=4)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = SpeCaEngine(cfg, params, dcfg, PC.SpeCaConfig(), device=cuda,
+                      mesh=LaneMesh([dev] * D))
+    ops.reset_launch_counts()
+    got = eng.serve_batched(reqs, lanes=4)
+    n = ops.launch_counts()
+    assert all(n[k] > 0 for k in ("taylor_predict_lanes_sharded",
+                                  "taylor_update_lanes_sharded",
+                                  "verify_accept_sharded")), n
+    assert n["verify_accept"] == n["verify_accept_sharded"]
+    assert eng.host_syncs == base.host_syncs
+    for a, b in zip(want, got):
+        assert (a.num_full, a.num_spec, a.accepts, a.flops) == \
+            (b.num_full, b.num_spec, b.accepts, b.flops)
+        torch.testing.assert_close(a.sample, b.sample, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_sharded_flags_reach_the_accumulator_sync_free_on_card(cuda, K):
+    """Two shards' flags joined on the card (``lane_step.gather_flags``,
+    as the engine joins them for its accumulator) and folded in under
+    sync-debug mode "error": no sync, and the flush equals the flags'
+    unsharded flush."""
+    from repro_torch.core.lane_step import gather_flags
+    from repro_torch.obs import LaneAccumulator, MetricsRegistry
+    ticks = [{k: v.to(cuda) for k, v in _acc_flags(8, K, s).items()}
+             for s in range(4)]
+    shards = [[{k: v[..., i * 4:(i + 1) * 4].contiguous()
+                for k, v in f.items()} for i in range(2)] for f in ticks]
+    whole, joined = LaneAccumulator(), LaneAccumulator()
+    for f in ticks:
+        whole.update(f)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sh in shards:
+            joined.update(gather_flags(sh))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    regs = MetricsRegistry(), MetricsRegistry()
+    whole.flush_into(regs[0], workload="diffusion")
+    joined.flush_into(regs[1], workload="diffusion")
+    assert regs[0].snapshot() == regs[1].snapshot()

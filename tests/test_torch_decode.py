@@ -545,3 +545,49 @@ def test_obs_on_is_bitwise_inert_on_decode(K):
             getattr(r, attr) for r in ron), key
     assert all(e["workload"] == "decode"
                for e in on.obs.recorder.events() if "workload" in e)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_decode_lanes_on_two_shards_match_unsharded(K):
+    """Reduced Llama-3-8B decode lanes at D = 2 CPU shards (lanes 4, two a
+    shard): every request's tokens, accepts, counters and FLOPs equal the
+    unsharded engine's at equal host syncs, at depth 1 and 3; a prefill
+    writes only its owning shard's cache slice."""
+    from repro_torch.launch.mesh import make_lane_mesh
+    from repro_torch.serving import engine as PE
+    cfg, _, pc, tp = _lm("llama3-8b")
+    prompts = [_prompt(cfg, seed=60 + i, length=3 + i) for i in range(5)]
+    out = []
+    for mesh in (None, make_lane_mesh(2, device="cpu")):
+        wl = DecodeWorkload(pc, tp, PC.SpeCaConfig(tau0=5.0),
+                            max_new_tokens=G, max_seq_len=P + G,
+                            device="cpu")
+        eng = SpeCaEngine(workloads={"decode": wl}, lanes=4,
+                          max_draft_depth=K, mesh=mesh, device="cpu")
+        res = eng.serve_batched(_reqs(Request, RequestPolicy, prompts,
+                                      draft_depth=K), lanes=4)
+        out.append((res, eng.host_syncs))
+    (want, s0), (got, s1) = out
+    assert s1 == s0
+    for a, b in zip(want, got):
+        assert b.sample.tolist() == a.sample.tolist()
+        assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
+                a.flops) == (b.accepts, b.num_full, b.num_spec,
+                             b.num_drafted, b.flops)
+    assert sum(r.num_spec for r in got) > 0
+    assert sum(r.num_full for r in got) > 0
+    # one admission into lane 2 (shard 1): shard 0's caches stay zero
+    wl = DecodeWorkload(pc, tp, PC.SpeCaConfig(tau0=5.0), max_new_tokens=G,
+                        max_seq_len=P + G, device="cpu")
+    eng = SpeCaEngine(workloads={"decode": wl}, lanes=4,
+                      mesh=make_lane_mesh(2, device="cpu"), device="cpu")
+    eng.start(workload="decode")
+    sess = eng._sessions["decode"]
+    sess.lane_entry[:2] = ["held", "held"]
+    eng.submit(_reqs(Request, RequestPolicy, prompts[:1])[0])
+    PE._admit_into(eng._sessions, eng._sched)
+    assert sess.lane_entry[2] is not None
+    s0, s1 = sess.state
+    assert not s0["k"].any() and not s0["v"].any()
+    assert s1["k"][:, 0].any() and not s1["k"][:, 1].any()
+    assert int(s1["pos0"][0]) == prompts[0].shape[1]

@@ -50,6 +50,15 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_lane_sharding_modules_are_checked():
+    """The lane-sharding modules are among the files and modules above."""
+    mods = _modules()
+    for m in ("repro_torch.sharding.specs", "repro_torch.launch.mesh"):
+        assert m in mods
+        assert PORT / (m.split(".", 1)[1].replace(".", "/") + ".py") \
+            in _port_files()
+
+
 def _modules():
     out = []
     for p in sorted(PORT.rglob("*.py")):
@@ -110,7 +119,8 @@ def _numpy_tree(tree):
                                    "train_diffusion", "lm_make_train_state",
                                    "cached_sample", "restore_checkpoint",
                                    "params_from_checkpoint", "serve_cli",
-                                   "serve_cli_diffusion", "train_cli"])
+                                   "serve_cli_diffusion", "train_cli",
+                                   "make_lane_mesh", "serve_cli_mesh"])
 def test_entry_points_default_to_cuda(no_gpu, entry, tmp_path):
     from repro_torch import configs as PC
     from repro_torch.convert import params_from_jax
@@ -125,6 +135,7 @@ def test_entry_points_default_to_cuda(no_gpu, entry, tmp_path):
     from repro_torch.core.baselines import cached_sample, fora
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_lane_mesh
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import lm as T
     from repro_torch.training.diffusion_trainer import train_diffusion
@@ -170,6 +181,8 @@ def test_entry_points_default_to_cuda(no_gpu, entry, tmp_path):
         "serve_cli_diffusion": lambda: serve_cli.main(["--requests", "1"]),
         "train_cli": lambda: train_cli.main(["--arch", "mamba2-130m",
                                              "--reduced", "--steps", "1"]),
+        "make_lane_mesh": lambda: make_lane_mesh(2),
+        "serve_cli_mesh": lambda: serve_cli.main(["--mesh", "2"]),
     }
     ck = str(tmp_path / "ck")
     save_checkpoint(ck, params)

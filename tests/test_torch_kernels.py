@@ -151,6 +151,12 @@ def test_cpu_path_does_not_count_launches():
     ops.verify_error(torch.ones(2, 8), torch.ones(2, 8))
     q = torch.zeros(1, 8, 2, 16)
     ops.flash_attention(q, q, q)
+    # the sharded routings over CPU blocks count nothing either
+    from repro_torch.launch.mesh import make_lane_mesh
+    mesh = make_lane_mesh(2, device="cpu")
+    ops.taylor_predict_lanes_sharded(list(d.split(1, dim=3)),
+                                     list(torch.ones(3, 2).split(1, dim=1)),
+                                     mesh=mesh)
     assert ops.launch_counts() == {"taylor_predict_lanes": 0,
                                    "taylor_update_lanes": 0,
                                    "verify_accept": 0,
@@ -163,7 +169,8 @@ def test_cpu_path_does_not_count_launches():
                                    "verify_sums": 0,
                                    "verify_error": 0,
                                    "flash_attention": 0,
-                                   "flash_attention_sm90": 0}
+                                   "flash_attention_sm90": 0,
+                                   **{k: 0 for k in ops.SHARDED_ROUTINGS}}
 
 
 @pytest.mark.parametrize("case", ["weights_shape", "weights_dtype",

@@ -24,6 +24,17 @@ a negative prompt, distinct τ) per request against the reference engine
 (accepts, counters, flops, samples), lanes 4 against lanes 2 on the port;
 s = 1 against cond-only; one guided chain tick and a guided deep serve
 against the reference's; pair coherence; the width rule and backfill.
+
+Lane-sharded serving (``SpeCaEngine(mesh=)``, analogues of
+``tests/test_serving_sharded.py``): engines on D ∈ {1, 2, 4} CPU shards
+against the unsharded engine (accepts, counters, FLOPs and host syncs
+exact; samples bitwise at D = 1 and within 2e-5 at D ∈ {2, 4}, the
+reference's bar), at D = 1 against the reference's engine on
+``make_lane_mesh(1)``, guided pairs, depth-4 Taylor and spectral chains
+and ``accept_mode="batch"`` at D = 2 with the shards' lanes deciding
+apart, the lifecycle with observability, the width rules, and the
+reference's ``make_lane_mesh(4)`` engine in a subprocess with 4 forced
+host devices against the port at D = 4 on one checkpoint.
 """
 import dataclasses
 import json
@@ -1706,3 +1717,278 @@ def test_baselines_match_reference(both, name):
         assert 0 < sp["num_spec"] < sp["num_steps"]
         assert sp["alpha"] == pytest.approx(float(sj["alpha"]))
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Lane-sharded serving (SpeCaEngine(mesh=)): the port's analogues of
+# tests/test_serving_sharded.py
+# ---------------------------------------------------------------------------
+
+def _sig(results):
+    """What sharding must not change: per request its accepts, counters,
+    FLOPs and completion."""
+    return [(r.request_id, r.accepts, r.num_full, r.num_spec, r.num_drafted,
+             r.flops, r.completed) for r in results]
+
+
+def _shard_reqs(n, policy_of=lambda i: None):
+    return [Request(request_id=i, cond={"labels": torch.tensor([i % 8])},
+                    seed=70 + i, policy=policy_of(i)) for i in range(n)]
+
+
+def _max_diff(a, b):
+    return max(float((x.sample - y.sample).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.fixture(scope="module")
+def mesh_engine(engines):
+    """Port engines like the ``engines`` fixture's (its parameters and the
+    reference's noise), unsharded (D None) or on D CPU shards."""
+    from repro_torch.launch.mesh import make_lane_mesh
+    wl = engines[1].workload
+
+    def make(D, **kw):
+        mesh = None if D is None else make_lane_mesh(D, device="cpu")
+        return SpeCaEngine(wl.cfg, wl.params, wl.dcfg, wl.scfg,
+                           noise_fn=wl.noise_fn, device="cpu", mesh=mesh,
+                           **kw)
+    return make
+
+
+@pytest.fixture
+def shard_ticks(monkeypatch):
+    """Per-shard flags of every sharded tick, and the per-shard answers
+    to every batch-accept request ("every drafting lane passed")."""
+    ticks, alls = [], []
+    call, answer = PLS.ShardedStep.__call__, PLS.ShardedStep._answer_all
+
+    def probe(step, shards):
+        new, flags = call(step, shards)
+        ticks.append(flags)
+        return new, flags
+
+    def probe_answer(step, op, args):
+        if op == "all":
+            alls.append([bool(a[0]) for a in args])
+        return answer(step, op, args)
+    monkeypatch.setattr(PLS.ShardedStep, "__call__", probe)
+    monkeypatch.setattr(PLS.ShardedStep, "_answer_all", probe_answer)
+    return ticks, alls
+
+
+def _shards_decide_differently(ticks):
+    """Some tick where a drafting lane of one shard was accepted and a
+    drafting lane of another was not."""
+    for flags in ticks:
+        acc = [f["accepted"][f["attempted"]] for f in flags]
+        if any(a.any() and any((~b).any() for j, b in enumerate(acc)
+                               if j != i) for i, a in enumerate(acc)):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_sharded_engine_matches_unsharded(mesh_engine, shard_ticks, D):
+    """D ∈ {1, 2, 4} CPU shards serve every request the unsharded engine's
+    accepts, counters and FLOPs at the same host syncs; samples bitwise at
+    D = 1 and within 2e-5 at D ∈ {2, 4} (the reference's bar: a shard's
+    backbone products run at W/D rows); a repeated run is bitwise."""
+    reqs = _shard_reqs(6)
+    base = mesh_engine(None)
+    want = base.serve_batched(reqs, lanes=4)
+    eng = mesh_engine(D)
+    got = eng.serve_batched(reqs, lanes=4)
+    assert _sig(got) == _sig(want)
+    assert eng.host_syncs == base.host_syncs
+    if D == 1:
+        assert all(torch.equal(a.sample, b.sample) for a, b in zip(want, got))
+    else:
+        assert _max_diff(want, got) <= 2e-5
+    assert sum(r.num_spec for r in got) > 0 and \
+        sum(r.num_full for r in got) > 0
+    ticks, _ = shard_ticks
+    assert ticks and all(len(f) == D for f in ticks)
+    if D > 1:
+        assert _shards_decide_differently(ticks)
+    again = mesh_engine(D).serve_batched(reqs, lanes=4)
+    assert _sig(again) == _sig(got)
+    assert all(torch.equal(a.sample, b.sample) for a, b in zip(got, again))
+
+
+def test_sharded_engine_at_one_shard_matches_reference(both, engines,
+                                                       mesh_engine):
+    """D = 1 against the reference's engine on ``make_lane_mesh(1)`` at the
+    parity bar: accepts and counters exact, latents within 1e-5."""
+    from repro.launch.mesh import make_lane_mesh as jmake_lane_mesh
+    (cfg, dcfg, params), _ = both
+    je = JEngine(cfg, params, dcfg, _scfgs(tau0=0.4, max_draft=8)[0],
+                 mesh=jmake_lane_mesh(1))
+    jreqs = [JRequest(request_id=i, cond={"labels": jnp.asarray([i % 8])},
+                      seed=70 + i) for i in range(6)]
+    jres = je.serve_batched(jreqs, lanes=4)
+    pres = mesh_engine(1).serve_batched(_shard_reqs(6), lanes=4)
+    _assert_results_equal(jres, pres)
+
+
+SHARD_CASES = {
+    # guided pairs (two scales, a negative prompt) beside unguided lanes
+    "guided": ({}, lambda i: None),
+    "chain": (dict(max_draft_depth=4),
+              lambda i: RequestPolicy(draft_depth=1 + i % 4)),
+    "spectral_chain": (dict(max_draft_depth=4, forecaster="spectral"),
+                       lambda i: RequestPolicy(draft_depth=4)),
+    "batch": (dict(accept_mode="batch"), lambda i: None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARD_CASES))
+def test_sharded_engine_cases_at_two_shards(mesh_engine, shard_ticks, case):
+    """Guided pairs beside unguided lanes (the width rounds to 2·D),
+    depth-4 Taylor and spectral chains and ``accept_mode="batch"`` at
+    D = 2: the unsharded engine's accepts, counters and FLOPs at its host
+    syncs, samples within 2e-5, and the two shards' lanes decided apart
+    (batch mode: one shard's drafting lanes all passed while the other's
+    did not, so the decision had to be global)."""
+    kw, policy_of = SHARD_CASES[case]
+    reqs = _mixed_batch()[1] + _shard_reqs(2) if case == "guided" \
+        else _shard_reqs(6, policy_of)
+    base = mesh_engine(None, **kw)
+    want = base.serve_batched(reqs, lanes=4)
+    eng = mesh_engine(2, **kw)
+    got = eng.serve_batched(reqs, lanes=4)
+    assert _sig(got) == _sig(want)
+    assert eng.host_syncs == base.host_syncs
+    assert _max_diff(want, got) <= 2e-5
+    ticks, alls = shard_ticks
+    assert sum(r.num_spec for r in got) > 0
+    if case == "batch":
+        assert any(len(set(a)) > 1 for a in alls)
+    else:
+        assert _shards_decide_differently(ticks)
+    if case == "guided":
+        assert any(bool(f[0]["attempted"][:2].all()) for f in ticks)
+
+
+def test_sharded_lifecycle_and_obs_match_unsharded(mesh_engine):
+    """submit/tick/stream at D = 2 (a pair-capable session of width 4)
+    equals the unsharded lifecycle; with ``obs=True`` at the same host
+    syncs, its lane totals are the Results' sums (every shard's flags
+    reach the accumulator) and the ticks counted once."""
+    reqs = _shard_reqs(6)
+    base = mesh_engine(None, lanes=4)
+    _, want = _drive_life(base, reqs)
+    runs = {}
+    for obs in (False, True):
+        eng = mesh_engine(2, lanes=4, obs=obs)
+        _, got = _drive_life(eng, reqs)
+        assert _sig(got) == _sig(want)
+        assert _max_diff(want, got) <= 2e-5
+        runs[obs] = eng
+    assert runs[True].host_syncs == runs[False].host_syncs == base.host_syncs
+    on = runs[True]
+    snap = {(r["name"], tuple(sorted(r["labels"].items()))): r
+            for r in on.metrics_snapshot()}
+    lab = (("workload", "diffusion"),)
+    for key, attr in (("n_spec", "num_spec"), ("n_drafted", "num_drafted"),
+                      ("full", "num_full")):
+        assert snap[f"speca_{key}_total", lab]["value"] == sum(
+            getattr(r, attr) for r in want), key
+    assert snap["speca_obs_ticks_total", lab]["value"] == on._tick_count
+
+
+def test_sharded_engine_validation_and_widths(both, mesh_engine):
+    """A mesh needs a "data" axis and the engine's device; widths round to
+    streams × D (the reference's cases at tests/test_serving_sharded.py),
+    2·D once a request is guided."""
+    from repro_torch.launch.mesh import LaneMesh
+    _, (pcfg, pdcfg, tp) = both
+    scfg = PC.SpeCaConfig()
+    with pytest.raises(ValueError, match="data"):
+        SpeCaEngine(pcfg, tp, pdcfg, scfg, device="cpu",
+                    mesh=LaneMesh(["cpu"], axis_names=("model",)))
+    with pytest.raises(ValueError, match="not a device of"):
+        SpeCaEngine(pcfg, tp, pdcfg, scfg, device="cpu",
+                    mesh=LaneMesh(["meta", "meta"]))
+    eng = mesh_engine(1)
+    assert eng.lane_width(4, 100) == 4
+    assert eng.lane_width(4, 3) == 3
+    eng._lane_shards = 4          # as on a 4-shard ("data",) mesh
+    assert eng.lane_width(4, 3) == 4
+    assert eng.lane_width(6, 100) == 8
+    assert eng.lane_width(1, 1) == 4
+    eng2 = mesh_engine(2)
+    un, gd = RequestPolicy(), RequestPolicy(guidance_scale=2.0)
+    assert eng2._width_for(3, [un, un, un]) == 4
+    assert eng2._width_for(2, [gd, un]) == 4        # 2·D
+    assert eng2._width_for(8, [gd, gd, gd]) == 8    # 6 streams -> 8
+    eng2.start(lanes=3)
+    assert eng2._sessions["diffusion"].W == 4
+
+
+def test_sharded_engine_equals_reference_four_device_mesh(both, engines,
+                                                          tmp_path):
+    """The reference's ``make_lane_mesh(4)`` engine in a subprocess with 4
+    forced host devices against the port at D = 4 on the same parameters,
+    written once through the repo's checkpoint format: per request the
+    same accepts, counters and FLOPs, latents within 2e-5."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from repro.checkpoint import save_checkpoint as jsave
+    from repro_torch.convert import params_from_checkpoint
+    from repro_torch.launch.mesh import make_lane_mesh
+    (cfg, dcfg, params), _ = both
+    ck = str(tmp_path / "dit")
+    jsave(ck, params)
+    code = textwrap.dedent(f"""
+        import os
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+        import dataclasses, json
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.checkpoint import restore_checkpoint
+        from repro.configs import (DiffusionConfig, SpeCaConfig,
+                                   get_config, reduced)
+        from repro.launch.mesh import make_lane_mesh
+        from repro.layers.model import init_params
+        from repro.serving import Request, SpeCaEngine
+        cfg = dataclasses.replace(reduced(get_config("dit-xl2")),
+                                  num_layers=2, d_model=128, d_ff=256,
+                                  num_heads=4, num_kv_heads=4,
+                                  num_classes=8)
+        dcfg = DiffusionConfig(num_inference_steps=20, latent_size=8,
+                               schedule="cosine")
+        params = restore_checkpoint({ck!r},
+                                    init_params(cfg, jax.random.PRNGKey(0)))
+        scfg = SpeCaConfig(taylor_order=2, max_draft=8, tau0=0.4, beta=0.9)
+        eng = SpeCaEngine(cfg, params, dcfg, scfg, mesh=make_lane_mesh(4))
+        res = eng.serve_batched(
+            [Request(request_id=i, cond={{"labels": jnp.asarray([i % 8])}},
+                     seed=70 + i) for i in range(6)], lanes=4)
+        print(json.dumps({{
+            "devices": jax.device_count(), "cfg": repr(cfg),
+            "dcfg": repr(dcfg),
+            "sig": [[r.request_id, r.accepts, r.num_full, r.num_spec,
+                     r.num_drafted, r.flops, r.completed] for r in res],
+            "samples": [np.asarray(r.sample).tolist() for r in res]}}))
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=400)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ref = json.loads(out.stdout.strip().splitlines()[-1])
+    assert ref["devices"] == 4
+    assert ref["cfg"] == repr(cfg) and ref["dcfg"] == repr(dcfg)
+    wl = engines[1].workload
+    eng = SpeCaEngine(wl.cfg, params_from_checkpoint(ck, device="cpu"),
+                      wl.dcfg, wl.scfg, noise_fn=wl.noise_fn, device="cpu",
+                      mesh=make_lane_mesh(4, device="cpu"))
+    got = eng.serve_batched(_shard_reqs(6), lanes=4)
+    assert [list(s) for s in _sig(got)] == ref["sig"]
+    assert sum(r.num_spec for r in got) > 0
+    for r, s in zip(got, ref["samples"]):
+        np.testing.assert_allclose(r.sample.numpy(),
+                                   np.asarray(s, np.float32),
+                                   rtol=2e-5, atol=2e-5)
