@@ -59,7 +59,11 @@ Phases (any failure ends the run with a non-zero exit):
    [8, 4, 192, 8, 128] (lane axis 1), from a snapshot list and stacked
    — under the bars above, each timed beside its plain version and its
    bound (device time also with the L2 flushed before each call: the
-   table fits in it).
+   table fits in it). The lane and chain predicts again on the table at
+   Llama-3-8B's own 32 layers (``decode_32``). Every predict row also
+   times its launch floor (``floor_ms``): the library's empty kernel on
+   the grid, block and shared memory the predict takes for those
+   arguments.
 2b. Attention: ``full_attention(use_flash=True)`` at gemma3-27b's widths
    (32 query heads on 16 KV heads, head dim 128, S = 4096) with a local
    window of 1024 and globally, and ``ops.flash_attention(causal=False)``
@@ -403,6 +407,8 @@ DECODE_PROMPT = (16, 128)         # seeded prompt lengths, inclusive
 # Llama-3-8B's depth in the decode phases (of 32): the whole run must end
 # well inside its time limit, and the decode phases are host-bound
 DECODE_LAYERS = 8
+DECODE_FULL_LAYERS = 32           # Llama-3-8B's own depth: decode_kernels
+                                  # also times the predicts on its table
 L2_FLUSH_BYTES = 128 * 2**20      # written between timed calls: > 50 MB L2
 # hymba-1.5b's depth in serve_hybrid (of 32; layer 16 stays global): the
 # host-bound phase took 210–256 s at full depth, the longest of the run
@@ -953,6 +959,8 @@ class Smoke:
                           2.0 * m1 * R * C)
         self.kernels["taylor_predict_lanes"] = dict(
             ms=p_k, plain_ms=p_p, library_ms=p_l, bound_ms=pb, bound_by=pf,
+            floor_ms=device_ms(torch, lambda: ops.predict_launch_floor(
+                diffs, w), ("floor_kernel",)),
             max_abs_err=(pk.float() - pp.float()).abs().max().item())
 
         u_k = time_ms(torch, lambda: ops.taylor_update_lanes(diffs, feats,
@@ -1019,6 +1027,8 @@ class Smoke:
                           2.0 * m1 * K * R * C)
         self.kernels["taylor_predict_chain_lanes"] = dict(
             ms=c_k, plain_ms=c_p, library_ms=c_l, bound_ms=cb, bound_by=cf,
+            floor_ms=device_ms(torch, lambda: ops.predict_launch_floor(
+                diffs, w), ("floor_kernel",)),
             depth1_x_k_ms=c_1, k=K,
             max_abs_err=(ck.float() - cp.float()).abs().max().item())
 
@@ -2754,7 +2764,7 @@ class Smoke:
                 (LANES, DECODE_NEW))
 
     def _shape_row(self, key, name, shape, fn, plain, nbytes, flops, err,
-                   library=None, iters=50, profile=True):
+                   library=None, iters=50, profile=True, floor=None):
         """Time a kernel at the shape of a path (CUDA events over
         back-to-back calls; its device time from torch.profiler, back to
         back and with the 50 MB L2 flushed before each call, as served:
@@ -2764,7 +2774,10 @@ class Smoke:
         (``"decode"``, ``"flux"``). ``profile=False`` takes the cold time
         from CUDA events instead (flush and call, less the flush alone):
         torch.profiler lost some kernels of every window at the FLUX-like
-        table's shapes (4 of 10 or 20 events), which biases its mean."""
+        table's shapes (4 of 10 or 20 events), which biases its mean.
+        ``floor`` launches the kernel's empty counterpart on its grid: its
+        device time is the row's ``floor_ms`` (by CUDA events over back-to-
+        back launches where ``profile`` is False)."""
         torch = self.torch
         b, by = bound_ms(nbytes, flops)
         flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -2784,36 +2797,80 @@ class Smoke:
         else:
             row["cold_ms"] = time_ms(torch, cold, iters=iters) - time_ms(
                 torch, flush.zero_, iters=iters)
+        if floor is not None:
+            row["floor_ms"] = device_ms(
+                torch, floor, ("floor_kernel",), iters=iters) if profile \
+                else time_ms(torch, floor, iters=iters)
         row.update(plain_ms=time_ms(torch, plain, iters=iters),
                    library_ms=None if library is None
                    else time_ms(torch, library, iters=iters),
                    bound_ms=b, bound_by=by, max_abs_err=err)
         self.kernels.setdefault(name, {}).setdefault(key, {}).update(row)
 
-    def _table_kernels(self, key, table, seed, hold_chain, iters=50,
-                       profile=True):
-        """The lane predict (rtol 2^-8 of its plain f32 sum), the masked
-        refresh (bitwise) and the verify on [W, T·D] planes (rtol 1e-5,
-        equal accept bits wherever |e − τ| > 1e-5) against their plain
-        versions on the bf16 table ``table`` [m+1, L, 2, W, T, D]; the
-        chain predict (K = CHAIN_K) held by ``hold_chain(diffs)``, which
-        returns its errors; then the four timed under ``key`` beside their
-        plain versions and bounds. Returns the inputs and errors."""
+    def _predict_rows(self, key, table, diffs, w, hold_chain, iters=50,
+                      profile=True):
+        """The lane predict (rtol 2^-8 of its plain f32 sum) on the bf16
+        table ``diffs`` (``table`` [m+1, L, 2, W, T, D]) with weights
+        ``w``, the chain predict (K = CHAIN_K) held by
+        ``hold_chain(diffs)``, which returns its errors; both timed under
+        ``key`` beside their plain versions, library calls, bounds and
+        launch floors. Returns the chain's errors."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
-        bf16, dev = torch.bfloat16, self.dev
+        bf16 = torch.bfloat16
         m1, K, W = table[0], CHAIN_K, table[3]
         R, C = table[1] * table[2] * W, table[4] * table[5]
-        diffs, feats, w, mask = self._inputs(table, bf16, seed)
+        es = diffs.element_size()
         pk = ops.taylor_predict_lanes(diffs, w)
         torch.testing.assert_close(
             pk.float(), ref.taylor_predict_lanes_ref(diffs.float(), w),
             rtol=2.0 ** -8, atol=1e-6)
+        errs = hold_chain(diffs)
+        self._shape_row(
+            key, "taylor_predict_lanes", table,
+            lambda: ops.taylor_predict_lanes(diffs, w),
+            lambda: ref.taylor_predict_lanes_ref(diffs, w),
+            (m1 * R * C + R * C) * es + m1 * W * 4, 2.0 * m1 * R * C,
+            (pk.float() - ref.taylor_predict_lanes_ref(diffs, w).float())
+            .abs().max().item(),
+            library=lambda: torch.einsum(
+                "zw,zgwc->gwc", w.to(bf16), diffs.view(m1, R // W, W, C)),
+            iters=iters, profile=profile,
+            floor=lambda: ops.predict_launch_floor(diffs, w))
+        del pk
+        wk = self._weights(m1, W, K)
+        self._shape_row(
+            key, "taylor_predict_chain_lanes", table,
+            lambda: ops.taylor_predict_chain_lanes(diffs, wk),
+            lambda: ref.taylor_predict_chain_lanes_ref(diffs, wk),
+            (m1 + K) * R * C * es + m1 * K * W * 4,
+            2.0 * m1 * K * R * C, errs[f"chain_k{K}_max_abs_err"],
+            library=lambda: torch.einsum(
+                "zkb,zgbc->kgbc", wk.to(bf16), diffs.view(m1, R // W, W, C)),
+            iters=iters, profile=profile,
+            floor=lambda: ops.predict_launch_floor(diffs, wk))
+        return errs
+
+    def _table_kernels(self, key, table, seed, hold_chain, iters=50,
+                       profile=True):
+        """The lane and chain predicts (``_predict_rows``), the masked
+        refresh (bitwise) and the verify on [W, T·D] planes (rtol 1e-5,
+        equal accept bits wherever |e − τ| > 1e-5) against their plain
+        versions on the bf16 table ``table`` [m+1, L, 2, W, T, D]; all
+        four timed under ``key`` beside their plain versions and bounds.
+        Returns the inputs and errors."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        bf16, dev = torch.bfloat16, self.dev
+        m1, W = table[0], table[3]
+        R, C = table[1] * table[2] * W, table[4] * table[5]
+        diffs, feats, w, mask = self._inputs(table, bf16, seed)
+        errs = self._predict_rows(key, table, diffs, w, hold_chain,
+                                  iters=iters, profile=profile)
         uk = ops.taylor_update_lanes(diffs, feats, mask)
         assert torch.equal(uk, ref.taylor_update_lanes_ref(
             diffs, feats, mask)), f"refresh not bitwise at {table}"
         del uk
-        errs = hold_chain(diffs)
         pred, real = self._planes(W, C, bf16, seed=seed + 1)
         e0, _ = ref.verify_accept_ref(pred, real, torch.ones(W, device=dev))
         tau = (e0 * torch.tensor([2.0, 0.5, 1.0, 0.9], device=dev)[:W]
@@ -2825,17 +2882,6 @@ class Smoke:
         assert torch.equal(ak[far], ap[far]), f"accept bits differ at {table}"
         torch.cuda.synchronize()
         es = diffs.element_size()
-        self._shape_row(
-            key, "taylor_predict_lanes", table,
-            lambda: ops.taylor_predict_lanes(diffs, w),
-            lambda: ref.taylor_predict_lanes_ref(diffs, w),
-            (m1 * R * C + R * C) * es + m1 * W * 4, 2.0 * m1 * R * C,
-            (pk.float() - ref.taylor_predict_lanes_ref(diffs, w).float())
-            .abs().max().item(),
-            library=lambda: torch.einsum(
-                "zw,zgwc->gwc", w.to(bf16), diffs.view(m1, R // W, W, C)),
-            iters=iters, profile=profile)
-        del pk
         fresh = int(mask.sum().item()) * R // W
         kept = R - fresh
         self._shape_row(
@@ -2844,16 +2890,6 @@ class Smoke:
             lambda: ref.taylor_update_lanes_ref(diffs, feats, mask),
             (kept * m1 * C + fresh * (m1 - 1) * C + fresh * C
              + m1 * R * C) * es + W, float((m1 - 1) * fresh * C), 0.0,
-            iters=iters, profile=profile)
-        wk = self._weights(m1, W, K)
-        self._shape_row(
-            key, "taylor_predict_chain_lanes", table,
-            lambda: ops.taylor_predict_chain_lanes(diffs, wk),
-            lambda: ref.taylor_predict_chain_lanes_ref(diffs, wk),
-            (m1 + K) * R * C * es + m1 * K * W * 4,
-            2.0 * m1 * K * R * C, errs[f"chain_k{K}_max_abs_err"],
-            library=lambda: torch.einsum(
-                "zkb,zgbc->kgbc", wk.to(bf16), diffs.view(m1, R // W, W, C)),
             iters=iters, profile=profile)
         self._shape_row(
             key, "verify_accept", (W, table[4], table[5]),
@@ -2864,6 +2900,21 @@ class Smoke:
         return dict(diffs=diffs, feats=feats, mask=mask, kept=kept,
                     fresh=fresh, errs=errs,
                     verify_err=(ek - ep).abs().max().item())
+
+    def _full_depth_predicts(self, table, seed):
+        """The lane and chain predicts (``_predict_rows``; the chain at
+        K = 1 and CHAIN_K, each position bitwise the lane predict) on the
+        decode table at Llama-3-8B's full depth (DECODE_FULL_LAYERS),
+        timed under ``decode_32``."""
+        torch = self.torch
+        full = (table[0], DECODE_FULL_LAYERS) + tuple(table[2:])
+        diffs, _, w, _ = self._inputs(full, torch.bfloat16, seed)
+        self._predict_rows(
+            "decode_32", full, diffs, w,
+            lambda d: self._check_chain_kernels(full, torch.bfloat16))
+        for name in ("taylor_predict_lanes", "taylor_predict_chain_lanes"):
+            print(f"{name} at the {DECODE_FULL_LAYERS}-layer decode table: "
+                  f"{self.kernels[name]['decode_32']}")
 
     def check_decode_kernels(self):
         """Rows 1-6 at the shapes decode lanes give them, against their
@@ -2926,6 +2977,7 @@ class Smoke:
             lambda: ref.spectral_update_lanes_ref(diffs, feats, mask),
             (kept * m1 * C + fresh * m1 * C + m1 * R * C) * es + LANES,
             0.0, 0.0)
+        self._full_depth_predicts(table, 25)
         out = {name: k["decode"] for name, k in self.kernels.items()
                if "decode" in k}
         for name, row in out.items():
@@ -4359,7 +4411,8 @@ SHARDED_ROUTING = {k: r for r, k in SHARDED_KERNEL.items()
 # ("decode", "flux": the kernel at the decode phases' shapes and at the
 # FLUX-like table, with its launches in serve_decode and serve_flux;
 # "video": its launches in serve_video)
-ROW_EXTRAS = ("sharded", "decode", "flux", "video", "serve_moe", "serve_ssm",
+ROW_EXTRAS = ("sharded", "decode", "decode_32", "floor_ms", "flux", "video",
+              "serve_moe", "serve_ssm",
               "serve_hybrid", "e2e_dit", "device_ms", "event_ms",
               "kernels_per_call", "library_device_ms", "bound_f32_cuda_core_ms", "old_path_ms",
               "old_path_event_ms", "old_path_kernels_per_call",

@@ -31,9 +31,14 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # argument types of each library's C entry points (the first entry has the
 # same name as the file)
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
-    # diffs, w, out, dtype, m1, R, C, lanes, vec, stream, device
-    "taylor_predict_lanes": {"taylor_predict_lanes": (
-        _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
+    # diffs, w, out, dtype, m1, R, C, lanes, vec, stream, device; the
+    # floor entry launches an empty kernel on the grid the same arguments
+    # give the predict
+    "taylor_predict_lanes": {
+        "taylor_predict_lanes": (_P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P,
+                                 _I),
+        "taylor_predict_lanes_floor": (_P, _P, _P, _I, _I, _LL, _LL, _I, _I,
+                                       _P, _I)},
     # old, feats, mask, out, dtype, m1, R, C, lanes, vec, stream, device
     "taylor_update_lanes": {"taylor_update_lanes": (
         _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I)},
@@ -54,9 +59,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # eps, vec, stream, device
         "verify_error": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _F, _I,
                          _P, _I)},
-    # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device
-    "taylor_predict_chain": {"taylor_predict_chain": (
-        _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P, _I)},
+    # diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device (and
+    # the floor entry, as the lane predict's)
+    "taylor_predict_chain": {
+        "taylor_predict_chain": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
+                                 _P, _I),
+        "taylor_predict_chain_floor": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I,
+                                       _I, _P, _I)},
     "lane_rollback": {
         # chain, idx, out, K, R, row_bytes, lanes, stream, device
         "lane_rollback": (_P, _P, _P, _I, _LL, _LL, _I, _P, _I),

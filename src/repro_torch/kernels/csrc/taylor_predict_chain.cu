@@ -12,112 +12,99 @@
 // Bound on the card: bytes. The m+1 planes are read once for all K
 // positions and K planes are written (2·(m+1+K) bytes per bf16 element);
 // 2·(m+1)·K flops per element stay far below the ops-per-byte balance.
-// Design: one block row per table row; the lane's (m+1)·K weights go to
-// shared memory once per block (every thread then reads them as
-// broadcasts). Each thread loads its m+1 16-byte vectors once and keeps
-// them in registers, then loops over the K positions: one weight column,
-// the chain, one 16-byte store each — K needs no register array, so it
-// is bounded only by the shared memory the wrapper allows. The ragged
-// tail of C is masked per thread; a row whose C is not a multiple of the
-// vector width takes the scalar path.
-#include "common.cuh"
+// Design: the tile walk of predict_tiles.cuh. A thread keeps
+// its m+1 vectors of a tile in registers and loops over the K positions
+// (one weight column, the chain, one 16-byte store each) while the
+// block's next tile loads; weights that do not fit the block's staging
+// area are read through L1, so K is bounded by nothing but the output.
+#include "predict_tiles.cuh"
 
 namespace {
 
-constexpr int kMaxOrders = 8;
+namespace p = rt::predict;
 
-template <class Tr, bool kVec>
+template <class Tr, int M1>
+__global__ void __launch_bounds__(p::kThreads)
+predict_chain_kernel(const p::Args a) {
+  p::tiles_body<Tr, M1, false>(a);
+}
+
+template <class Tr>
 __global__ void __launch_bounds__(rt::kThreads)
-predict_chain_kernel(const typename Tr::storage* __restrict__ diffs,
-                     const float* __restrict__ w,
-                     typename Tr::storage* __restrict__ out, int m1, int K,
-                     int64_t R, int64_t C, int lanes) {
-  extern __shared__ float ws[];                     // [m1, K] of this lane
-  const int64_t row = blockIdx.y;
-  const int lane = static_cast<int>(row % lanes);
-  for (int t = threadIdx.x; t < m1 * K; t += blockDim.x)
-    ws[t] = w[static_cast<int64_t>(t) * lanes + lane];
-  __syncthreads();
-  const int64_t plane = R * C;
-  const typename Tr::storage* src = diffs + row * C;
-  typename Tr::storage* dst = out + row * C;
-  if (kVec) {
-    using V = rt::Vec<Tr>;
-    const int64_t c =
-        (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V::N;
-    if (c >= C) return;
-    V d[kMaxOrders];
-#pragma unroll
-    for (int i = 0; i < kMaxOrders; ++i)
-      if (i < m1) d[i].load(src + i * plane + c);
-    for (int k = 0; k < K; ++k) {
-      float wl[kMaxOrders];
-#pragma unroll
-      for (int i = 0; i < kMaxOrders; ++i)
-        wl[i] = i < m1 ? ws[i * K + k] : 0.f;
-      V o;
-#pragma unroll
-      for (int e = 0; e < V::N; ++e)
-        o.s[e] = Tr::store(rt::fma_chain<kMaxOrders>(
-            wl, m1, [&](int i) { return Tr::load(d[i].s[e]); }));
-      o.store(dst + k * plane + c);
-    }
-  } else {
-    const int64_t c =
-        static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    float x[kMaxOrders];
-#pragma unroll
-    for (int i = 0; i < kMaxOrders; ++i)
-      x[i] = i < m1 ? Tr::load(src[i * plane + c]) : 0.f;
-    for (int k = 0; k < K; ++k) {
-      float wl[kMaxOrders];
-#pragma unroll
-      for (int i = 0; i < kMaxOrders; ++i)
-        wl[i] = i < m1 ? ws[i * K + k] : 0.f;
-      dst[k * plane + c] = Tr::store(rt::fma_chain<kMaxOrders>(
-          wl, m1, [&](int i) { return x[i]; }));
-    }
+predict_chain_kernel_elems(const p::Args a) {
+  p::elems_body<Tr>(a);
+}
+
+// the tile kernel for m+1 orders
+template <class Tr>
+p::Kernel tiles_kernel(int m1) {
+  switch (m1) {
+    case 1: return predict_chain_kernel<Tr, 1>;
+    case 2: return predict_chain_kernel<Tr, 2>;
+    case 3: return predict_chain_kernel<Tr, 3>;
+    case 4: return predict_chain_kernel<Tr, 4>;
+    case 5: return predict_chain_kernel<Tr, 5>;
+    case 6: return predict_chain_kernel<Tr, 6>;
+    case 7: return predict_chain_kernel<Tr, 7>;
+    default: return predict_chain_kernel<Tr, 8>;
   }
 }
 
-template <class Tr, bool kVec>
-void launch(const void* diffs, const float* w, void* out, int m1, int K,
-            int64_t R, int64_t C, int lanes, cudaStream_t stream) {
-  const int64_t per_thread = kVec ? rt::Vec<Tr>::N : 1;
-  const int64_t per_block = per_thread * rt::kThreads;
-  dim3 grid(static_cast<unsigned>((C + per_block - 1) / per_block),
-            static_cast<unsigned>(R));
-  const size_t smem = sizeof(float) * m1 * K;
-  predict_chain_kernel<Tr, kVec><<<grid, rt::kThreads, smem, stream>>>(
-      static_cast<const typename Tr::storage*>(diffs), w,
-      static_cast<typename Tr::storage*>(out), m1, K, R, C, lanes);
+template <class Tr>
+int launch(const void* diffs, const void* w, void* out, int m1, int K,
+           int64_t R, int64_t C, int lanes, int vec, bool floor,
+           cudaStream_t stream, int device) {
+  p::Args a{};
+  a.diffs = diffs;
+  a.w = static_cast<const float*>(w);
+  a.out = out;
+  a.m1 = m1;
+  a.K = K;
+  a.lanes = lanes;
+  a.R = R;
+  a.C = C;
+  return p::launch(tiles_kernel<Tr>(m1), predict_chain_kernel_elems<Tr>, a,
+                   sizeof(typename Tr::storage), vec != 0, floor, stream,
+                   device);
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 = launched). The caller
-// guarantees 1 <= m1 <= 8, K >= 1 with m1·K·4 bytes <= 48 KB, R < 65536,
-// contiguous buffers and, with vec, C % (16 / element size) == 0 and
-// 16-byte aligned pointers.
-extern "C" int taylor_predict_chain(const void* diffs, const void* w,
-                                    void* out, int dtype, int m1, int K,
-                                    long long R, long long C, int lanes,
-                                    int vec, void* stream, int device) {
-  if (m1 < 1 || m1 > kMaxOrders || K < 1)
+int entry(const void* diffs, const void* w, void* out, int dtype, int m1,
+          int K, long long R, long long C, int lanes, int vec, void* stream,
+          int device, bool floor) {
+  if (m1 < 1 || m1 > p::kMaxOrders || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int err = rt::prepare(device);
   if (err) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  auto wf = static_cast<const float*>(w);
-  if (dtype == rt::kBF16) {
-    if (vec) launch<rt::BF16, true>(diffs, wf, out, m1, K, R, C, lanes, s);
-    else launch<rt::BF16, false>(diffs, wf, out, m1, K, R, C, lanes, s);
-  } else if (dtype == rt::kF32) {
-    if (vec) launch<rt::F32, true>(diffs, wf, out, m1, K, R, C, lanes, s);
-    else launch<rt::F32, false>(diffs, wf, out, m1, K, R, C, lanes, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return rt::launched();
+  if (dtype == rt::kBF16)
+    return launch<rt::BF16>(diffs, w, out, m1, K, R, C, lanes, vec, floor, s,
+                            device);
+  if (dtype == rt::kF32)
+    return launch<rt::F32>(diffs, w, out, m1, K, R, C, lanes, vec, floor, s,
+                           device);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 = launched; R·⌈C / tile⌉ must
+// stay below 2^32 tiles, else cudaErrorInvalidValue). The caller
+// guarantees 1 <= m1 <= 8, K >= 1, contiguous buffers and, with vec,
+// C % (16 / element size) == 0 and 16-byte aligned pointers.
+extern "C" int taylor_predict_chain(const void* diffs, const void* w,
+                                    void* out, int dtype, int m1, int K,
+                                    long long R, long long C, int lanes,
+                                    int vec, void* stream, int device) {
+  return entry(diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device,
+               false);
+}
+
+// The launch floor: an empty kernel on the grid, block and shared memory
+// the same arguments give taylor_predict_chain. Reads and writes nothing.
+extern "C" int taylor_predict_chain_floor(const void* diffs, const void* w,
+                                          void* out, int dtype, int m1, int K,
+                                          long long R, long long C, int lanes,
+                                          int vec, void* stream, int device) {
+  return entry(diffs, w, out, dtype, m1, K, R, C, lanes, vec, stream, device,
+               true);
 }

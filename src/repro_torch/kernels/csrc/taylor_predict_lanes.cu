@@ -11,91 +11,96 @@
 //
 // Bound on the card: bytes. It reads the m+1 planes once and writes one
 // plane (2·(m+1+1) bytes per bf16 element) and does 2·(m+1) flops per
-// element, far below the H100's ops-per-byte balance. Design: one block
-// row per table row (so the lane's weight column is loaded once into
-// registers), 16-byte loads and stores per thread, the m+1 loads of a
-// thread independent so they are in flight together. The ragged tail of C
-// is masked per thread; a row whose C is not a multiple of the vector
-// width takes the scalar path.
-#include "common.cuh"
+// element, far below the H100's ops-per-byte balance. Design: the tile
+// walk of predict_tiles.cuh at K = 1.
+#include "predict_tiles.cuh"
 
 namespace {
 
-constexpr int kMaxOrders = 8;
+namespace p = rt::predict;
 
-template <class Tr, bool kVec>
+template <class Tr, int M1>
+__global__ void __launch_bounds__(p::kThreads)
+predict_lanes_kernel(const p::Args a) {
+  p::tiles_body<Tr, M1, true>(a);
+}
+
+template <class Tr>
 __global__ void __launch_bounds__(rt::kThreads)
-predict_lanes_kernel(const typename Tr::storage* __restrict__ diffs,
-                     const float* __restrict__ w,
-                     typename Tr::storage* __restrict__ out, int m1,
-                     int64_t R, int64_t C, int lanes) {
-  const int64_t row = blockIdx.y;
-  const int lane = static_cast<int>(row % lanes);
-  float wl[kMaxOrders];
-#pragma unroll
-  for (int i = 0; i < kMaxOrders; ++i)
-    wl[i] = i < m1 ? w[i * lanes + lane] : 0.f;
-  const int64_t plane = R * C;
-  const typename Tr::storage* src = diffs + row * C;
-  typename Tr::storage* dst = out + row * C;
-  if (kVec) {
-    using V = rt::Vec<Tr>;
-    const int64_t c =
-        (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V::N;
-    if (c >= C) return;
-    V d[kMaxOrders];
-#pragma unroll
-    for (int i = 0; i < kMaxOrders; ++i)
-      if (i < m1) d[i].load(src + i * plane + c);
-    V o;
-#pragma unroll
-    for (int k = 0; k < V::N; ++k)
-      o.s[k] = Tr::store(rt::fma_chain<kMaxOrders>(
-          wl, m1, [&](int i) { return Tr::load(d[i].s[k]); }));
-    o.store(dst + c);
-  } else {
-    const int64_t c =
-        static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    dst[c] = Tr::store(rt::fma_chain<kMaxOrders>(
-        wl, m1, [&](int i) { return Tr::load(src[i * plane + c]); }));
+predict_lanes_kernel_elems(const p::Args a) {
+  p::elems_body<Tr>(a);
+}
+
+// the tile kernel for m+1 orders
+template <class Tr>
+p::Kernel tiles_kernel(int m1) {
+  switch (m1) {
+    case 1: return predict_lanes_kernel<Tr, 1>;
+    case 2: return predict_lanes_kernel<Tr, 2>;
+    case 3: return predict_lanes_kernel<Tr, 3>;
+    case 4: return predict_lanes_kernel<Tr, 4>;
+    case 5: return predict_lanes_kernel<Tr, 5>;
+    case 6: return predict_lanes_kernel<Tr, 6>;
+    case 7: return predict_lanes_kernel<Tr, 7>;
+    default: return predict_lanes_kernel<Tr, 8>;
   }
 }
 
-template <class Tr, bool kVec>
-void launch(const void* diffs, const float* w, void* out, int m1, int64_t R,
-            int64_t C, int lanes, cudaStream_t stream) {
-  const int64_t per_thread = kVec ? rt::Vec<Tr>::N : 1;
-  const int64_t per_block = per_thread * rt::kThreads;
-  dim3 grid(static_cast<unsigned>((C + per_block - 1) / per_block),
-            static_cast<unsigned>(R));
-  predict_lanes_kernel<Tr, kVec><<<grid, rt::kThreads, 0, stream>>>(
-      static_cast<const typename Tr::storage*>(diffs), w,
-      static_cast<typename Tr::storage*>(out), m1, R, C, lanes);
+template <class Tr>
+int launch(const void* diffs, const void* w, void* out, int m1,
+           int64_t R, int64_t C, int lanes, int vec, bool floor,
+           cudaStream_t stream, int device) {
+  p::Args a{};
+  a.diffs = diffs;
+  a.w = static_cast<const float*>(w);
+  a.out = out;
+  a.m1 = m1;
+  a.K = 1;
+  a.lanes = lanes;
+  a.R = R;
+  a.C = C;
+  return p::launch(tiles_kernel<Tr>(m1), predict_lanes_kernel_elems<Tr>, a,
+                   sizeof(typename Tr::storage), vec != 0, floor, stream,
+                   device);
+}
+
+int entry(const void* diffs, const void* w, void* out, int dtype, int m1,
+          long long R, long long C, int lanes, int vec, void* stream,
+          int device, bool floor) {
+  if (m1 < 1 || m1 > p::kMaxOrders)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = rt::prepare(device);
+  if (err) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kBF16)
+    return launch<rt::BF16>(diffs, w, out, m1, R, C, lanes, vec, floor, s,
+                            device);
+  if (dtype == rt::kF32)
+    return launch<rt::F32>(diffs, w, out, m1, R, C, lanes, vec, floor, s,
+                           device);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = launched). The caller
-// guarantees 1 <= m1 <= 8, R < 65536, contiguous buffers and, with vec,
+// Returns the cudaError_t of the launch (0 = launched; R·⌈C / tile⌉ must
+// stay below 2^32 tiles, else cudaErrorInvalidValue). The caller
+// guarantees 1 <= m1 <= 8, contiguous buffers and, with vec,
 // C % (16 / element size) == 0 and 16-byte aligned pointers.
 extern "C" int taylor_predict_lanes(const void* diffs, const void* w,
                                     void* out, int dtype, int m1,
                                     long long R, long long C, int lanes,
                                     int vec, void* stream, int device) {
-  if (m1 < 1 || m1 > kMaxOrders) return static_cast<int>(cudaErrorInvalidValue);
-  int err = rt::prepare(device);
-  if (err) return err;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto wf = static_cast<const float*>(w);
-  if (dtype == rt::kBF16) {
-    if (vec) launch<rt::BF16, true>(diffs, wf, out, m1, R, C, lanes, s);
-    else launch<rt::BF16, false>(diffs, wf, out, m1, R, C, lanes, s);
-  } else if (dtype == rt::kF32) {
-    if (vec) launch<rt::F32, true>(diffs, wf, out, m1, R, C, lanes, s);
-    else launch<rt::F32, false>(diffs, wf, out, m1, R, C, lanes, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return rt::launched();
+  return entry(diffs, w, out, dtype, m1, R, C, lanes, vec, stream, device,
+               false);
+}
+
+// The launch floor: an empty kernel on the grid, block and shared memory
+// the same arguments give taylor_predict_lanes. Reads and writes nothing.
+extern "C" int taylor_predict_lanes_floor(const void* diffs, const void* w,
+                                          void* out, int dtype, int m1,
+                                          long long R, long long C, int lanes,
+                                          int vec, void* stream, int device) {
+  return entry(diffs, w, out, dtype, m1, R, C, lanes, vec, stream, device,
+               true);
 }

@@ -50,9 +50,9 @@ SHARDED_ROUTINGS = ("taylor_predict_lanes_sharded",
 LAUNCHES.update({k: 0 for k in SHARDED_ROUTINGS})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ORDERS = 8          # kMaxOrders in taylor_predict_lanes.cu
-_MAX_CHAIN_WEIGHTS = 12288   # (m+1)·K f32 in 48 KB of shared memory
-_MAX_ROWS = 65535        # gridDim.y
+_MAX_ORDERS = 8          # kMaxOrders in csrc/predict_tiles.cuh
+_MAX_ROWS = 65535        # gridDim.y (the refreshes, ring shift, rollback,
+                         # verify; the predicts walk a 1-D tile index)
 _MAX_SNAPSHOTS = 256     # kMaxSnapshots in lane_rollback.cu
 _VERIFY_CHUNK = 2048     # elements per verify block: fixed, never a
                          # function of W (verify_accept.cu)
@@ -133,33 +133,63 @@ def taylor_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, *,
     if _on_cpu(diffs, weights):
         return ref.taylor_predict_lanes_ref(diffs, weights,
                                             lane_axis=lane_axis)
-    return _launch_predict_lanes(diffs, weights, feat, G * B, C, B,
-                                 "taylor_predict_lanes")
+    return _launch_predict(diffs, weights, G * B, C, B, feat,
+                           "taylor_predict_lanes")
 
 
-def _launch_predict_lanes(diffs: torch.Tensor, weights: torch.Tensor, feat,
-                          R: int, C: int, B: int, key: str) -> torch.Tensor:
-    """The lane predict kernel on diffs folded to [m+1, R, C] (lane =
-    row % B) with weights [m+1, B] f32 -> [...feat]; counts the launch
-    under ``key``."""
+def _predict_args(diffs: torch.Tensor, weights: torch.Tensor, R: int,
+                  C: int, B: int, out: torch.Tensor) -> Tuple[str, tuple]:
+    """The predict library's name and the arguments of its C entries for
+    the lane predict (weights [m+1, B] f32) or the chain predict (weights
+    [m+1, K, B]) on diffs folded to [m+1, R, C] (lane = row % B), writing
+    ``out``. Both kernels walk a 1-D tile index (below 2^32 tiles of 2,048
+    bytes a plane), not rows on gridDim.y. Raises on arguments the kernel
+    does not take."""
     m1 = diffs.shape[0]
     code = _kernel_dtype(diffs, "the table")
     _contiguous("diffs and weights", diffs, weights)
     if not 1 <= m1 <= _MAX_ORDERS:
         raise ValueError(f"the kernel takes 1..{_MAX_ORDERS} orders, got {m1}")
-    if R > _MAX_ROWS:
-        raise ValueError(f"{R} table rows exceed the kernel's {_MAX_ROWS}")
-    out = torch.empty(feat, dtype=diffs.dtype, device=diffs.device)
+    chain = weights.dim() == 3
+    K = (weights.shape[1],) if chain else ()
+    stream, dev = _stream(diffs)
+    return ("taylor_predict_chain" if chain else "taylor_predict_lanes",
+            (diffs.data_ptr(), weights.data_ptr(), out.data_ptr(), code, m1,
+             *K, R, C, B, _vec_ok(C, diffs.element_size(), diffs, out),
+             stream, dev))
+
+
+def _launch_predict(diffs: torch.Tensor, weights: torch.Tensor, R: int,
+                    C: int, B: int, out_shape, key: str) -> torch.Tensor:
+    """The predict kernel of :func:`_predict_args` into a new tensor of
+    ``out_shape``; counts the launch under ``key``. Raises on a refused
+    launch."""
+    out = torch.empty(out_shape, dtype=diffs.dtype, device=diffs.device)
+    name, args = _predict_args(diffs, weights, R, C, B, out)
     if out.numel() == 0:
         return out
-    lib = build.library("taylor_predict_lanes")
-    stream, dev = _stream(diffs)
-    rc = lib.taylor_predict_lanes(
-        diffs.data_ptr(), weights.data_ptr(), out.data_ptr(), code, m1, R, C,
-        B, _vec_ok(C, diffs.element_size(), diffs, out), stream, dev)
-    build.check("taylor_predict_lanes", lib, rc)
+    lib = build.library(name)
+    build.check(name, lib, getattr(lib, name)(*args))
     LAUNCHES[key] += 1
     return out
+
+
+def predict_launch_floor(diffs: torch.Tensor, weights: torch.Tensor, *,
+                         lane_axis: int = 2) -> None:
+    """The launch floor of :func:`taylor_predict_lanes` (weights [m+1, B])
+    or :func:`taylor_predict_chain_lanes` (weights [m+1, K, B]) on these
+    CUDA arguments: the library's empty kernel on the grid, block and
+    shared memory the kernel would take (the table stands in for the
+    output: as aligned as one, and nothing writes it). Reads and writes
+    nothing and counts no launch; for timing beside the kernel."""
+    G, B, C = _lane_fold(tuple(diffs.shape[1:]), lane_axis)
+    if _on_cpu(diffs, weights):
+        raise ValueError("the launch floor is a CUDA kernel's")
+    name, args = _predict_args(diffs, weights, G * B, C, B, diffs)
+    if diffs.numel() == 0:
+        return
+    lib = build.library(name)
+    build.check(name, lib, getattr(lib, name + "_floor")(*args))
 
 
 def taylor_update_lanes(old_diffs: torch.Tensor, feats: torch.Tensor,
@@ -360,27 +390,8 @@ def taylor_predict_chain_lanes(diffs: torch.Tensor, weights: torch.Tensor,
     if _on_cpu(diffs, weights):
         return ref.taylor_predict_chain_lanes_ref(diffs, weights,
                                                   lane_axis=lane_axis)
-    code = _kernel_dtype(diffs, "the table")
-    _contiguous("diffs and weights", diffs, weights)
-    if not 1 <= m1 <= _MAX_ORDERS:
-        raise ValueError(f"the kernel takes 1..{_MAX_ORDERS} orders, got {m1}")
-    if not 1 <= m1 * K <= _MAX_CHAIN_WEIGHTS:
-        raise ValueError(f"(m+1)·K = {m1 * K} weights exceed the kernel's "
-                         f"{_MAX_CHAIN_WEIGHTS}")
-    R = G * B
-    if R > _MAX_ROWS:
-        raise ValueError(f"{R} table rows exceed the kernel's {_MAX_ROWS}")
-    out = torch.empty((K,) + feat, dtype=diffs.dtype, device=diffs.device)
-    if out.numel() == 0:
-        return out
-    lib = build.library("taylor_predict_chain")
-    stream, dev = _stream(diffs)
-    rc = lib.taylor_predict_chain(
-        diffs.data_ptr(), weights.data_ptr(), out.data_ptr(), code, m1, K,
-        R, C, B, _vec_ok(C, diffs.element_size(), diffs, out), stream, dev)
-    build.check("taylor_predict_chain", lib, rc)
-    LAUNCHES["taylor_predict_chain_lanes"] += 1
-    return out
+    return _launch_predict(diffs, weights, G * B, C, B, (K,) + feat,
+                           "taylor_predict_chain_lanes")
 
 
 def _snapshots(chain) -> Tuple[Tuple[torch.Tensor, ...], torch.device]:
@@ -534,7 +545,7 @@ def taylor_predict(diffs: torch.Tensor,
         return ref.taylor_predict_ref(diffs, weights)
     w = weights.to(torch.float32).reshape(m1, 1).contiguous()
     n = torch.Size(feat).numel()
-    return _launch_predict_lanes(diffs, w, feat, 1, n, 1, "taylor_predict")
+    return _launch_predict(diffs, w, 1, n, 1, feat, "taylor_predict")
 
 
 def taylor_update(old_diffs: torch.Tensor,

@@ -24,7 +24,11 @@ loads every kernel library the step launches, so that serving after it
 loads none. The lane-sharded routings at D = 2 shards on one card:
 bitwise the unsharded kernels, one launch a shard; a non-contiguous block
 raises before anything is allocated; a sharded engine keeps the unsharded
-engine's counters.
+engine's counters. The predicts' tile walk at more rows than gridDim.y
+took, fewer tiles than SMs, more tiles than resident blocks, m+1 = 1 and
+8, a chain past the 12,288 weights the old design staged, an unaligned
+table on the element path (bitwise the aligned table's tile walk), and
+the launch floor's empty kernel, which writes and counts nothing.
 """
 import warnings
 
@@ -40,6 +44,17 @@ SHAPES = [(3, 2, 2, 3, 5, 7),        # C = 35: scalar path, ragged rows
           (3, 2, 2, 4, 64, 72),      # C = 4608: vector path, full blocks
           (2, 1, 2, 5, 3, 1000),     # m = 1, odd lane count
           (5, 2, 2, 2, 9, 64)]       # m = 4
+# the predicts' tile walk (csrc/predict_tiles.cuh: tiles of one row × 2,048
+# bytes a plane; a grid of a quarter of the tiles, never fewer blocks than
+# fit the SMs: 132 × 16 of 128 threads on an H100)
+PREDICT_SHAPES = [(2, 8200, 2, 4, 1, 8),     # R = 65,600 > gridDim.y's cap
+                  (3, 1, 2, 2, 1, 4096),     # 16 bf16 tiles: fewer than SMs
+                  # 2,652 bf16 / 5,148 f32 tiles, past the resident blocks
+                  # and no multiple of the grid; each row's last tile 32 /
+                  # 64 bytes (two / four threads live)
+                  (3, 26, 2, 3, 8, 2050),
+                  (1, 2, 2, 4, 8, 16),       # m+1 = 1
+                  (8, 2, 2, 3, 5, 600)]      # m+1 = 8
 
 
 @pytest.fixture
@@ -98,7 +113,7 @@ def test_kernels_match_plain_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + PREDICT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K", [1, 4])
 def test_chain_predict_matches_plain_and_depth1_kernel(cuda, shape, dtype,
@@ -117,6 +132,73 @@ def test_chain_predict_matches_plain_and_depth1_kernel(cuda, shape, dtype,
             d, w[:, k].contiguous())), k
     torch.cuda.synchronize()
     assert ops.launch_counts()["taylor_predict_chain_lanes"] == 1
+
+
+def _hold_predicts(d, w):
+    """The chain predict (w [m+1, K, W]) against its plain version and each
+    position bitwise the lane predict, itself against its plain version."""
+    tol = 1e-6 if d.dtype == torch.float32 else 2.0 ** -8
+    pk = ops.taylor_predict_chain_lanes(d, w)
+    torch.testing.assert_close(
+        pk.float(), ref.taylor_predict_chain_lanes_ref(d.float(), w),
+        rtol=tol, atol=1e-6)
+    for k in range(w.shape[1]):
+        lk = ops.taylor_predict_lanes(d, w[:, k].contiguous())
+        assert torch.equal(pk[k], lk), k
+    torch.testing.assert_close(
+        lk.float(), ref.taylor_predict_lanes_ref(d.float(), w[:, -1]),
+        rtol=tol, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_predict_takes_k_past_the_old_weight_cap_on_card(cuda, dtype):
+    """K = 4,100 at m+1 = 3: past the 12,288 weights the parent design
+    staged in shared memory; the tile walk reads weights through L1, so
+    the wrapper takes any K."""
+    d, _, _, _ = _inputs((3, 1, 2, 2, 2, 16), dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.rand((3, 4100, 2), generator=g, device=cuda) + 0.1
+    ops.reset_launch_counts()
+    _hold_predicts(d, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["taylor_predict_chain_lanes"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_predict_unaligned_table_takes_the_element_path_on_card(cuda, dtype):
+    """A table one element off a 16-byte boundary (and a ragged C) goes
+    through the element path: the same bits as an aligned copy's tile
+    walk, position by position."""
+    shape = (3, 2, 2, 4, 8, 16)
+    d, _, w, _ = _inputs(shape, dtype, cuda)
+    buf = torch.empty(d.numel() + 1, dtype=dtype, device=cuda)
+    buf[1:] = d.flatten()
+    odd = buf[1:].view(shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    wk = torch.stack([w, w * 0.5], dim=1).contiguous()
+    assert torch.equal(ops.taylor_predict_chain_lanes(odd, wk),
+                       ops.taylor_predict_chain_lanes(d, wk))
+    assert torch.equal(ops.taylor_predict_lanes(odd, w),
+                       ops.taylor_predict_lanes(d, w))
+    _hold_predicts(odd, wk)
+    _hold_predicts(_inputs((3, 2, 2, 3, 5, 7), dtype, cuda)[0],
+                   torch.rand((3, 3, 3), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 4])
+def test_predict_launch_floor_writes_and_counts_nothing_on_card(cuda, K):
+    d, _, w, _ = _inputs((3, 4, 2, 4, 8, 64), torch.bfloat16, cuda)
+    if K is not None:
+        w = torch.stack([w] * K, dim=1).contiguous()
+    before = d.clone()
+    ops.reset_launch_counts()
+    ops.predict_launch_floor(d, w)
+    torch.cuda.synchronize()
+    assert torch.equal(d, before)
+    assert not any(ops.launch_counts().values())
 
 
 @pytest.mark.cuda

@@ -35,22 +35,31 @@ ROUTES = {"bf16": "flash_attention_sm90", "f32": "flash_attention"}
 
 
 def load_variant(source: Path, entry: str, argtypes):
-    """Build ``source`` as the tree's libraries are built; returns its C
-    ``entry`` with ``argtypes``."""
+    """Build ``source`` as the tree's libraries are built (a header beside
+    it comes before the tree's of the same name); returns its C ``entry``
+    with ``argtypes``. What ptxas reported goes beside the library, as
+    ``<library>.log``."""
     from repro_torch.kernels import build
     h = hashlib.sha256(source.read_bytes())
-    for f in sorted(build.CSRC.glob("*.cuh")):
+    for f in sorted(build.CSRC.glob("*.cuh")) + \
+            sorted(source.parent.glob("*.cuh")):
         h.update(f.read_bytes())
     path = build.BUILD_DIR / f"ab-{h.hexdigest()[:16]}.so"
     if not path.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
-                        "-I", str(build.CSRC), "-o", str(path),
-                        str(source)], check=True)
+        done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
+                               "-I", str(build.CSRC), "-o", str(path),
+                               str(source)], capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"nvcc failed on {source}:\n"
+                               f"{done.stdout}{done.stderr}")
+        path.with_suffix(".log").write_text(done.stdout + done.stderr)
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    fn.log = path.with_suffix(".log").read_text() \
+        if path.with_suffix(".log").exists() else ""
     return fn
 
 
