@@ -338,6 +338,24 @@ Phases (any failure ends the run with a non-zero exit):
     mesh), ``--mode lm --arch qwen1.5-0.5b``,
     and ``python -m repro_torch.launch.train --arch mamba2-130m --reduced
     --steps 5``, each as a subprocess that must exit 0.
+13f. ``dryrun``: (a) the production-mesh dry run
+    (``python -m repro_torch.launch.dryrun``) at full width on a fake
+    process group, no tensor allocated, of one combination of each family
+    and shape kind (``DRYRUN_CASES``: llama3-8b × train_4k, prefill_32k,
+    decode_32k and long_500k (its +swa variant), mixtral-8x7b × decode_32k,
+    mamba2-130m × long_500k, gemma3-27b × prefill_32k, hymba-1.5b ×
+    train_4k) on pod16x16 and pod2x16x16, one process a combination
+    (``--both-meshes``), ``DRYRUN_PROCS`` at a time; each must exit 0 and
+    its records (FLOPs, bytes, wire bytes, temp GiB, trace seconds) are
+    printed.
+    (b) The card check: Llama-3-8B at ``DECODE_LAYERS`` layers, decode_32k
+    at global batch 8 (the 32,768-slot cache fits one card), as a dry run
+    on a (1, 1) fake mesh and for real through ``serve_step`` on seeded
+    weights drawn on the card: the dry run's argument and output bytes
+    equal the real arguments' and outputs', its FLOPs equal
+    ``FlopCounterMode`` over the real call, logits finite, and no process
+    group is left; its temp bytes are printed beside the card's peak
+    allocation beyond what was live before the call (not gated).
 14. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
@@ -438,6 +456,15 @@ VIDEO_FRAMES, VIDEO_LATENT, VIDEO_LANES = 8, 32, 2
 # and their LR (the launcher's 3e-4 moves a 152k-vocabulary loss from its
 # initial ~12.1 by ~0.01 in 20 steps, inside the batches' noise)
 TRAIN_DIT_STEPS, TRAIN_LM_STEPS, TRAIN_LM_LR = 100, 20, 1e-3
+# dryrun: one combination of each family and shape kind, on both
+# production meshes (a long_500k arch runs as long_context_arch picks)
+DRYRUN_CASES = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
+                ("llama3-8b", "decode_32k"), ("llama3-8b", "long_500k"),
+                ("mixtral-8x7b", "decode_32k"),
+                ("mamba2-130m", "long_500k"),
+                ("gemma3-27b", "prefill_32k"), ("hymba-1.5b", "train_4k"))
+DRYRUN_PROCS = 8                  # dry-run processes at a time (CPU only)
+DRYRUN_CARD_BATCH = 8             # the card check's decode_32k batch
 # the __global__ functions of the serving kernels, as the profiler names
 # them
 DEVICE_NAMES = {"taylor_predict_lanes": "predict_lanes_kernel",
@@ -4312,6 +4339,110 @@ class Smoke:
             counters
         assert "x 2 shards" in rec["serve_cpu_mesh2"]["stdout"]
 
+    def dryrun(self):
+        """Phase 13f: (a) the fake-mesh dry run of ``DRYRUN_CASES`` on
+        both production meshes; (b) the dry run of Llama-3-8B decode held
+        against the same step on the card."""
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+        from repro_torch.launch.dryrun import arch_for_shape
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        out_dir = OUT / "dryrun"
+
+        def run(case):
+            arch, shape = case
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--both-meshes", "--out",
+                 str(out_dir)], env=env, cwd=ROOT, capture_output=True,
+                text=True, timeout=900)
+            return case, p, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DRYRUN_PROCS) as ex:
+            results = list(ex.map(run, DRYRUN_CASES))
+        wall = time.perf_counter() - t0
+        records, failed = [], []
+        for (arch, shape), p, dt in results:
+            print(f"dryrun {arch} {shape}: rc {p.returncode} in {dt:.1f} s",
+                  flush=True)
+            for x in p.stdout.splitlines():
+                if x.startswith("[dryrun] ") and " × " in x:
+                    print(f"  {x}", flush=True)
+            if p.returncode:
+                print(p.stderr.strip()[-2000:], flush=True)
+                failed.append((arch, shape))
+                continue
+            eff = arch_for_shape(arch, shape)
+            for mesh in ("pod16x16", "pod2x16x16"):
+                records.append(json.loads((out_dir / (
+                    f"{eff.replace('+', '_')}_{shape}_{mesh}.json"))
+                    .read_text()))
+        print(f"dryrun (a): {len(records)} of {2 * len(DRYRUN_CASES)} "
+              f"records in {wall:.1f} s", flush=True)
+        self.record["dryrun"] = dict(records=records, wall_s=wall,
+                                     failed=failed)
+
+        # (b) the card check
+        torch = self.torch
+        import torch.distributed as dist
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.configs import DECODE_32K, LLAMA3_8B, ShapeConfig
+        from repro_torch.launch import cost_analysis as C
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.mesh import fake_world, make_local_mesh
+        from repro_torch.launch.steps import decode_position
+        from repro_torch.layers.model import init_cache, init_params
+        from repro_torch.training.lm import serve_step
+        cfg = dataclasses.replace(LLAMA3_8B, num_layers=DECODE_LAYERS)
+        shape = ShapeConfig(name="decode_32k_b8", seq_len=DECODE_32K.seq_len,
+                            global_batch=DRYRUN_CARD_BATCH, kind="decode")
+        with fake_world(1):
+            dry = D.measure_step(cfg, shape, make_local_mesh((1, 1)))
+        assert not dist.is_initialized()
+        gen = torch.Generator(device=self.dev).manual_seed(11)
+        params = init_params(cfg, gen, device=self.dev)
+        tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                               generator=gen, device=self.dev,
+                               dtype=torch.int32)
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                           device=self.dev)
+        arg_bytes = C.tree_bytes((params, tokens, cache))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            logits, new = serve_step(cfg, params, tokens, cache,
+                                     decode_position(shape))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - live
+        out_bytes = C.tree_bytes((logits, new))
+        real = dict(argument_bytes=arg_bytes, output_bytes=out_bytes,
+                    flops=fc.get_total_flops(), peak_beyond_live=peak,
+                    live_before=live, step_s=step_s)
+        ratio = dry["temp_bytes"] / peak if peak else None
+        print(f"dryrun (b): Llama-3-8B {DECODE_LAYERS} layers decode_32k "
+              f"batch {shape.global_batch}: argument bytes dry "
+              f"{dry['argument_bytes']} / card {arg_bytes}; output bytes "
+              f"{dry['output_bytes']} / {out_bytes}; FLOPs {dry['flops']} / "
+              f"{real['flops']}; temp {dry['temp_bytes'] / 2**30:.3f} GiB "
+              f"dry / {peak / 2**30:.3f} GiB card peak beyond the "
+              f"{live / 2**30:.3f} GiB live (ratio {ratio}); card step "
+              f"{step_s:.3f} s; {smi_line()}", flush=True)
+        self.record["dryrun"]["card_check"] = dict(
+            dry={k: v for k, v in dry.items() if k != "collectives"},
+            card=real, temp_ratio=ratio, smi=smi_line())
+        del params, cache
+        assert not failed, failed
+        assert bool(torch.isfinite(logits.float()).all())
+        assert dry["argument_bytes"] == arg_bytes, (dry, real)
+        assert dry["output_bytes"] == out_bytes, (dry, real)
+        assert dry["flops"] == real["flops"], (dry, real)
+        assert not dist.is_initialized()
+
 
 def _leaves(tree):
     """The tensor leaves of a nested dict."""
@@ -4498,7 +4629,8 @@ def main() -> int:
             smoke.phase("e2e_dit", smoke.e2e_dit)
     smoke.trained = None
     smoke._release()
-    for name, fn in (("train_lm", smoke.train_lm), ("cli", smoke.cli)):
+    for name, fn in (("train_lm", smoke.train_lm), ("cli", smoke.cli),
+                     ("dryrun", smoke.dryrun)):
         smoke.phase(name, fn)
         smoke._release()
     smoke.phase("profiler", smoke.profiler)

@@ -1,9 +1,12 @@
 """Configuration records: own copies of ``repro.configs.base``'s
 ``ModelConfig``, ``DiffusionConfig``, ``SpeCaConfig``, ``TrainConfig`` and
-``reduced()``, and of the registry of ``repro.configs``: the ten assigned
-architectures (``ASSIGNED``) and the paper's three DiTs
-(``PAPER_ARCHS``), resolved by :func:`get_config` (with the ``+swa``
-sliding-window variant) and listed by :func:`list_archs`.
+``reduced()``, ``ShapeConfig`` and ``MeshConfig``, of the four workload
+shapes of ``repro.configs.shapes`` (``SHAPES``, :func:`get_shape`), and of
+the registry of ``repro.configs``: the ten assigned architectures
+(``ASSIGNED``) and the paper's three DiTs (``PAPER_ARCHS``), resolved by
+:func:`get_config` (with the ``+swa`` sliding-window variant), listed by
+:func:`list_archs`, and mapped to the arch that runs the long-context
+shape by :func:`long_context_arch`.
 
 Each record keeps the reference's fields that the port reads, with the
 reference's names and defaults. The port serves DiT image and video
@@ -191,6 +194,50 @@ def check_lm(cfg: ModelConfig, what: str) -> None:
     if cfg.arch_type not in LM_FAMILIES:
         raise ValueError(f"{what}: arch_type={cfg.arch_type!r} is not an "
                          f"autoregressive LM (have {LM_FAMILIES})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (workload)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+TRAIN_4K = ShapeConfig(name="train_4k", seq_len=4_096, global_batch=256,
+                       kind="train")
+PREFILL_32K = ShapeConfig(name="prefill_32k", seq_len=32_768,
+                          global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig(name="decode_32k", seq_len=32_768,
+                         global_batch=128, kind="decode")
+LONG_500K = ShapeConfig(name="long_500k", seq_len=524_288, global_batch=1,
+                        kind="decode")
+
+SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -509,6 +556,9 @@ PAPER_ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (DIT_XL2, FLUX_LIKE, HUNYUAN_VIDEO_LIKE)
 }
 REGISTRY: Dict[str, ModelConfig] = {**ASSIGNED, **PAPER_ARCHS}
+# Pure-full-attention assigned archs run long_500k only under the opt-in
+# sliding-window variant: "<arch>+swa".
+SUBQUADRATIC = {"mamba2-130m", "hymba-1.5b", "gemma3-27b", "mixtral-8x7b"}
 SWA_FALLBACK_WINDOW = 4096
 
 
@@ -527,3 +577,12 @@ def get_config(arch: str) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return sorted(REGISTRY)
+
+
+def long_context_arch(arch: str) -> str:
+    """Arch id to use for the long_500k shape: the arch itself when it is
+    subquadratic or an SSM, else its ``+swa`` variant."""
+    cfg = get_config(arch)
+    if arch in SUBQUADRATIC or cfg.arch_type == "ssm":
+        return arch
+    return arch + "+swa"

@@ -7,15 +7,27 @@ name, ``"data"``: shard i of the engine's lane batch lives on
 ``shard_map`` place the blocks; the port's engine is one process driving
 every shard from one host loop, so a mesh is only the devices in shard
 order. A device may repeat: D shards on one card hold D lane blocks there
-(and one copy of the parameters). The reference's ``make_local_mesh``
-and ``force_host_device_count`` have no counterpart: the first builds
-2-D XLA meshes and the second sets an XLA flag.
+(and one copy of the parameters).
+
+The production meshes of the dry run (the reference's
+``make_production_mesh`` and ``make_local_mesh``) are
+``torch.distributed`` ``DeviceMesh``es with the reference's axis names
+and order: ``pod16x16`` = (16, 16) over ("data", "model") and
+``pod2x16x16`` = (2, 16, 16) over ("pod", "data", "model"). They live
+inside :func:`fake_world`, a ``fake`` process group of exactly the mesh's
+size in which this process is rank 0: collectives return at once and move
+nothing, so DTensors laid out on it hold rank 0's local shards only.
+Nothing is set at import. The reference's ``force_host_device_count`` has
+no counterpart: it sets an XLA flag.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+import contextlib
+import math
+from typing import Iterator, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -92,3 +104,49 @@ def make_lane_mesh(num_devices: Optional[int] = None,
             "--mesh, or put several shards on one card explicitly: "
             f"LaneMesh([torch.device('cuda:0')] * {n})")
     return LaneMesh([torch.device("cuda", i) for i in range(n)])
+
+
+@contextlib.contextmanager
+def fake_world(size: int) -> Iterator[None]:
+    """A ``fake`` process group of ``size`` ranks, this process rank 0, for
+    the life of the block; destroyed on exit. Raises when a process group
+    is already initialised."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", rank=0, world_size=int(size),
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != need:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(
+            f"mesh {shape} needs a process group of {need} ranks, found "
+            f"{have}; build it inside fake_world({need})")
+    # the dry run's shards are fake tensors: no device holds them
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod = (16, 16) = 256 ranks ("data", "model"); multi-pod =
+    (2, 16, 16) = 512 ranks ("pod", "data", "model"). Call it inside
+    ``fake_world(256)`` or ``fake_world(512)``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes)
+
+
+def make_local_mesh(shape: Tuple[int, ...] = (1, 1),
+                    axes: Tuple[str, ...] = ("data", "model")):
+    """A small mesh of ``shape`` over ``axes``, inside
+    ``fake_world(prod(shape))``."""
+    return _mesh(tuple(shape), tuple(axes))

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import specs
 
 NEG_INF = -1e30
 
@@ -69,6 +70,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention in f32: q [B, Sq, H, hd], k/v [B, Sk, H, hd], an optional
     additive f32 bias broadcast to [B, H, Sq, Sk] -> [B, Sq, H, hd] in q's
     dtype."""
+    if specs.is_dtensor(q):
+        return specs.attention(q, k, v, bias, attention_core)
     dtype = q.dtype
     out = F.scaled_dot_product_attention(
         q.to(torch.float32).transpose(1, 2),
@@ -152,6 +155,9 @@ def update_kv_cache_ring(k_cache: torch.Tensor, v_cache: torch.Tensor,
     pos mod cache length; the inputs are left as they were."""
     slot = int(pos) % k_cache.shape[1]
     k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    if specs.is_dtensor(k_cache):
+        return (specs.write_rows(k_cache, k_new, slot),
+                specs.write_rows(v_cache, v_new, slot))
     k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
     v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
@@ -191,6 +197,9 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache, v_cache = k_cache.clone(), v_cache.clone()
     n = k_new.shape[1]
     pos = max(min(int(pos), k_cache.shape[1] - n), 0)
+    if specs.is_dtensor(k_cache):
+        return (specs.write_rows(k_cache, k_new, pos),
+                specs.write_rows(v_cache, v_new, pos))
     k_cache[:, pos:pos + n] = k_new.to(k_cache.dtype)
     v_cache[:, pos:pos + n] = v_new.to(v_cache.dtype)
     return k_cache, v_cache

@@ -36,6 +36,7 @@ from repro_torch.layers import ssm as ssm_lib
 from repro_torch.layers.mlp import gelu_mlp, mlp_forward
 from repro_torch.layers.norms import layer_norm, rms_norm
 from repro_torch.layers.rope import apply_rope
+from repro_torch.sharding import specs
 
 Params = Dict[str, torch.Tensor]
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -49,6 +50,10 @@ def _qkv(cfg: ModelConfig, bp: Params, x: torch.Tensor):
     q, k, v = x @ bp["wq"], x @ bp["wk"], x @ bp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + bp["bq"], k + bp["bk"], v + bp["bv"]
+    if specs.is_dtensor(q):
+        return (specs.split_heads(q, cfg.num_heads, hd),
+                specs.split_heads(k, cfg.num_kv_heads, hd),
+                specs.split_heads(v, cfg.num_kv_heads, hd))
     return (q.reshape(B, S, cfg.num_heads, hd),
             k.reshape(B, S, cfg.num_kv_heads, hd),
             v.reshape(B, S, cfg.num_kv_heads, hd))
@@ -56,6 +61,8 @@ def _qkv(cfg: ModelConfig, bp: Params, x: torch.Tensor):
 
 def _out_proj(cfg: ModelConfig, bp: Params, out: torch.Tensor,
               B: int, S: int) -> torch.Tensor:
+    if specs.is_dtensor(out):
+        return specs.merge_heads(out) @ bp["wo"]
     return out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim) \
         @ bp["wo"]
 
@@ -173,6 +180,8 @@ def block_branches_full(cfg: ModelConfig, bp: Params,
             a_out, kv = attn_branch_full(cfg, bp, x, angles=angles,
                                          window=window, use_flash=use_flash)
             s_out, state = ssm_branch_full(cfg, bp, x)
+            if specs.is_dtensor(x):
+                a_out, s_out = specs.residual(a_out), specs.residual(s_out)
             return 0.5 * (a_out + s_out), kv + state
         return fn0, fn1
 
@@ -217,7 +226,7 @@ def block_decode(cfg: ModelConfig, bp: Params, h: torch.Tensor,
     x = rms_norm(h, bp["ln1"], eps)
     if cfg.is_ssm:
         out, s, c = _ssm_decode(cfg, bp, x, cache_slice)
-        return h + out, {"ssm_state": s, "conv_state": c}
+        return h + specs.residual(out), {"ssm_state": s, "conv_state": c}
     a_out, (kc, vc) = attn_branch_decode(
         cfg, bp, x, angles=angles, window=window,
         k_cache=cache_slice["k"], v_cache=cache_slice["v"], pos=pos)
@@ -225,11 +234,11 @@ def block_decode(cfg: ModelConfig, bp: Params, h: torch.Tensor,
     if cfg.is_hybrid:
         s_out, new["ssm_state"], new["conv_state"] = _ssm_decode(
             cfg, bp, x, cache_slice)
-        h = h + 0.5 * (a_out + s_out)
+        h = h + specs.residual(0.5 * (a_out + s_out))
     else:
-        h = h + a_out
+        h = h + specs.residual(a_out)
     out, _ = ffn_branch(cfg, bp, rms_norm(h, bp["ln2"], eps))
-    return h + out, new
+    return h + specs.residual(out), new
 
 
 def attn_branch_decode_lanes(cfg: ModelConfig, bp: Params, x: torch.Tensor,

@@ -8,9 +8,13 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import specs
+
 
 def token_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table [V, D] at integer ``tokens`` [...]."""
+    if specs.is_dtensor(table):
+        return specs.embedding(table, tokens)
     return table[tokens.long()]
 
 
@@ -18,6 +22,9 @@ def codebook_embed(tables: torch.Tensor, tokens: torch.Tensor
                    ) -> torch.Tensor:
     """MusicGen-style: the sum of per-codebook embeddings. tables
     [K, V, D]; tokens [B, K, T] -> [B, T, D]."""
+    if specs.is_dtensor(tables):
+        return sum(specs.embedding(specs.index0(tables, k), tokens[:, k])
+                   for k in range(tables.shape[0]))
     book = torch.arange(tables.shape[0], device=tables.device)[None, :, None]
     return tables[book, tokens.long()].sum(dim=1)
 

@@ -38,6 +38,7 @@ from repro_torch.layers import blocks as blk
 from repro_torch.layers import embeddings as emb
 from repro_torch.layers.norms import layer_norm, rms_norm
 from repro_torch.layers.rope import mrope_angles, rope_angles
+from repro_torch.sharding import specs
 
 Params = Dict[str, Any]
 
@@ -186,8 +187,9 @@ def tree_to(tree: Any, device: torch.device) -> Any:
 
 def layer_params(blocks: Params, layer: int) -> Params:
     """The ``layer``-th slice of the stacked block parameters (views)."""
-    return {k: layer_params(v, layer) if isinstance(v, dict) else v[layer]
-            for k, v in blocks.items()}
+    return {k: layer_params(v, layer) if isinstance(v, dict)
+            else specs.index0(v, layer) if specs.is_dtensor(v)
+            else v[layer] for k, v in blocks.items()}
 
 
 def _sincos_pos(seq: int, d: int, device: torch.device) -> torch.Tensor:
@@ -244,6 +246,7 @@ def embed_inputs(cfg: ModelConfig, params: Params,
         h = emb.token_embed(params["embed"]["tok"], inputs["tokens"])
     if cfg.arch_type == "vlm" and "patch_embeds" in inputs:
         h = torch.cat([inputs["patch_embeds"].to(h.dtype), h], dim=1)
+    h = specs.residual(h)
     positions = inputs.get("positions")
     if positions is None:
         B, T = h.shape[:2]
@@ -327,8 +330,9 @@ def _real_layer(cfg: ModelConfig, params: Params, layer: int, t_emb,
         cfg, layer_params(params["blocks"], layer), t_emb, angles=angles,
         window=cfg.layer_window(layer), use_flash=use_flash)
     inc0, cache = fn0(h)
+    inc0 = specs.residual(inc0)
     inc1, aux = fn1(h + inc0)
-    return inc0, inc1, cache, aux
+    return inc0, specs.residual(inc1), cache, aux
 
 
 def cache_keys(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -412,7 +416,11 @@ def lm_logits(cfg: ModelConfig, params: Params,
     padding columns are −1e30 so that they never win a softmax or an
     argmax."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if cfg.arch_type == "audio":
+    if cfg.arch_type == "audio" and specs.is_dtensor(h):
+        w = params["head"]["w"]
+        logits = torch.stack([h @ specs.index0(w, k)
+                              for k in range(w.shape[0])], dim=2)
+    elif cfg.arch_type == "audio":
         logits = torch.einsum("btd,kdv->btkv", h, params["head"]["w"])
     elif cfg.tie_embeddings:
         logits = h @ params["embed"]["tok"].T

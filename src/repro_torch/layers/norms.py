@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import specs
+
 # cuBLAS products and torch's row reductions pick their kernels by the
 # number of rows and sum one row in another order than several: a decode
 # step's few rows (one a lane) are padded with zeros to a multiple of
@@ -23,7 +25,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm in f32 with the weight applied as ``(1 + w)`` (the LM init
     leaves ``w`` at zero), cast back to the input dtype. Fewer rows than
-    DECODE_ROWS are reduced as DECODE_ROWS."""
+    DECODE_ROWS are reduced as DECODE_ROWS. A DTensor is normalised on
+    each rank's batch shard."""
+    if specs.is_dtensor(x):
+        return specs.local_rows(lambda w, xl: rms_norm(xl, w, eps), weight,
+                                x)
     dtype = x.dtype
     x = x.to(torch.float32)
     rows = x.numel() // x.shape[-1]

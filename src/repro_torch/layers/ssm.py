@@ -12,12 +12,14 @@ switches to x above 20, which rounds differently.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.layers.norms import pad_lanes, rms_norm
+from repro_torch.sharding import specs
 
 Params = Dict[str, torch.Tensor]
 f32 = torch.float32
@@ -124,7 +126,14 @@ def mamba2_forward(params: Params, x_in: torch.Tensor, *, d_inner: int,
     """Full-sequence Mamba2 mixer -> (out [B, T, D], the f32 final SSM
     state [B, h, p, n], the conv tail [B, W, C]: the last ``conv_width``
     pre-conv xBC rows, zeros ahead of a short sequence, which
-    ``mamba2_decode`` takes as its conv state after a prefill)."""
+    ``mamba2_decode`` takes as its conv state after a prefill). DTensors
+    run on each rank's batch shard (the mixer's weights replicate)."""
+    if specs.is_dtensor(x_in):
+        return specs.local_rows(
+            lambda p, x, s0: mamba2_forward(
+                p, x, d_inner=d_inner, n_state=n_state, n_heads=n_heads,
+                head_dim=head_dim, chunk=chunk, norm_eps=norm_eps,
+                initial_state=s0), params, x_in, initial_state)
     B_, T, _ = x_in.shape
     zxbcdt = x_in @ params["w_in"]
     z, xBC, dt = _split_proj(zxbcdt, d_inner, n_state, n_heads)
@@ -170,7 +179,12 @@ def mamba2_decode(params: Params, x_in: torch.Tensor,
     ssm_state', conv_state' in its own dtype). The inputs are left as
     they were. Its products run on the lanes padded to
     ``norms.DECODE_ROWS``, so a lane's result is the same at every lane
-    width up to it."""
+    width up to it. DTensors run on each rank's batch shard."""
+    if specs.is_dtensor(x_in):
+        return specs.local_rows(functools.partial(
+            mamba2_decode, d_inner=d_inner, n_state=n_state,
+            n_heads=n_heads, head_dim=head_dim, norm_eps=norm_eps),
+            params, x_in, ssm_state, conv_state)
     B_ = x_in.shape[0]
     zxbcdt = (pad_lanes(x_in) @ params["w_in"])[:B_, 0]
     z, xBC, dt = _split_proj(zxbcdt, d_inner, n_state, n_heads)

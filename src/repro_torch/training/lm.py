@@ -11,6 +11,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.layers import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.sharding import specs
 from repro_torch.training.autodiff import value_and_grad
 
 
@@ -18,6 +19,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean cross-entropy in f32: logits [..., V], int labels [...]."""
     logits = logits.to(torch.float32)
+    if specs.is_dtensor(logits):
+        return torch.mean(specs.logsumexp_last(logits)
+                          - specs.take_last(logits, labels))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     return torch.mean(logz - gold)

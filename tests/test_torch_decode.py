@@ -1,8 +1,11 @@
 """The port's dense LM decode lanes against the JAX package, on the CPU.
 
 Reduced f32 configurations of llama3-8b (GQA), qwen1.5-0.5b (QKV bias,
-tied embeddings), granite-20b (MQA, GELU MLP) and qwen2-vl-72b (M-RoPE,
-text tokens, and patch embeddings ahead of them): the reference's
+tied embeddings), granite-20b (MQA, GELU MLP), qwen2-vl-72b (M-RoPE,
+text tokens, and patch embeddings ahead of them) and gemma3-27b (windowed
+and global layers mixed: ``reduced`` keeps ``global_every = 2``, window 64,
+and window 4 where the window has to bite within a short decode): the
+reference's
 ``init_params`` converted with ``params_from_jax``, with small seeded
 noise on the norm weights and the QKV biases (which the reference
 initialises to zero) where a layer is held on its own. Held: the rotary,
@@ -50,7 +53,8 @@ from repro_torch.serving import (Observability, Request, RequestPolicy,
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, G = 8, 10          # prompt length / new tokens (max_seq_len = P + G)
-ARCHS = ["llama3-8b", "qwen1.5-0.5b", "granite-20b", "qwen2-vl-72b"]
+ARCHS = ["llama3-8b", "qwen1.5-0.5b", "granite-20b", "qwen2-vl-72b",
+         "gemma3-27b"]
 
 
 def port_cfg(ref) -> PC.ModelConfig:
@@ -79,9 +83,12 @@ def _noisy(params, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _lm(arch, noisy=False):
-    """(reference cfg, reference params, port cfg, port params)."""
+def _lm(arch, noisy=False, window=None):
+    """(reference cfg, reference params, port cfg, port params);
+    ``window`` replaces the reduced config's attention window."""
     cfg = reduced(get_config(arch))
+    if window is not None:
+        cfg = dataclasses.replace(cfg, attn_window=window)
     params = JM.init_params(cfg, jax.random.PRNGKey(0))
     if noisy:
         params = _noisy(params)
@@ -346,9 +353,9 @@ def _greedy_ref(cfg, params, prompt, gen, max_len):
     return out
 
 
-def _engines(arch, tau0, lanes=1, **kw):
+def _engines(arch, tau0, lanes=1, window=None, **kw):
     """(reference engine, port engine) serving decode lanes only."""
-    cfg, jp, pc, tp = _lm(arch)
+    cfg, jp, pc, tp = _lm(arch, window=window)
     jwl = JDecodeWorkload(cfg, jp, JSpeCaConfig(tau0=tau0),
                           max_new_tokens=G, max_seq_len=P + G)
     pwl = DecodeWorkload(pc, tp, PC.SpeCaConfig(tau0=tau0),
@@ -381,7 +388,11 @@ def test_tau0_zero_engine_is_the_reference_greedy_decode(arch):
 def test_speculative_lifecycle_matches_reference_oracle():
     """τ0 = 5 through submit → result: the tokens and the accept count of
     the reference's raw-step oracle, with accepts."""
-    cfg, jp, _, _ = _lm("llama3-8b")
+    _assert_speculative_tokens_match_oracle("llama3-8b")
+
+
+def _assert_speculative_tokens_match_oracle(arch, window=None):
+    cfg, jp, _, _ = _lm(arch, window=window)
     prompt = _prompt(cfg)
     jwl = JDecodeWorkload(cfg, jp, JSpeCaConfig(tau0=5.0), max_new_tokens=G,
                           max_seq_len=P + G)
@@ -396,12 +407,58 @@ def test_speculative_lifecycle_matches_reference_oracle():
         n_spec += int(flags["n_spec"][0])
     oracle = np.asarray(state["tokens"][0]).tolist()
     assert n_spec > 0
-    _, pe = _engines("llama3-8b", 5.0)
+    _, pe = _engines(arch, 5.0, window=window)
     res = pe.result(pe.submit(_reqs(Request, RequestPolicy, [prompt])[0]))
     assert res.workload == "decode" and res.completed
     assert res.sample.tolist() == oracle
     assert res.num_spec == n_spec and res.num_full + res.num_spec == G
     assert res.flops > 0 and res.draft_accept_rate > 0
+
+
+@pytest.mark.parametrize("window", [64, 4])
+def test_gemma3_windowed_and_global_layers_match_reference(window):
+    """Reduced gemma3-27b, layer 0 windowed and layer 1 global: the
+    forward's logits and cache on seeded tokens [2, 12], then 12
+    ``lm_decode_step``s from an empty cache (logits every step, the cache
+    after the last); at window 4 the window cuts into both."""
+    cfg, jp, pc, tp = _lm("gemma3-27b", noisy=True, window=window)
+    assert [cfg.layer_window(i) for i in range(cfg.num_layers)] \
+        == [window, 0]
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (2, 12), 0,
+                                         cfg.vocab_size), np.int32)
+    lj, ej = JM.lm_forward(cfg, jp, {"tokens": jnp.asarray(toks)},
+                           collect_cache=True)
+    lp, ep = PM.lm_forward(pc, tp, {"tokens": torch.from_numpy(toks)},
+                           collect_cache=True)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(ep["cache"][k].numpy(),
+                                   np.asarray(ej["cache"][k]), **TOL)
+    cj, cp = JM.init_cache(cfg, 2, 16), PM.init_cache(pc, 2, 16,
+                                                      device="cpu")
+    step = jax.jit(functools.partial(JM.lm_decode_step, cfg, jp))
+    for pos in range(12):
+        tok = toks[:, pos:pos + 1]
+        la, cj = step(jnp.asarray(tok), cj, pos)
+        lb, cp = PM.lm_decode_step(pc, tp, torch.from_numpy(tok), cp, pos)
+        np.testing.assert_allclose(lb.numpy(), np.asarray(la), **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(cp[k].numpy(), np.asarray(cj[k]), **TOL)
+
+
+def test_gemma3_engine_tokens_match_reference():
+    """Reduced gemma3-27b at window 4 through the engine: τ0 = 0 gives the
+    reference's greedy tokens, τ0 = 5 the tokens and accepts of the
+    reference's raw-step oracle."""
+    cfg, jp, _, _ = _lm("gemma3-27b", window=4)
+    prompt = _prompt(cfg)
+    want = _greedy_ref(cfg, jp, prompt, G, P + G)
+    _, pe = _engines("gemma3-27b", 0.0, window=4)
+    res = pe.serve_batched(_reqs(Request, RequestPolicy, [prompt]),
+                           lanes=1)[0]
+    assert res.completed and res.num_full == G and res.num_spec == 0
+    assert res.sample.tolist() == want
+    _assert_speculative_tokens_match_oracle("gemma3-27b", window=4)
 
 
 def test_draft_chain_rollback_bitwise():

@@ -24,7 +24,9 @@ def _port_files():
         REPO / "tools" / "flash_ab.py", REPO / "tools" / "verify_ab.py",
         REPO / "tools" / "rollback_ab.py",
         REPO / "tools" / "profiler_windows.py",
-        REPO / "tools" / "width_probe.py"]
+        REPO / "tools" / "width_probe.py",
+        REPO / "tools" / "predict_ab.py",
+        REPO / "tools" / "ssd_order_probe.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -57,6 +59,33 @@ def test_lane_sharding_modules_are_checked():
         assert m in mods
         assert PORT / (m.split(".", 1)[1].replace(".", "/") + ".py") \
             in _port_files()
+
+
+def test_dry_run_modules_are_checked():
+    """The dry run's modules are among the files and modules above."""
+    mods = _modules()
+    for m in ("repro_torch.launch.dryrun", "repro_torch.launch.steps",
+              "repro_torch.launch.cost_analysis"):
+        assert m in mods
+        assert PORT / (m.split(".", 1)[1].replace(".", "/") + ".py") \
+            in _port_files()
+
+
+def test_dry_run_import_sets_nothing():
+    """Importing the dry run sets no environment variable and starts no
+    process group (the reference's sets ``XLA_FLAGS`` at import)."""
+    code = ("import os, json\n"
+            "before = dict(os.environ)\n"
+            "import repro_torch.launch.dryrun\n"
+            "import torch.distributed as dist\n"
+            "print(json.dumps([dict(os.environ) == before,"
+            " dist.is_initialized()]))\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[true, false]"
 
 
 def _modules():
