@@ -356,6 +356,23 @@ Phases (any failure ends the run with a non-zero exit):
     ``FlopCounterMode`` over the real call, logits finite, and no process
     group is left; its temp bytes are printed beside the card's peak
     allocation beyond what was live before the call (not gated).
+    (c) The SpeCa-step dry run (``python -m
+    repro_torch.launch.dryrun_speca``), one process a record, in the same
+    pool as (a): ``SPECA_DRYRUN_CASES`` (FLUX-like at a bfloat16 and a
+    float32 table, batch 16 on pod16x16 and batch 32 with ``--multi-pod
+    --tag pod2x16x16``; DiT-XL/2 at latent 32, batch 16, bfloat16), each
+    must exit 0 and print both steps; FLUX-like ``--multi-pod`` at batch
+    16 must exit non-zero naming the batch that does not divide the 32
+    data shards, as the reference's layout does.
+    (d) The card check of the SpeCa steps: FLUX-like at full width and
+    depth, batch ``SPECA_CARD_BATCH``, latent 128, a bfloat16 table, m =
+    2, as a dry run on a (1, 1) fake mesh and for real through the same
+    ``full_step`` and ``spec_step`` on phase 3's tamed weights drawn on
+    the card, the table filled by three real anchors first: argument
+    bytes, output bytes and FLOPs (``FlopCounterMode`` over the card step)
+    equal the dry run's, x and the error finite; each step's temp ratio
+    (dry temp against the card's peak beyond what was live) and card wall
+    are printed.
 14. ``profiler``: every kernel count and device time above is read from
     torch.profiler windows; a window with no CUDA event, or with a count
     that is no multiple of the calls, is recorded again (up to 5
@@ -465,6 +482,15 @@ DRYRUN_CASES = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
                 ("gemma3-27b", "prefill_32k"), ("hymba-1.5b", "train_4k"))
 DRYRUN_PROCS = 8                  # dry-run processes at a time (CPU only)
 DRYRUN_CARD_BATCH = 8             # the card check's decode_32k batch
+# dryrun (c): the SpeCa-step records, (arch, latent, batch, table dtype,
+# multi-pod); a multi-pod record runs at batch 32 (16 does not divide
+# its 32 data shards) and is tagged with its mesh
+SPECA_DRYRUN_CASES = (("flux-like", 128, 16, "bfloat16", False),
+                      ("flux-like", 128, 16, "float32", False),
+                      ("flux-like", 128, 32, "bfloat16", True),
+                      ("flux-like", 128, 32, "float32", True),
+                      ("dit-xl2", 32, 16, "bfloat16", False))
+SPECA_CARD_BATCH = 2              # dryrun (d): FLUX-like's batch on the card
 # the __global__ functions of the serving kernels, as the profiler names
 # them
 DEVICE_NAMES = {"taylor_predict_lanes": "predict_lanes_kernel",
@@ -4342,12 +4368,17 @@ class Smoke:
     def dryrun(self):
         """Phase 13f: (a) the fake-mesh dry run of ``DRYRUN_CASES`` on
         both production meshes; (b) the dry run of Llama-3-8B decode held
-        against the same step on the card."""
+        against the same step on the card; (c) the SpeCa-step dry run's
+        records and its refused layout; (d) the SpeCa steps of FLUX-like
+        held against the card."""
         import os
         from concurrent.futures import ThreadPoolExecutor
         from repro_torch.launch.dryrun import arch_for_shape
         env = dict(os.environ, PYTHONPATH=str(SRC))
         out_dir = OUT / "dryrun"
+        # the SpeCa records go to build/dryrun under their process's cwd
+        speca_dir = OUT / "dryrun_speca"
+        speca_dir.mkdir(parents=True, exist_ok=True)
 
         def run(case):
             arch, shape = case
@@ -4359,9 +4390,26 @@ class Smoke:
                 text=True, timeout=900)
             return case, p, time.perf_counter() - t0
 
+        def run_speca(args):
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun_speca",
+                 *args], env=env, cwd=speca_dir, capture_output=True,
+                text=True, timeout=900)
+            return args, p, time.perf_counter() - t0
+
+        speca_args = [
+            ["--arch", arch, "--latent", str(latent), "--batch", str(batch),
+             "--table-dtype", dt]
+            + (["--multi-pod", "--tag", "pod2x16x16"] if mp else [])
+            for arch, latent, batch, dt, mp in SPECA_DRYRUN_CASES]
         t0 = time.perf_counter()
         with ThreadPoolExecutor(DRYRUN_PROCS) as ex:
-            results = list(ex.map(run, DRYRUN_CASES))
+            pending = [ex.submit(run, c) for c in DRYRUN_CASES]
+            pending_speca = [ex.submit(run_speca, a) for a in
+                             speca_args + [["--multi-pod"]]]
+            results = [f.result() for f in pending]
+            speca = [f.result() for f in pending_speca]
         wall = time.perf_counter() - t0
         records, failed = [], []
         for (arch, shape), p, dt in results:
@@ -4380,9 +4428,36 @@ class Smoke:
                     f"{eff.replace('+', '_')}_{shape}_{mesh}.json"))
                     .read_text()))
         print(f"dryrun (a): {len(records)} of {2 * len(DRYRUN_CASES)} "
-              f"records in {wall:.1f} s", flush=True)
+              f"records; (a) and (c) in {wall:.1f} s", flush=True)
         self.record["dryrun"] = dict(records=records, wall_s=wall,
                                      failed=failed)
+
+        # (c) the SpeCa-step records
+        speca_records = []
+        for (arch, _, _, dt, mp), (args, p, dt_s) in zip(SPECA_DRYRUN_CASES,
+                                                        speca):
+            print(f"dryrun (c) {' '.join(args)}: rc {p.returncode} in "
+                  f"{dt_s:.1f} s", flush=True)
+            for x in p.stdout.splitlines():
+                if x.startswith("[speca-dryrun"):
+                    print(f"  {x}", flush=True)
+            if p.returncode:
+                print(p.stderr.strip()[-2000:], flush=True)
+                failed.append(tuple(args))
+                continue
+            tag = "_pod2x16x16" if mp else ""
+            speca_records.append(json.loads((
+                speca_dir / "build" / "dryrun"
+                / f"speca_step_{arch}_{dt}_m2{tag}.json").read_text()))
+        _, refused, _ = speca[-1]
+        print(f"dryrun (c) flux-like --multi-pod at batch 16: rc "
+              f"{refused.returncode}: "
+              f"{(refused.stderr.strip().splitlines() or [''])[-1]}",
+              flush=True)
+        self.record["dryrun"]["speca"] = dict(
+            records=speca_records,
+            refused=dict(rc=refused.returncode,
+                         stderr=refused.stderr[-2000:]))
 
         # (b) the card check
         torch = self.torch
@@ -4435,13 +4510,134 @@ class Smoke:
         self.record["dryrun"]["card_check"] = dict(
             dry={k: v for k, v in dry.items() if k != "collectives"},
             card=real, temp_ratio=ratio, smi=smi_line())
-        del params, cache
+        finite = bool(torch.isfinite(logits.float()).all())
+        del params, cache, logits, new
         assert not failed, failed
-        assert bool(torch.isfinite(logits.float()).all())
+        assert refused.returncode != 0 and "does not divide" in \
+            refused.stderr, refused.stderr[-2000:]
+        assert finite
         assert dry["argument_bytes"] == arg_bytes, (dry, real)
         assert dry["output_bytes"] == out_bytes, (dry, real)
         assert dry["flops"] == real["flops"], (dry, real)
         assert not dist.is_initialized()
+        self._release()
+        self._speca_card_check()
+
+    def _speca_card_check(self):
+        """Phase 13f (d): FLUX-like's ``full_step`` and ``spec_step`` as a
+        dry run on a (1, 1) fake mesh and for real on the card."""
+        torch = self.torch
+        import torch.distributed as dist
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.configs import FLUX_LIKE, DiffusionConfig, SpeCaConfig
+        from repro_torch.core import taylor
+        from repro_torch.launch import cost_analysis as C
+        from repro_torch.launch import dryrun_speca as DSP
+        from repro_torch.launch.dryrun import measure
+        from repro_torch.launch.mesh import fake_world, make_local_mesh
+        cfg, B = FLUX_LIKE, SPECA_CARD_BATCH
+        dcfg = DiffusionConfig(num_inference_steps=50, latent_size=128,
+                               schedule="rectified_flow")
+        scfg = SpeCaConfig(taylor_order=2)
+        names = ("full_step", "spec_step")
+        with fake_world(1):
+            mesh = make_local_mesh((1, 1))
+            with FakeTensorMode():
+                fns, args, _, outs = DSP.build(cfg, dcfg, scfg, batch=B,
+                                               table_dtype=torch.bfloat16,
+                                               mesh=mesh)
+                dry = {n: measure(fn, args, o)
+                       for n, fn, o in zip(names, fns, outs)}
+            del fns, args
+        assert not dist.is_initialized()
+
+        full, spec = DSP.make_steps(cfg, dcfg, scfg, self.dev)
+        params = self._tamed_params(cfg, dcfg)
+        gen = torch.Generator(device=self.dev).manual_seed(12)
+        lat = dcfg.latent_size
+        x = torch.randn((B, lat, lat, cfg.in_channels), generator=gen,
+                        device=self.dev)
+        cond = {"cond": torch.randn((B, TEXT_TOKENS, cfg.cond_dim),
+                                    generator=gen, device=self.dev)
+                * TEXT_SCALE}
+        n_tok = (lat // cfg.patch_size) ** 2
+        tstate = taylor.init_state(
+            scfg.taylor_order, taylor.feature_shape_for(
+                cfg.num_layers, B, n_tok, cfg.d_model),
+            torch.bfloat16, device=self.dev)
+
+        def step(i):
+            return torch.tensor(i, dtype=torch.int32, device=self.dev)
+
+        def timed(fn, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # three real anchors fill every plane of the table
+        fill_s = []
+        for i in range(scfg.taylor_order + 1):
+            (x, tstate), dt = timed(full, params, x, tstate, step(i), cond)
+            fill_s.append(dt)
+        card = {}
+        for name, fn, i in (("full_step", full, 3), ("spec_step", spec, 4)):
+            a = (params, x, tstate, step(i), cond)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            with FlopCounterMode(display=False) as fc:
+                out, counted_s = timed(fn, *a)
+            peak = torch.cuda.max_memory_allocated() - live
+            card[name] = dict(argument_bytes=C.tree_bytes(a),
+                              output_bytes=C.tree_bytes(out),
+                              flops=fc.get_total_flops(),
+                              peak_beyond_live=peak, live_before=live,
+                              flop_counter_wall_s=counted_s)
+            del out
+            _, card[name]["wall_s"] = timed(fn, *a)
+            if name == "full_step":
+                # the draft predicts from the table this anchor refreshed
+                (x, tstate), _ = timed(fn, *a)
+            else:
+                (x_spec, err), _ = timed(fn, *a)
+            del a
+        ratio = {n: dry[n]["temp_bytes"] / card[n]["peak_beyond_live"]
+                 for n in names}
+        smi = smi_line()
+        for n in names:
+            d, c = dry[n], card[n]
+            print(f"dryrun (d): FLUX-like {n} batch {B} latent {lat} bf16 "
+                  f"table m={scfg.taylor_order}: argument bytes dry "
+                  f"{d['argument_bytes']} / card {c['argument_bytes']}; "
+                  f"output bytes {d['output_bytes']} / {c['output_bytes']}; "
+                  f"FLOPs {d['flops']} / {c['flops']}; temp "
+                  f"{d['temp_bytes'] / 2**30:.3f} GiB dry / "
+                  f"{c['peak_beyond_live'] / 2**30:.3f} GiB card peak beyond "
+                  f"the {c['live_before'] / 2**30:.3f} GiB live (ratio "
+                  f"{ratio[n]:.4f}); card wall {c['wall_s']:.4f} s "
+                  f"({c['flop_counter_wall_s']:.4f} s under "
+                  f"FlopCounterMode); trace {d['trace_s']:.2f} s; {smi}",
+                  flush=True)
+        print(f"dryrun (d): fill anchors {[round(t, 4) for t in fill_s]} s; "
+              f"err {err.tolist()}", flush=True)
+        self.record["dryrun"]["speca_card_check"] = dict(
+            dry={n: {k: v for k, v in dry[n].items() if k != "collectives"}
+                 for n in names},
+            card=card, temp_ratio=ratio, fill_s=fill_s, err=err.tolist(),
+            smi=smi)
+        finite = bool(torch.isfinite(x_spec).all()) and \
+            bool(torch.isfinite(err).all())
+        del params, tstate, x, x_spec
+        assert finite, err
+        for n in names:
+            assert dry[n]["argument_bytes"] == card[n]["argument_bytes"], \
+                (n, dry[n], card[n])
+            assert dry[n]["output_bytes"] == card[n]["output_bytes"], \
+                (n, dry[n], card[n])
+            assert dry[n]["flops"] == card[n]["flops"], (n, dry[n], card[n])
 
 
 def _leaves(tree):

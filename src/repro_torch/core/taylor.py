@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
+from repro_torch.sharding import specs
 
 State = Dict[str, torch.Tensor]
 
@@ -167,18 +168,47 @@ def prediction_weights(order: int, d: torch.Tensor, gap: torch.Tensor,
     return torch.where(valid, w, torch.zeros_like(w))
 
 
+# cuBLAS faults (an illegal address) on the f32 product [1, 3] x [3, N] of
+# N = 1,912,602,624 columns (5,737,807,872 elements: FLUX-like's table at
+# batch 2 and 4,096 tokens) and runs at N = 956,301,312 (2,868,903,936
+# elements) on an NVIDIA H100 with torch 2.11 and CUDA 12.8: the forecast
+# contracts at most the elements of that run a product.
+MAX_ELEMENTS = 2_868_903_936
+
+
+def _contract(w: torch.Tensor, diffs: torch.Tensor,
+              max_elements: int = MAX_ELEMENTS) -> torch.Tensor:
+    """Σ_i w_i·Δⁱ of a table [m+1, ...] in its own dtype: the f32
+    ``tensordot(w, diffs, ([0], [0]))`` over blocks of columns of at most
+    ``max_elements`` table elements, each cast to f32 from the stored
+    table (each column is the same dot product of m+1 terms; a table that
+    fits is one block, one product)."""
+    rows = diffs.shape[0]
+    flat = diffs.reshape(rows, -1)
+    cols = max_elements // rows
+    out = torch.empty(flat.shape[1], dtype=diffs.dtype, device=diffs.device)
+    for lo in range(0, flat.shape[1], cols):
+        # one statement: a block's f32 copy is freed before the next
+        out[lo:lo + cols] = torch.tensordot(
+            w, flat[:, lo:lo + cols].to(
+                torch.float32, memory_format=torch.contiguous_format),
+            dims=([0], [0]))
+    return out.reshape(diffs.shape[1:])
+
+
 def predict(state: State, step, mode: str = "taylor") -> torch.Tensor:
     """Whole-batch forecast of a scalar-metadata table at ``step``:
     Σ_i w_i·Δⁱ as an f32 ``tensordot`` over the order axis, cast to the
-    table dtype (the reference's plain ``predict``)."""
+    table dtype (the reference's plain ``predict``); a DTensor table is
+    contracted shard by shard."""
     diffs = state["diffs"]
     step = torch.as_tensor(step, dtype=torch.int32, device=diffs.device)
     d = (step - state["anchor_step"]).to(torch.float32)
     w = prediction_weights(diffs.shape[0] - 1, d, state["gap"],
-                           state["n_anchors"], mode)
-    pred = torch.tensordot(w.to(torch.float32), diffs.to(torch.float32),
-                           dims=([0], [0]))
-    return pred.to(diffs.dtype)
+                           state["n_anchors"], mode).to(torch.float32)
+    if specs.is_dtensor(diffs):
+        return specs.contract_leading(w, diffs, _contract)
+    return _contract(w, diffs)
 
 
 def _lane_weights(state: State, steps: torch.Tensor, mode: str,

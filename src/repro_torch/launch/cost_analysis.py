@@ -83,7 +83,7 @@ _META_OPS = {
     aten.sym_size.default, aten.stride.default, aten.sym_stride.default,
     aten.storage_offset.default, aten.sym_storage_offset.default,
     aten.numel.default, aten.sym_numel.default, aten.dim.default,
-    torch.ops.prim.layout.default,
+    torch.ops.prim.layout.default, torch.ops.prim.device.default,
 }
 
 
@@ -237,8 +237,7 @@ class StepRecorder(TorchDispatchMode):
             return NotImplemented
         if self._shadow:
             return func(*args, **kwargs)
-        if func not in FLOP_FORMULAS and \
-                func is not torch.ops.prim.device.default:
+        if func not in FLOP_FORMULAS:
             # a composite op is counted through its decomposition, as
             # FlopCounterMode counts it
             with self:

@@ -70,27 +70,35 @@ def _place(out: Any, sharding: Any) -> Any:
     return out
 
 
+def measure(fn, args: tuple, out_sh: Any) -> Dict[str, Any]:
+    """``fn(*args)`` on DTensor arguments (fake local shards, inside a
+    ``FakeTensorMode`` and the mesh's process group), its outputs placed
+    by ``out_sh`` -> {"flops", "bytes", "collectives", "argument_bytes",
+    "output_bytes", "temp_bytes", "trace_s"}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    t0 = time.perf_counter()
+    # the layers' own plain tensors (positions, masks) join the DTensors
+    # as replicated values
+    with StepRecorder(args) as rec, implicit_replication():
+        out = _place(fn(*args), out_sh)
+    trace_s = time.perf_counter() - t0
+    return {"flops": rec.flops, "bytes": rec.bytes_accessed,
+            "collectives": rec.collectives(),
+            "argument_bytes": tree_bytes(args),
+            "output_bytes": tree_bytes(out),
+            "temp_bytes": rec.peak_bytes, "trace_s": trace_s}
+
+
 def measure_step(cfg: ModelConfig, shape: ShapeConfig, mesh
                  ) -> Dict[str, Any]:
     """One step of ``cfg`` at ``shape`` laid out on ``mesh`` (inside a
-    process group of its size) -> {"flops", "bytes", "collectives",
-    "argument_bytes", "output_bytes", "temp_bytes", "trace_s"}."""
+    process group of its size), measured by :func:`measure`."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
 
     with FakeTensorMode():
         fn, args, _, out_sh = build_step(cfg, shape, mesh)
-        t0 = time.perf_counter()
-        # the layers' own plain tensors (positions, masks) join the
-        # DTensors as replicated values
-        with StepRecorder(args) as rec, implicit_replication():
-            out = _place(fn(*args), out_sh)
-        trace_s = time.perf_counter() - t0
-        return {"flops": rec.flops, "bytes": rec.bytes_accessed,
-                "collectives": rec.collectives(),
-                "argument_bytes": tree_bytes(args),
-                "output_bytes": tree_bytes(out),
-                "temp_bytes": rec.peak_bytes, "trace_s": trace_s}
+        return measure(fn, args, out_sh)
 
 
 def _mesh_name(multi_pod: bool) -> str:

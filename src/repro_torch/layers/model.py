@@ -291,8 +291,8 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
         branch_preds = branch_preds.to(h.dtype)
     elif not all(mask):
         raise ValueError("a masked forward needs branch_preds")
-    branches = torch.empty((L, 2) + tuple(h.shape), dtype=h.dtype,
-                           device=h.device) if collect_branches else None
+    branches = specs.stacked_empty((L, 2), h) if collect_branches \
+        else None
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in range(L):
@@ -307,7 +307,9 @@ def forward_full(cfg: ModelConfig, params: Params, h: torch.Tensor, *,
             if aux_l is not None:
                 aux = aux + aux_l
         else:
-            inc0, inc1 = branch_preds[layer, 0], branch_preds[layer, 1]
+            # a forecast increment joins the residual stream's layout
+            inc0 = specs.residual(branch_preds[layer][0])
+            inc1 = specs.residual(branch_preds[layer][1])
             cache = None
         h = h + inc0 + inc1
         if branches is not None:

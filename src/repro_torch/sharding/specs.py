@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -673,6 +673,62 @@ def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
     total = reduce(torch.sum(torch.exp(xl - m[..., None]), dim=-1), "sum")
     return DTensor.from_local(torch.log(total) + m, mesh, other,
                               run_check=False)
+
+
+def _contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The row-major stride of ``shape`` (computed, not allocated: a
+    tensor made here would count as the step's memory)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def stacked_empty(lead: Sequence[int], like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor [*lead, *like.shape] of ``like``'s dtype and
+    device. For a DTensor ``like`` it is laid out as ``like`` on its
+    trailing dims, the leading ones whole: each rank holds only its own
+    shard, where a plain ``torch.empty`` of the global shape would be
+    whole on every rank. A layer loop writes its ``like``-shaped values
+    into it."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not is_dtensor(like):
+        return torch.empty(tuple(lead) + tuple(like.shape), dtype=like.dtype,
+                           device=like.device)
+    n = len(lead)
+    local = like.to_local()
+    shape = torch.Size(tuple(lead) + tuple(like.shape))
+    return DTensor.from_local(
+        torch.empty(tuple(lead) + tuple(local.shape), dtype=like.dtype,
+                    device=local.device), like.device_mesh,
+        [Shard(p.dim + n) if isinstance(p, Shard) else p
+         for p in like.placements], run_check=False, shape=shape,
+        stride=_contiguous_stride(shape))
+
+
+def contract_leading(w: torch.Tensor, t: torch.Tensor,
+                     contract: Callable[[torch.Tensor, torch.Tensor],
+                                        torch.Tensor]) -> torch.Tensor:
+    """``contract(w, t)``, a contraction over the leading dim such as
+    ``tensordot(w, t, ([0], [0]))``, for a DTensor t [N, ...] and w [N]
+    (plain or DTensor): each rank contracts its own shard of ``t`` with
+    the whole ``w`` (DTensor would flatten ``t``'s split dims into one and
+    could not place the product). The result is laid out as ``t`` without
+    its leading dim, which no rule splits."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = t.device_mesh
+    kept = [Replicate() if p == Shard(0) else p for p in t.placements]
+    wl = _redistribute(_replicated_like(w, mesh),
+                       [Replicate()] * mesh.ndim).to_local()
+    out = contract(wl, _redistribute(t, kept).to_local())
+    shape = t.shape[1:]
+    return DTensor.from_local(
+        out, mesh, [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                    for p in kept], run_check=False, shape=shape,
+        stride=_contiguous_stride(shape))
 
 
 # ---------------------------------------------------------------------------

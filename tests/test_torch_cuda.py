@@ -1254,3 +1254,35 @@ def test_sharded_flags_reach_the_accumulator_sync_free_on_card(cuda, K):
     whole.flush_into(regs[0], workload="diffusion")
     joined.flush_into(regs[1], workload="diffusion")
     assert regs[0].snapshot() == regs[1].snapshot()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forecast_in_column_blocks_equals_it_whole_on_card(cuda, dtype):
+    """The whole-batch forecast over column blocks (the path of a table
+    over more elements than ``taylor.MAX_ELEMENTS``, here 3,000 elements:
+    1,000 columns a block) equals the forecast in one product on the card
+    to the product's rounding: cuBLAS picks another kernel for another width, so f32 within a few
+    ulps of the largest term Σ|w_i·Δⁱ| (2^-21 of it), bf16 within one
+    ulp."""
+    from repro_torch.core import taylor
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = {"diffs": torch.randn((3, 4, 2, 2, 64, 72), generator=g,
+                                  device=cuda).to(dtype),
+             "n_anchors": torch.tensor(3, dtype=torch.int32, device=cuda),
+             "anchor_step": torch.tensor(2, dtype=torch.int32, device=cuda),
+             "gap": torch.tensor(2.0, device=cuda)}
+    step = torch.tensor(5, dtype=torch.int32, device=cuda)
+    whole = taylor.predict(state, step)
+    w = taylor.prediction_weights(2, torch.tensor(3.0, device=cuda),
+                                  state["gap"], state["n_anchors"])
+    blocks = taylor._contract(w, state["diffs"], max_elements=3000)
+    assert blocks.dtype == dtype and blocks.shape == whole.shape
+    if dtype == torch.float32:
+        terms = (w.reshape(-1, *[1] * 5).abs()
+                 * state["diffs"].abs()).sum(0)
+        assert bool(((blocks - whole).abs() <= 2.0 ** -21 * terms).all())
+    else:
+        torch.testing.assert_close(blocks, whole, rtol=2.0 ** -8,
+                                   atol=2.0 ** -8)
+

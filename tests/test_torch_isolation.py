@@ -65,18 +65,17 @@ def test_dry_run_modules_are_checked():
     """The dry run's modules are among the files and modules above."""
     mods = _modules()
     for m in ("repro_torch.launch.dryrun", "repro_torch.launch.steps",
-              "repro_torch.launch.cost_analysis"):
+              "repro_torch.launch.cost_analysis",
+              "repro_torch.launch.dryrun_speca"):
         assert m in mods
         assert PORT / (m.split(".", 1)[1].replace(".", "/") + ".py") \
             in _port_files()
 
 
-def test_dry_run_import_sets_nothing():
-    """Importing the dry run sets no environment variable and starts no
-    process group (the reference's sets ``XLA_FLAGS`` at import)."""
+def _import_sets_nothing(module):
     code = ("import os, json\n"
             "before = dict(os.environ)\n"
-            "import repro_torch.launch.dryrun\n"
+            f"import {module}\n"
             "import torch.distributed as dist\n"
             "print(json.dumps([dict(os.environ) == before,"
             " dist.is_initialized()]))\n")
@@ -86,6 +85,18 @@ def test_dry_run_import_sets_nothing():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[true, false]"
+
+
+def test_dry_run_import_sets_nothing():
+    """Importing the dry run sets no environment variable and starts no
+    process group (the reference's sets ``XLA_FLAGS`` at import)."""
+    _import_sets_nothing("repro_torch.launch.dryrun")
+
+
+def test_speca_dry_run_import_sets_nothing():
+    """The same of the SpeCa-step dry run (the reference's
+    ``dryrun_speca`` sets ``XLA_FLAGS`` at its first line)."""
+    _import_sets_nothing("repro_torch.launch.dryrun_speca")
 
 
 def _modules():
