@@ -31,6 +31,15 @@ device sync per branch; :attr:`LaneStep.host_syncs` counts them (two per
 tick at depth 1, at most K+1 per chain tick). Both branches are never
 computed.
 
+Phases (``phases=``, the engine's ``repro_torch.obs.PhaseRecorder``,
+None by default): each kernel request runs inside a span named for its
+phase (``predict``, ``predict_chain``, ``verify``, ``refresh``,
+``rollback``), each workload forward inside ``spec_forward`` or
+``full_forward`` (counted in ``speca_<kind>_forward_calls_total``), each
+branch read inside ``wait.draft``, ``wait.chain`` or ``wait.full``, and
+on a card each threshold schedule inside ``wait.tau`` (it copies β from
+the host, a copy that blocks). Without it the step runs no span code.
+
 Lane sharding (``mesh=``, a ``repro_torch.launch.mesh.LaneMesh`` of D
 shards): the state is D per-shard dicts of W/D lanes each
 (``repro_torch.sharding.specs``), and each shard runs the step body of a
@@ -107,6 +116,11 @@ GUIDANCE_MODES = (False, True, "mixed")
 # the per-tick [W] counters the engine's accounting reads
 COUNTER_FLAGS = ("attempted", "accepted", "full",
                  "n_spec", "n_drafted", "advanced")
+
+# the phase span each kernel request of the body runs in
+_PHASE_OF = {"predict": "predict", "predict_chain": "predict_chain",
+             "verify": "verify", "verify_mixed": "verify",
+             "update": "refresh", "rollback": "rollback"}
 
 State = Dict[str, Any]
 
@@ -223,12 +237,14 @@ def init_workload_state(wl, lanes: int, cond_template: Dict[str, Any], *,
 
 class LaneStep:
     """The built lane step: ``step(state) -> (state, flags)``. Counts the
-    host syncs its two data-dependent branches cost in ``host_syncs``."""
+    host syncs its two data-dependent branches cost in ``host_syncs``;
+    records its phases in ``phases`` when given one."""
 
     def __init__(self, wl, *, lanes: int, draft_mode: str,
                  accept_mode: str, verify_backend: str,
                  guidance: Union[bool, str] = False,
-                 forecaster: Any = None, controller: bool = False) -> None:
+                 forecaster: Any = None, controller: bool = False,
+                 phases: Optional[Any] = None) -> None:
         if accept_mode not in ACCEPT_MODES:
             raise ValueError(f"unknown accept_mode {accept_mode!r}")
         if verify_backend not in VERIFY_BACKENDS:
@@ -244,18 +260,36 @@ class LaneStep:
         self.accept_mode = accept_mode
         self.verify_backend = verify_backend
         self.controller = bool(controller)
+        self.phases = phases
         self.host_syncs = 0
 
     def __call__(self, state: State) -> Tuple[State, Dict[str, Any]]:
-        body, answer = self._body(state), None
+        body, answer, ph = self._body(state), None, self.phases
         while True:
             done, out = _resume(body, answer)
             if done:
                 return out
-            answer = self._answer(*out)
+            answer = self._answer(*out) if ph is None \
+                else _phase(ph, out, self._answer, *out)
+
+    def _tau(self, ph, s_eff, tau0):
+        """``threshold_schedule``, which copies β from the host: on a card
+        a copy that blocks the host, so inside ``wait.tau``."""
+        wl = self.wl
+        args = (wl.t_frac(s_eff), tau0, wl.scfg.beta)
+        if wl.device.type == "cpu":
+            return threshold_schedule(*args)
+        return ph.wait("tau", threshold_schedule, *args)
+
+    def _forward(self, ph, kind: str, *args):
+        """The workload's ``<kind>_forward`` inside its phase span."""
+        ph.count(f"speca_{kind}_forward_calls_total", workload=self.wl.tag)
+        return ph.call(f"{kind}_forward",
+                       getattr(self.wl, f"{kind}_forward"), *args)
 
     # --- the body's requests -------------------------------------------------
-    # ("any", t): is any lane of t set (a branch, one host sync); ("all", t):
+    # ("any", t, reason): is any lane of t set (a branch, one host sync;
+    # ``reason`` names its wait: "draft", "chain" or "full"); ("all", t):
     # t [] bool over every lane, as a device tensor (batch accept); and the
     # kernel calls ("predict", "predict_chain", "update", "rollback",
     # "verify", "verify_mixed"), whose arguments are one lane batch's —
@@ -389,7 +423,7 @@ class LaneStep:
             if self.pairing else out
 
     def _body(self, state: State):
-        wl, fc, W = self.wl, self.fc, self.W
+        wl, fc, W, ph = self.wl, self.fc, self.W, self.phases
         scfg, vl = wl.scfg, wl.verify_layer
         dyn = {k: state[k] for k in wl.dyn_keys}
         since, s, active = state["since"], state["step"], state["active"]
@@ -400,12 +434,15 @@ class LaneStep:
         warm = fc.warm(tstate, scfg)
         want = self._want(state, active & warm & (since < scfg.max_draft))
         # per-lane τ_t = τ0·β^((T−t)/T) at each lane's own step
-        tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"], scfg.beta)
+        tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"], scfg.beta) \
+            if ph is None else self._tau(ph, s_eff, state["tau0"])
         nan = self._nan()
 
-        if (yield ("any", want)):
+        if (yield ("any", want, "draft")):
             preds = yield ("predict", tstate, s_eff, self._order_cap(state))
-            out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
+            out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds) \
+                if ph is None else \
+                self._forward(ph, "spec", dyn, cond, ctx, preds)
             pred_vl = preds[vl][0] + preds[vl][1]
             err, ok = yield from self._verify(state, pred_vl, real_vl, tau)
             # NaN marks "did not draft": it fails every `err <= tau`
@@ -416,8 +453,9 @@ class LaneStep:
         accept = yield from self._combine(want, ok)
         full = active & ~accept
 
-        if (yield ("any", full)):
-            out_full, branches = wl.full_forward(dyn, cond, ctx)
+        if (yield ("any", full, "full")):
+            out_full, branches = wl.full_forward(dyn, cond, ctx) \
+                if ph is None else self._forward(ph, "full", dyn, cond, ctx)
             tstate = yield ("update", tstate, branches, s_eff, full)
         else:
             out_full = wl.zero_out(W)
@@ -475,7 +513,7 @@ class ChainStep(LaneStep):
         self.K = depth
 
     def _body(self, state: State):
-        wl, fc, W, K = self.wl, self.fc, self.W, self.K
+        wl, fc, W, K, ph = self.wl, self.fc, self.W, self.K, self.phases
         scfg, vl, S = wl.scfg, wl.verify_layer, wl.num_steps
         dyn = {k: state[k] for k in wl.dyn_keys}
         since, s, active = state["since"], state["step"], state["active"]
@@ -504,15 +542,18 @@ class ChainStep(LaneStep):
             want = self._want(state, alive & budget & warm
                               & (since < scfg.max_draft))
             tau = threshold_schedule(wl.t_frac(s_eff), state["tau0"],
-                                     scfg.beta)
-            drafting = drafting and (yield ("any", want))
+                                     scfg.beta) if ph is None \
+                else self._tau(ph, s_eff, state["tau0"])
+            drafting = drafting and (yield ("any", want, "chain"))
             if drafting:
                 if preds_chain is None:
                     preds_chain = yield ("predict_chain", tstate,
                                          steps_chain,
                                          self._order_cap(state))
                 preds = preds_chain[j]
-                out_spec, real_vl = wl.spec_forward(dyn, cond, ctx, preds)
+                out_spec, real_vl = \
+                    wl.spec_forward(dyn, cond, ctx, preds) if ph is None \
+                    else self._forward(ph, "spec", dyn, cond, ctx, preds)
                 pred_vl = preds[vl][0] + preds[vl][1]
                 err, ok = yield from self._verify(state, pred_vl, real_vl,
                                                   tau)
@@ -555,9 +596,10 @@ class ChainStep(LaneStep):
         # ONE closing full forward serves every stopped lane at its
         # rolled-back step and refreshes only those lanes' table slices
         s_eff = torch.clamp(s, max=S - 1)
-        if (yield ("any", stop_full)):
+        if (yield ("any", stop_full, "full")):
             ctx = wl.step_context(state, s_eff)
-            out_full, branches = wl.full_forward(dyn, cond, ctx)
+            out_full, branches = wl.full_forward(dyn, cond, ctx) \
+                if ph is None else self._forward(ph, "full", dyn, cond, ctx)
             tstate = yield ("update", tstate, branches, s_eff, stop_full)
             out_full = self._out(state, out_full)
             dyn = wl.select_dyn(stop_full,
@@ -585,6 +627,18 @@ def _resume(body, value) -> Tuple[bool, Any]:
         return True, done.value
 
 
+def _phase(ph, request: tuple, fn, *args):
+    """``fn(*args)`` answering the body's ``request`` inside its phase
+    span: a branch read as ``wait.<reason>``, a kernel request under
+    ``_PHASE_OF``; a batch-accept request needs no span."""
+    op = request[0]
+    if op == "any":
+        return ph.wait(request[2], fn, *args)
+    if op in _PHASE_OF:
+        return ph.call(_PHASE_OF[op], fn, *args)
+    return fn(*args)
+
+
 class ShardedStep:
     """The lane step over a :class:`~repro_torch.launch.mesh.LaneMesh`:
     ``step(shards) -> (shards, flags)`` with the state and the flags as D
@@ -595,13 +649,16 @@ class ShardedStep:
     read of the D shards' answers (so ``host_syncs`` counts what the
     unsharded step counts), batch accept's "every lane" on the device,
     and each kernel once per shard through its ``ops.*_sharded``
-    routing."""
+    routing. With ``phases`` each answer runs in its phase span, once for
+    all shards (each shard step records its own forwards)."""
 
-    def __init__(self, steps: List[LaneStep], mesh) -> None:
+    def __init__(self, steps: List[LaneStep], mesh,
+                 phases: Optional[Any] = None) -> None:
         if len(steps) != mesh.size:
             raise ValueError(f"{len(steps)} shard steps for a mesh of "
                              f"{mesh.size}")
         self.steps, self.mesh = list(steps), mesh
+        self.phases = phases
         self.host_syncs = 0
 
     def __call__(self, shards: List[State]
@@ -618,8 +675,10 @@ class ShardedStep:
             if len(ops_) != 1:
                 seen = ["done" if f else r[0] for f, r in out]
                 raise RuntimeError(f"lane shards diverged in the step: {seen}")
-            answers = self._answer_all(requests[0][0],
-                                       [r[1:] for r in requests])
+            op, args = requests[0][0], [r[1:] for r in requests]
+            answers = self._answer_all(op, args) if self.phases is None \
+                else _phase(self.phases, requests[0], self._answer_all, op,
+                            args)
 
     def _answer_all(self, op: str, args: List[tuple]) -> List[Any]:
         devs = self.mesh.devices
@@ -655,7 +714,8 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                         max_draft_depth: int = 1,
                         forecaster: Any = None,
                         controller: bool = False,
-                        mesh: Optional[Any] = None
+                        mesh: Optional[Any] = None,
+                        phases: Optional[Any] = None
                         ) -> Union[LaneStep, ShardedStep]:
     """Build the lane step for a ``Workload``: the depth-1
     :class:`LaneStep` at ``max_draft_depth=1``, else a :class:`ChainStep`
@@ -670,13 +730,14 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
     that many ``lanes / D``-lane shard steps, one per distinct device on
     its workload replica (state from ``init_workload_state(...,
     mesh=mesh)``); ``lanes`` must divide by D, and by 2·D in a guidance
-    mode."""
+    mode. ``phases`` (a ``repro_torch.obs.PhaseRecorder``) records the
+    step's phase spans and counters."""
     if max_draft_depth < 1:
         raise ValueError(f"max_draft_depth must be >= 1, "
                          f"got {max_draft_depth}")
     kw = dict(draft_mode=draft_mode, accept_mode=accept_mode,
               verify_backend=verify_backend, guidance=guidance,
-              forecaster=forecaster, controller=controller)
+              forecaster=forecaster, controller=controller, phases=phases)
     if mesh is not None:
         _check_pairing(wl, guidance, lanes)
         block = _check_mesh_width(lanes, mesh, bool(guidance))
@@ -684,7 +745,8 @@ def build_workload_step(wl, *, lanes: int, draft_mode: str = "taylor",
                                              max_draft_depth=max_draft_depth,
                                              **kw)
                       for d in mesh.distinct_devices()}
-        return ShardedStep([per_device[d] for d in mesh.devices], mesh)
+        return ShardedStep([per_device[d] for d in mesh.devices], mesh,
+                           phases=phases)
     if max_draft_depth == 1:
         return LaneStep(wl, lanes=lanes, **kw)
     return ChainStep(wl, lanes=lanes, depth=int(max_draft_depth), **kw)

@@ -36,7 +36,7 @@ owning shard's slices.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,28 @@ def _axis_where(mask: torch.Tensor, axis: int, a: torch.Tensor,
     return torch.where(mask.reshape(shape), a, b)
 
 
+class HostCopies:
+    """The copies between the host and a lane state that a lane fill
+    makes: ``put`` writes ``dst[lane] = value`` for each pair, ``to``
+    moves a tensor to a device, ``item`` reads a one-element tensor back
+    as a Python number. These just make them; the serving engine passes
+    one that also counts each copy that blocks the host."""
+
+    def put(self, lane: int, writes: List[Tuple[torch.Tensor, Any]]
+            ) -> None:
+        for dst, value in writes:
+            dst[lane] = value
+
+    def to(self, x: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+        return x.to(device)
+
+    def item(self, x: torch.Tensor) -> Any:
+        return x.item()
+
+
+HOST_COPIES = HostCopies()
+
+
 class Workload:
     """Adapter interface consumed by ``lane_step.build_workload_step``.
 
@@ -80,6 +102,8 @@ class Workload:
     ``step_context``, ``spec_forward``, ``full_forward``, ``zero_out``,
     ``select_out``, ``advance``, ``rollback``. Host hooks:
     ``validate_request``, ``init_payload``, ``fill_payload``, ``emit``.
+    ``fill_payload`` makes every copy between the host and the state
+    through its ``copies`` (:class:`HostCopies`).
     """
 
     tag: str = "?"
@@ -206,6 +230,11 @@ class DiffusionWorkload(Workload):
     def noise(self, seed: int) -> torch.Tensor:
         """The request's initial latent [1, (F,) H, W, C] f32 on the
         device."""
+        return self._draw(seed).to(device=self.device)
+
+    def _draw(self, seed: int) -> torch.Tensor:
+        """The request's initial latent, f32, where it was drawn: on the
+        host by default, wherever ``noise_fn`` put it otherwise."""
         shape = latent_shape(self.cfg, self.dcfg, 1)
         if self.noise_fn is not None:
             x = self.noise_fn(seed)
@@ -217,7 +246,7 @@ class DiffusionWorkload(Workload):
         if tuple(x.shape) != shape:
             raise ValueError(f"noise for seed {seed} has shape "
                              f"{tuple(x.shape)}, expected {shape}")
-        return x.to(device=self.device, dtype=torch.float32)
+        return x.to(dtype=torch.float32)
 
     def init_payload(self, lanes: int, *,
                      x: Optional[torch.Tensor] = None) -> Dict[str, Any]:
@@ -225,8 +254,10 @@ class DiffusionWorkload(Workload):
             x = self.zero_out(lanes)
         return {"x": x.to(device=self.device, dtype=torch.float32)}
 
-    def fill_payload(self, state, lane: int, request, steps: int):
-        state["x"][lane] = self.noise(request.seed)[0]
+    def fill_payload(self, state, lane: int, request, steps: int,
+                     copies: Optional[HostCopies] = None):
+        (copies or HOST_COPIES).put(
+            lane, [(state["x"], self._draw(request.seed)[0])])
         return state
 
     def emit(self, state, lane: int, done: int) -> torch.Tensor:
@@ -356,14 +387,16 @@ class DecodeWorkload(Workload):
         payload.update(M.init_cache(self.cfg, lanes, self.max_seq_len, dev))
         return payload
 
-    def _prompt_of(self, request, steps: int) -> np.ndarray:
+    def _prompt_of(self, request, steps: int,
+                   copies: Optional[HostCopies] = None) -> np.ndarray:
         """The request's [1, P] int32 prompt, or ``ValueError`` when it is
         malformed or too long for the lane cache (shared by
         ``validate_request`` and ``fill_payload``)."""
         try:
             raw = request.cond["tokens"]
             if isinstance(raw, torch.Tensor):
-                raw = raw.detach().cpu().numpy()
+                raw = (copies or HOST_COPIES).to(raw.detach(),
+                                                 "cpu").numpy()
             prompt = np.array(raw, np.int32)
         except (KeyError, TypeError, ValueError) as e:
             raise ValueError("decode request needs an integer "
@@ -390,26 +423,27 @@ class DecodeWorkload(Workload):
                                       {"tokens": prompt}, collect_cache=True)
         return logits[:, -1], extras["cache"]
 
-    def fill_payload(self, state, lane: int, request, steps: int):
+    def fill_payload(self, state, lane: int, request, steps: int,
+                     copies: Optional[HostCopies] = None):
         """Prefill the request's prompt into the lane: clear its K/V
         slices and scatter the prefix, take the SSD state leaves whole,
         set its first input token (the prefill's argmax: one host sync),
         emitted tokens and ``pos0``. Writes the lane's slice of the newest
         state in place, as the diffusion fill does."""
-        prompt = torch.from_numpy(self._prompt_of(request, steps)).to(
-            self.device)
+        copies = copies or HOST_COPIES
+        prompt = copies.to(torch.from_numpy(
+            self._prompt_of(request, steps, copies)), self.device)
         P = prompt.shape[1]
         logits, cache = self._prefill(prompt)
-        tok0 = int(torch.argmax(logits[0]))
+        tok0 = copies.item(torch.argmax(logits[0]))
         for key in self._cache_keys:
             if key in ("k", "v"):
                 state[key][:, lane] = 0
                 state[key][:, lane, :P] = cache[key][:, 0]
             else:
                 state[key][:, lane] = cache[key][:, 0]
-        state["tok"][lane, 0] = tok0
-        state["tokens"][lane] = 0
-        state["pos0"][lane] = P
+        copies.put(lane, [(state["tok"][:, 0], tok0), (state["tokens"], 0),
+                          (state["pos0"], P)])
         return state
 
     def emit(self, state, lane: int, done: int) -> torch.Tensor:

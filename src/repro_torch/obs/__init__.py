@@ -10,14 +10,18 @@ threads through serving:
                    completed request ``Trace`` objects.
   * ``clock``    — the monotonic ``Clock`` every timestamp reads
                    through (``FakeClock`` for tests).
+  * ``phases``   — a bounded ``PhaseRecorder`` of the engine's phase
+                   spans inside each tick, on ``clock``, and the wait,
+                   forward and lane counters kept beside them.
   * ``lane_accumulator()`` — a per-session on-device accumulator of the
                    lane step's flags that adds zero host syncs.
 
-The rule: observability never changes the lane step or adds a device
-sync to the serving path. ``SpeCaEngine(obs=False)`` runs no
-observability code at all, and ``obs=True`` only (a) runs host-side
-Python over values the engine already fetched and (b) launches the
-accumulator's in-place tensor ops.
+The rule: observability never changes what the lane step computes or
+adds a device sync to the serving path. ``SpeCaEngine(obs=False)`` runs
+no observability code at all, and ``obs=True`` only (a) runs host-side
+Python over values the engine already fetched, (b) reads the host clock
+around the engine's phases and (c) launches the accumulator's in-place
+tensor ops.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ from repro_torch.obs.exporters import chrome_trace, prometheus_text, to_jsonl
 from repro_torch.obs.lane_metrics import DEFAULT_ERR_EDGES, LaneAccumulator
 from repro_torch.obs.registry import (Counter, Gauge, Histogram,
                                       MetricsRegistry, Series)
-from repro_torch.obs.trace import (FlightRecorder, Span, Timings, Trace,
-                                   build_trace)
+from repro_torch.obs.trace import (FlightRecorder, PhaseRecorder, Span,
+                                   Timings, Trace, build_trace)
 
 __all__ = [
     "Clock", "MonotonicClock", "FakeClock", "resolve_clock",
@@ -58,6 +62,7 @@ class Observability:
         self.metrics = MetricsRegistry()
         self.recorder = FlightRecorder(capacity=event_capacity,
                                        trace_capacity=trace_capacity)
+        self.phases = PhaseRecorder(self.clock, self.metrics)
         self.err_edges = tuple(float(e) for e in err_edges)
 
     def lane_accumulator(self) -> LaneAccumulator:

@@ -17,16 +17,20 @@ draft/verify (± rollback, ± refresh) → finish:
     (submit/admit/finish/drop/compile) and a bounded LRU of completed
     ``Trace`` objects by ticket (``SpeCaEngine.trace(ticket)``), so a
     long-lived server holds O(capacity) state, not O(requests served).
+  * ``PhaseRecorder`` — a bounded ring of the engine's phase spans (what
+    the host did inside each tick: admission, the lane step and its
+    kernel requests and forwards, harvest, and every wait on the device
+    as ``wait.<reason>``) and the counters kept at the same boundaries.
 
 Everything here is host bookkeeping over rows the engine fetches anyway
-(the per-tick flags at a request's completion) and one host clock stamp
-per tick: no device read is added.
+(the per-tick flags at a request's completion) and host clock reads: no
+device read is added.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict, deque
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +71,11 @@ class Timings:
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One interval of a request's timeline, in engine-clock seconds."""
+    """One interval of a request's timeline, or one engine phase, in
+    engine-clock seconds. A phase span (``PhaseRecorder``) also carries
+    its own id, its parent's id (None at the top), the session's workload
+    tag and, where one request caused it, the ticket id; its ticks are
+    the engine tick it ran in, ``tick1 = tick0 + 1``."""
 
     name: str
     t0: float
@@ -75,6 +83,10 @@ class Span:
     tick0: int
     tick1: int
     attrs: Tuple[Tuple[str, Any], ...] = ()
+    span_id: Optional[int] = None
+    parent: Optional[int] = None
+    workload: Optional[str] = None
+    ticket: Optional[int] = None
 
     @property
     def dur_s(self) -> float:
@@ -206,3 +218,114 @@ class FlightRecorder:
 
     def traces(self) -> List[Trace]:
         return list(self._traces.values())
+
+
+# the counters the engine keeps beside its phase spans (``PhaseRecorder``)
+PHASE_METRICS = ("speca_device_waits_total", "speca_wait_seconds_total",
+                 "speca_full_forward_calls_total",
+                 "speca_spec_forward_calls_total",
+                 "speca_lanes_occupied_total",
+                 "speca_step_host_seconds_total")
+
+
+class PhaseRecorder:
+    """The engine's phase spans, in a bounded drop-oldest ring
+    (``capacity`` spans; ``dropped`` counts evictions), and the counters
+    kept at the same boundaries, in ``metrics``.
+
+    ``call(name, fn, *args)`` runs ``fn`` inside a span; spans nest, so a
+    span's parent is the innermost one open when it starts, and it takes
+    its parent's workload and ticket unless given its own. ``wait(reason,
+    fn, *args, n=)`` is a ``wait.<reason>`` span around a call that blocks
+    the host on the device: it adds ``n`` to
+    ``speca_device_waits_total{reason}`` and its seconds to
+    ``speca_wait_seconds_total{reason}``, and keeps ``n`` in the span's
+    ``attrs``. After a span closes,
+    ``self_s`` holds its seconds outside the wait spans under it. Every
+    span reads ``clock`` twice and nothing else: no device read, no sync,
+    no event. ``tick`` is the engine tick the next spans belong to."""
+
+    def __init__(self, clock, metrics, capacity: int = 16384) -> None:
+        if capacity < 1:
+            raise ValueError("PhaseRecorder capacity must be >= 1")
+        self.clock = clock
+        self.metrics = metrics
+        self.capacity = int(capacity)
+        self._ring: Deque[tuple] = deque(maxlen=self.capacity)
+        self.dropped = 0
+        self.tick = 0
+        self.self_s = 0.0
+        # open spans, innermost last: [id, name, t0, workload, ticket,
+        # seconds of the waits under it, waits counted]
+        self._open: List[list] = []
+        self._next_id = 0
+        self._counters: Dict[tuple, Any] = {}
+
+    def call(self, name: str, fn: Callable, *args: Any,
+             workload: Optional[str] = None,
+             ticket: Optional[int] = None) -> Any:
+        self._push(name, workload, ticket, 0)
+        try:
+            return fn(*args)
+        finally:
+            self._pop()
+
+    def wait(self, reason: str, fn: Callable, *args: Any, n: int = 1,
+             workload: Optional[str] = None) -> Any:
+        self._push("wait." + reason, workload, None, n)
+        try:
+            return fn(*args)
+        finally:
+            dt = self._pop()
+            self.count("speca_device_waits_total", n, reason=reason)
+            self.count("speca_wait_seconds_total", dt, reason=reason)
+
+    def count(self, name: str, v: float = 1.0, **labels: Any) -> None:
+        """Add ``v`` to counter ``name{labels}`` of ``metrics``."""
+        key = (name,) + tuple(labels.items())
+        c = self._counters.get(key)
+        if c is None:
+            c = self._counters[key] = self.metrics.counter(name, **labels)
+        c.inc(v)
+
+    def _push(self, name: str, workload: Optional[str],
+              ticket: Optional[int], n: int) -> None:
+        if self._open:
+            up = self._open[-1]
+            workload = up[3] if workload is None else workload
+            ticket = up[4] if ticket is None else ticket
+        self._open.append([self._next_id, name, self.clock.now(), workload,
+                           ticket, 0.0, n])
+        self._next_id += 1
+
+    def _pop(self) -> float:
+        sid, name, t0, workload, ticket, waited, n = self._open.pop()
+        t1 = self.clock.now()
+        dt = t1 - t0
+        is_wait = name.startswith("wait.")
+        parent = None
+        if self._open:
+            up = self._open[-1]
+            parent = up[0]
+            up[5] += dt if is_wait else waited
+        self.self_s = 0.0 if is_wait else dt - waited
+        if len(self._ring) == self.capacity:
+            self.dropped += 1
+        self._ring.append((name, t0, t1, self.tick, sid, parent, workload,
+                           ticket, n))
+        return dt
+
+    def spans(self, since: Optional[float] = None) -> List[Span]:
+        """The retained spans in the order they closed (a parent after
+        its children); with ``since``, only those ending at or after
+        it."""
+        rows: List[tuple] = []
+        for row in reversed(self._ring):
+            if since is not None and row[2] < since:
+                break
+            rows.append(row)
+        return [Span(name, t0, t1, tick, tick + 1,
+                     (("n", n),) if name.startswith("wait.") else (),
+                     span_id=sid, parent=parent, workload=wl, ticket=ticket)
+                for name, t0, t1, tick, sid, parent, wl, ticket, n
+                in reversed(rows)]

@@ -60,7 +60,11 @@ request completes. With a deep or controlled request in flight a lane
 moves 0..K steps per tick, so the tick's ``advanced`` counters are
 fetched. The lane step itself syncs to decide its branches, and a
 decode lane's prefill reads its first token back at admission.
-``SpeCaEngine.host_syncs`` counts all three.
+``SpeCaEngine.host_syncs`` counts all three. It leaves out the other
+waits on a card: the harvest's flag and sample reads, a lane fill's
+one-element writes and copies from the host, and the lane step's copy
+of β for its thresholds; with observability on,
+``speca_device_waits_total{reason}`` counts every wait (see below).
 
 Lane sharding (``SpeCaEngine(mesh=)``, a ``repro_torch.launch.mesh``
 ``LaneMesh`` of D shards): each session's lane batch is D contiguous
@@ -83,8 +87,21 @@ span traces (``trace(ticket)``), request counters and accept-rate
 and latency histograms, the per-tick ``speca_queue_depth``/
 ``speca_in_flight`` series, and each session's on-device
 ``LaneAccumulator`` of the step's flags, flushed by
-``metrics_snapshot()``. It adds no host sync and never touches the lane
-step: an observed engine serves bitwise what an unobserved one serves.
+``metrics_snapshot()``. Its ``PhaseRecorder`` (``obs.phases``) keeps the
+host's phase spans on the engine clock: ``tick``; under it ``admit`` per
+admitted request, ``step`` (the lane step, with its kernel requests,
+forwards and branch reads under it), ``obs.accumulate``, ``harvest`` per
+completed or drained request; and ``wait.<reason>`` around every read
+that blocks the host on the device (``draft``, ``chain``, ``full``:
+branch reads; ``tau``: the threshold's copy of β; ``advanced``;
+``fill``: a lane fill's blocking writes and copies, each counted where
+it happens through the fill's ``HostCopies``; ``flags``: a harvest's
+fetch of one tick's counters, six reads; ``sample``: an emitted
+sample). Beside them the registry counts waits and their seconds by
+reason, the forwards' calls, the lanes occupied at each lane step and
+the step's host seconds outside its waits (``docs/observability_torch.md``).
+It adds no host sync and never changes what the lane step computes: an
+observed engine serves bitwise what an unobserved one serves.
 ``obs=False`` runs no observability code.
 """
 from __future__ import annotations
@@ -101,7 +118,8 @@ from repro_torch.configs import DiffusionConfig, ModelConfig, SpeCaConfig
 from repro_torch.core import controller as CT
 from repro_torch.core import lane_step as LS
 from repro_torch.core.forecaster import get_forecaster
-from repro_torch.core.workload import DiffusionWorkload, NoiseFn, Workload
+from repro_torch.core.workload import (HOST_COPIES, DiffusionWorkload,
+                                       HostCopies, NoiseFn, Workload)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.pipeline import null_cond_like
 from repro_torch.launch.mesh import canonical_device
@@ -254,9 +272,15 @@ class _Session:
         # host clock stamp at the start of each tick, index-aligned with
         # _flag_log and gc'd with it: trace spans read these
         self._tick_s: List[Optional[float]] = []
-        # the on-device flag accumulator (None when obs is off)
+        # the on-device flag accumulator and the phase recorder (None when
+        # obs is off)
         self._acc = engine._obs.lane_accumulator() \
             if engine._obs is not None else None
+        self._phases = engine._phases
+        # a lane fill's copies between the host and the state, counted as
+        # ``wait.fill`` when phases are recorded
+        self._copies = HOST_COPIES if self._phases is None \
+            else _FillCopies(self._phases)
 
     def busy(self) -> bool:
         return any(e is not None for e in self.lane_entry)
@@ -271,7 +295,9 @@ class _Session:
     def emit(self, lane: int, done: int) -> Any:
         """The lane's sample so far, read on its owning shard."""
         _, wl, st, j = self._shard(lane)
-        return wl.emit(st, j, done)
+        ph = self._phases
+        return wl.emit(st, j, done) if ph is None \
+            else ph.wait("sample", wl.emit, st, j, done, workload=wl.tag)
 
     def entries(self) -> List[_Entry]:
         out: List[_Entry] = []
@@ -317,7 +343,11 @@ class _Session:
                        draft_k=int(item.policy.draft_depth or 1))
         for lane in lanes:
             self.lane_entry[lane] = entry
-        self._fill(entry)
+        if self._phases is None:
+            self._fill(entry)
+        else:
+            self._phases.call("admit", self._fill, entry,
+                              workload=self.wl.tag, ticket=item.ticket_id)
         obs = self.e._obs
         if obs is not None:
             obs.recorder.record(
@@ -357,32 +387,27 @@ class _Session:
             st["gscale"][j:j + 2] = float(pol.guidance_scale)
             st["paired"][j:j + 2] = True
         elif self.paired:
-            st["paired"][j] = False
+            self._copies.put(j, [(st["paired"], False)])
 
     def _fill_lane(self, session_lane: int, cond: Dict[str, Any],
                    tau0: float, entry: _Entry) -> None:
         i, wl, st, lane = self._shard(session_lane)
-        st["draft_k"][lane] = entry.draft_k
-        st["max_step"][lane] = entry.item.steps
         st["diffs"][:, :, :, lane] = 0
-        st["n_anchors"][lane] = 0
-        st["anchor_step"][lane] = -1
-        st["gap"][lane] = 1.0
-        st["since"][lane] = 0
-        st["step"][lane] = 0
-        st["active"][lane] = True
-        st["tau0"][lane] = tau0
+        vals = {"draft_k": entry.draft_k, "max_step": entry.item.steps,
+                "n_anchors": 0, "anchor_step": -1, "gap": 1.0, "since": 0,
+                "step": 0, "active": True, "tau0": tau0}
         if self.e.controller:
             # a controlled lane starts at the request's resolved knobs; a
             # controller-free lane gets the all-off row (bitwise inert)
-            cv = CT.lane_values(entry.item.policy.controller, tau0=tau0,
-                                order=wl.scfg.taylor_order,
-                                max_draft_depth=self.e.max_draft_depth)
-            for k, v in cv.items():
-                st[k][lane] = v
-        for k, v in st["cond"].items():
-            v[lane] = torch.as_tensor(cond[k])[0]
-        st = wl.fill_payload(st, lane, entry.item.request, entry.item.steps)
+            vals.update(CT.lane_values(
+                entry.item.policy.controller, tau0=tau0,
+                order=wl.scfg.taylor_order,
+                max_draft_depth=self.e.max_draft_depth))
+        self._copies.put(lane, [(st[k], v) for k, v in vals.items()]
+                         + [(v, torch.as_tensor(cond[k])[0])
+                            for k, v in st["cond"].items()])
+        st = wl.fill_payload(st, lane, entry.item.request, entry.item.steps,
+                             self._copies)
         if self.mesh is None:
             self.state = st
         else:
@@ -398,19 +423,25 @@ class _Session:
         now = self.e.clock.now()
         self._tick_s.append(now)
         before = self.step_fn.host_syncs
-        self.state, flags = self.step_fn(self.state)
+        ph = self._phases
+        if ph is None:
+            self.state, flags = self.step_fn(self.state)
+        else:
+            self.state, flags = self._traced_step(ph)
         self.e._host_syncs += self.step_fn.host_syncs - before
         self._flag_log.append(flags)
         self.tick += 1
         if self._acc is not None:
             # device ops only, no sync (a sharded step's flags are joined
             # on one device first)
-            self._acc.update(LS.gather_flags(flags))
+            ph.call("obs.accumulate", self._acc.update,
+                    LS.gather_flags(flags), workload=self.wl.tag)
         adv = None
         if any(e.draft_k > 1 or e.item.policy.controller is not None
                for e in self.entries()):
-            adv = LS.gather_flags(flags, ("advanced",))["advanced"] \
-                .cpu().numpy()
+            adv = _advanced(flags) if ph is None \
+                else ph.wait("advanced", _advanced, flags,
+                             workload=self.wl.tag)
             self.e._host_syncs += 1
         completed: List[Tuple[_Entry, Result]] = []
         for entry in self.entries():
@@ -420,10 +451,28 @@ class _Session:
             entry.done += 1 if adv is None else int(adv[entry.lanes[0]])
             if entry.done < entry.item.steps:
                 continue
-            completed.append((entry, self.harvest(entry, completed=True)))
+            completed.append((entry, self._harvest(entry, True)))
             self._release(entry)
         self._gc_flags()
         return completed
+
+    def _traced_step(self, ph) -> Tuple[Any, Any]:
+        """The lane step inside its ``step`` span, counting the lanes it
+        serves and its host seconds outside its waits."""
+        tag = self.wl.tag
+        ph.count("speca_lanes_occupied_total",
+                 self.W - self.lane_entry.count(None), workload=tag)
+        out = ph.call("step", self.step_fn, self.state, workload=tag)
+        ph.count("speca_step_host_seconds_total", ph.self_s, workload=tag)
+        return out
+
+    def _harvest(self, entry: _Entry, completed: bool) -> Result:
+        """``harvest``, inside its span when phases are recorded."""
+        ph = self._phases
+        if ph is None:
+            return self.harvest(entry, completed)
+        return ph.call("harvest", self.harvest, entry, completed,
+                       workload=self.wl.tag, ticket=entry.item.ticket_id)
 
     def _release(self, entry: _Entry) -> None:
         k = entry.streams
@@ -436,9 +485,10 @@ class _Session:
 
     def _fetch(self, t: int) -> Dict[str, np.ndarray]:
         if t not in self._flag_np:
-            flags = LS.gather_flags(self._flag_log[t], LS.COUNTER_FLAGS)
-            self._flag_np[t] = {k: v.cpu().numpy()
-                                for k, v in flags.items()}
+            ph = self._phases
+            self._flag_np[t] = _counters(self._flag_log[t]) if ph is None \
+                else ph.wait("flags", _counters, self._flag_log[t],
+                             n=len(LS.COUNTER_FLAGS))
         return self._flag_np[t]
 
     def _gc_flags(self) -> None:
@@ -534,9 +584,64 @@ class _Session:
         UNFINISHED — partial counters, ``completed=False``."""
         out = []
         for entry in self.entries():
-            out.append((entry, self.harvest(entry, completed=False)))
+            out.append((entry, self._harvest(entry, False)))
             self._release(entry)
         return out
+
+
+class _FillCopies(HostCopies):
+    """A lane fill's copies, each that blocks the host inside a
+    ``wait.fill`` span that counts it: a read back (``item``: a host
+    sync, counted on any device as ``host_syncs`` counts it), a move
+    between the host and a card (``to``), and a write from the host onto
+    a card that PyTorch makes as a copy (``put``; a number or a
+    one-element host tensor written over more than one element is a
+    fill, no copy)."""
+
+    def __init__(self, phases) -> None:
+        self.ph = phases
+
+    def put(self, lane: int, writes: List[Tuple[torch.Tensor, Any]]
+            ) -> None:
+        n = sum(_copies_from_host(d, lane, v) for d, v in writes)
+        if not n:
+            super().put(lane, writes)
+        else:
+            self.ph.wait("fill", super().put, lane, writes, n=n)
+
+    def to(self, x: torch.Tensor, device) -> torch.Tensor:
+        dst = resolve_device(device)
+        if x.device == dst or "cpu" not in (x.device.type, dst.type):
+            return super().to(x, dst)
+        return self.ph.wait("fill", super().to, x, dst)
+
+    def item(self, x: torch.Tensor) -> Any:
+        return self.ph.wait("fill", super().item, x)
+
+
+def _copies_from_host(dst: torch.Tensor, lane: int, value: Any) -> bool:
+    """Whether ``dst[lane] = value`` copies from the host onto a card."""
+    if dst.device.type == "cpu":
+        return False
+    if isinstance(value, torch.Tensor):
+        if value.device == dst.device:
+            return False
+        ndim = value.dim()
+    else:
+        ndim = np.ndim(value)
+    # a one-element host value over a larger slice is a fill
+    return not (ndim == 0 and dst.dim() > 1)
+
+
+def _advanced(flags) -> np.ndarray:
+    """A tick's ``advanced`` counters on the host (one device read)."""
+    return LS.gather_flags(flags, ("advanced",))["advanced"].cpu().numpy()
+
+
+def _counters(flags) -> Dict[str, np.ndarray]:
+    """A tick's ``COUNTER_FLAGS`` on the host (one device read each)."""
+    return {k: v.cpu().numpy()
+            for k, v in LS.gather_flags(flags, LS.COUNTER_FLAGS).items()}
 
 
 def _dropped_result(item: QueueItem) -> Result:
@@ -697,6 +802,7 @@ class SpeCaEngine:
         else:
             self.clock = resolve_clock(clock)
             self._obs = Observability(clock=self.clock) if obs else None
+        self._phases = None if self._obs is None else self._obs.phases
         self._tick_count = 0    # engine-level tick index (series x-axis)
         self._lane_fns: Dict[Tuple[str, int, Any], LS.LaneStep] = {}
         self._host_syncs = 0
@@ -718,7 +824,11 @@ class SpeCaEngine:
         on a mesh one read of every shard's answer a branch), one
         ``advanced`` fetch per tick with a deep or controlled request in
         flight, and one per decode admission (the prefill's first token).
-        Result and preview reads are not counted."""
+        Result and preview reads are not counted, nor, on a card, a lane
+        fill's writes and copies from the host or the step's copy of β:
+        with observability on, ``speca_device_waits_total{reason}``
+        counts them too (``flags``, ``sample``, ``fill``, ``tau``), each
+        wait under a ``wait.<reason>`` span of ``obs.phases``."""
         return self._host_syncs
 
     def resolve_policy(self, req: Request,
@@ -788,7 +898,7 @@ class SpeCaEngine:
                 verify_backend=self.verify_backend, guidance=mode,
                 max_draft_depth=self.max_draft_depth,
                 forecaster=self.forecaster, controller=self.controller,
-                mesh=self.mesh)
+                mesh=self.mesh, phases=self._phases)
             if self._obs is not None:
                 self._obs.metrics.counter("speca_programs_built_total",
                                           workload=tag).inc()
@@ -884,23 +994,36 @@ class SpeCaEngine:
         the Results completed on the way. Stops early when the engine is
         idle."""
         done: List[Result] = []
+        ph = self._phases
         for _ in range(n):
             if not self._sessions:
                 break
-            if self._obs is not None:
-                # before admission, so a burst shows at its full height
-                self._obs_tick_sample()
-            for entry in _admit_into(self._sessions, self._sched):
-                self._ticket_status[entry.item.ticket_id] = "running"
-            busy = [s for s in self._sessions.values() if s.busy()]
+            if ph is None:
+                busy = self._tick_once(done)
+            else:
+                ph.tick = self._tick_count
+                busy = ph.call("tick", self._tick_once, done)
             if not busy:
                 break
-            self._tick_count += 1
-            for sess in busy:
-                for _entry, res in sess.advance():
-                    self._record(res)
-                    done.append(res)
         return done
+
+    def _tick_once(self, done: List[Result]) -> bool:
+        """Admission, then one lane step of every busy session, adding
+        the completions to ``done``; False when no session was busy."""
+        if self._obs is not None:
+            # before admission, so a burst shows at its full height
+            self._obs_tick_sample()
+        for entry in _admit_into(self._sessions, self._sched):
+            self._ticket_status[entry.item.ticket_id] = "running"
+        busy = [s for s in self._sessions.values() if s.busy()]
+        if not busy:
+            return False
+        self._tick_count += 1
+        for sess in busy:
+            for _entry, res in sess.advance():
+                self._record(res)
+                done.append(res)
+        return True
 
     def _obs_tick_sample(self) -> None:
         """One sample of the queue state per engine tick (host integers)."""
@@ -1123,6 +1246,8 @@ class SpeCaEngine:
             if max_ticks is not None and max(
                     s.tick for s in sessions.values()) >= max_ticks:
                 break
+            if self._phases is not None:
+                self._phases.tick = max(s.tick for s in sessions.values())
             _admit_into(sessions, sched)
             for sess in sessions.values():
                 if sess.busy():

@@ -572,7 +572,9 @@ def test_validation_and_warmup():
 def test_obs_on_is_bitwise_inert_on_decode(K):
     """Decode lanes at depth K: an ``obs=True`` engine serves bitwise what
     an ``obs=False`` one serves, at equal host syncs, and its lane totals
-    agree with the Results."""
+    agree with the Results; its device waits count one ``fill`` a
+    prefill and, with the branch and ``advanced`` reads, add up to the
+    host syncs."""
     cfg, _, pc, tp = _lm("llama3-8b")
     prompts = [_prompt(cfg, seed=40 + i, length=4 + i) for i in range(3)]
     out = {}
@@ -602,6 +604,14 @@ def test_obs_on_is_bitwise_inert_on_decode(K):
             getattr(r, attr) for r in ron), key
     assert all(e["workload"] == "decode"
                for e in on.obs.recorder.events() if "workload" in e)
+    waits = {r["labels"]["reason"]: r["value"]
+             for r in snap.values() if r["name"] == "speca_device_waits_total"}
+    assert waits["fill"] == len(prompts)
+    assert sum(waits.get(k, 0.0) for k in ("draft", "chain", "full",
+                                           "advanced", "fill")) == son
+    fills = [x for x in on.obs.phases.spans() if x.name == "wait.fill"]
+    assert len(fills) == len(prompts)
+    assert {x.workload for x in fills} == {"decode"}
 
 
 @pytest.mark.parametrize("K", [1, 3])

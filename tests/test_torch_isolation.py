@@ -26,7 +26,8 @@ def _port_files():
         REPO / "tools" / "profiler_windows.py",
         REPO / "tools" / "width_probe.py",
         REPO / "tools" / "predict_ab.py",
-        REPO / "tools" / "ssd_order_probe.py"]
+        REPO / "tools" / "ssd_order_probe.py",
+        REPO / "tools" / "profile_torch_phases.py"]
 
 
 def _imported_roots(path: pathlib.Path):

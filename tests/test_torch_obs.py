@@ -244,6 +244,51 @@ def test_observability_bundle_matches_reference():
     assert isinstance(P.Observability().clock, P.MonotonicClock)
 
 
+def test_phase_recorder_nests_bounds_and_counts():
+    """Phase spans nest (parent ids, inherited workload and ticket), the
+    ring keeps the newest ``capacity`` and counts the dropped, a wait adds
+    its count and seconds by reason, keeps its count in its ``attrs`` and
+    leaves its parent's ``self_s``,
+    ``spans(since=)`` keeps the spans ending at or after it, and an
+    exception still closes the span."""
+    clock = P.FakeClock(0.0, auto_tick=1.0)
+    reg = P.MetricsRegistry()
+    ph = P.trace.PhaseRecorder(clock, reg, capacity=4)
+    ph.tick = 7
+
+    def body():
+        ph.wait("flags", lambda: None, n=6)
+        return ph.call("inner", lambda x: x + 1, 1)
+    assert ph.call("outer", body, workload="diffusion", ticket=3) == 2
+    assert ph.self_s == 5.0 - 1.0        # outer: t 0..5, its wait 1 s
+    spans = ph.spans()
+    assert [(s.name, s.t0, s.t1) for s in spans] == [
+        ("wait.flags", 1.0, 2.0), ("inner", 3.0, 4.0), ("outer", 0.0, 5.0)]
+    assert [s.attrs for s in spans] == [(("n", 6),), (), ()]
+    outer = spans[-1]
+    assert outer.parent is None and (outer.tick0, outer.tick1) == (7, 8)
+    assert all(s.parent == outer.span_id and s.workload == "diffusion"
+               and s.ticket == 3 for s in spans[:2])
+    snap = {(r["name"], r["labels"].get("reason")): r["value"]
+            for r in reg.snapshot()}
+    assert snap == {("speca_device_waits_total", "flags"): 6.0,
+                    ("speca_wait_seconds_total", "flags"): 1.0}
+    with pytest.raises(KeyError):
+        ph.call("bad", lambda: {}["x"])
+    assert ph._open == [] and ph.spans()[-1].name == "bad"
+    for i in range(3):
+        ph.call(f"s{i}", lambda: None)
+    assert [s.name for s in ph.spans()] == ["bad", "s0", "s1", "s2"]
+    assert ph.dropped == 3
+    assert [s.name for s in ph.spans(since=ph.spans()[2].t1)] == \
+        ["s1", "s2"]
+    with pytest.raises(ValueError):
+        P.trace.PhaseRecorder(clock, reg, capacity=0)
+    obs = P.Observability()
+    assert obs.phases.capacity == 16384 and obs.phases.clock is obs.clock
+    assert obs.phases.metrics is obs.metrics and obs.snapshot() == []
+
+
 # ---------------------------------------------------------------------------
 # The lane accumulator
 # ---------------------------------------------------------------------------

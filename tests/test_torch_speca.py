@@ -66,6 +66,7 @@ from repro_torch.core.speca import speca_sample
 from repro_torch.core.workload import DiffusionWorkload
 from repro_torch.diffusion.pipeline import sample_full
 from repro_torch.layers import model as PM
+from repro_torch.obs.trace import PHASE_METRICS, PhaseRecorder
 from repro_torch.serving import (ControllerPolicy, Observability, Preview,
                                  QueueFull, Request, RequestPolicy,
                                  SpeCaEngine, allocation_report)
@@ -1408,26 +1409,43 @@ def _drive_life(engine, reqs):
 def test_obs_on_is_bitwise_inert(both, engines, case, monkeypatch):
     """An ``obs=True`` engine serves bitwise what an ``obs=False`` one
     serves — samples, accepts, every counter — with the same host syncs
-    and the same number of ``_Session._fetch`` reads, at depth 1, at K=3
-    under the controller and with a guided pair; its lane totals agree
-    with the Results (a guided pair's flags count on both lanes)."""
+    and the same number of ``_Session._fetch`` reads and ``emit`` calls,
+    at depth 1, at K=3 under the controller and with a guided pair; its
+    lane totals agree with the Results (a guided pair's flags count on
+    both lanes). With obs off no phase span is opened."""
     from repro_torch.serving import engine as PE
     _, preqs = _obs_reqs(case)
-    fetch = PE._Session._fetch
+    fetch, emit, push = PE._Session._fetch, PE._Session.emit, \
+        PhaseRecorder._push
     out = {}
     for obs in (False, True):
-        n = [0]
+        n = [0, 0, 0]
 
         def counted(sess, t, n=n):
             n[0] += 1
             return fetch(sess, t)
+
+        def emitted(sess, lane, done, n=n):
+            n[1] += 1
+            return emit(sess, lane, done)
+
+        def pushed(rec, *a, n=n):
+            n[2] += 1
+            return push(rec, *a)
         monkeypatch.setattr(PE._Session, "_fetch", counted)
+        monkeypatch.setattr(PE._Session, "emit", emitted)
+        monkeypatch.setattr(PhaseRecorder, "_push", pushed)
         eng = _port_obs_engine(both, engines, case, obs=obs)
         _, res = _drive_life(eng, preqs)
-        out[obs] = (eng, res, eng.host_syncs, n[0])
+        out[obs] = (eng, res, eng.host_syncs, n)
         monkeypatch.setattr(PE._Session, "_fetch", fetch)
-    (off, roff, soff, foff), (on, ron, son, fon) = out[False], out[True]
-    assert son == soff and fon == foff and foff > 0
+        monkeypatch.setattr(PE._Session, "emit", emit)
+        monkeypatch.setattr(PhaseRecorder, "_push", push)
+    (off, roff, soff, noff), (on, ron, son, non) = out[False], out[True]
+    assert son == soff and non[:2] == noff[:2] and min(noff[:2]) > 0
+    assert noff[2] == 0 and non[2] > 0
+    assert off._phases is None and all(
+        st.phases is None for st in off._lane_fns.values())
     for a, b in zip(roff, ron):
         assert torch.equal(a.sample, b.sample), a.request_id
         assert (a.accepts, a.num_full, a.num_spec, a.num_drafted,
@@ -1455,6 +1473,183 @@ def test_obs_on_is_bitwise_inert(both, engines, case, monkeypatch):
         off.metrics_snapshot()
     with pytest.raises(RuntimeError, match="obs=True"):
         off.trace(0)
+
+
+# the span names each phase span may sit under (None: the top)
+_PHASE_PARENTS = {
+    "tick": {None}, "admit": {"tick"}, "step": {"tick"},
+    "obs.accumulate": {"tick"}, "wait.advanced": {"tick"},
+    "harvest": {"tick"}, "wait.fill": {"admit"},
+    "wait.flags": {"harvest"}, "wait.sample": {"harvest"},
+    **{k: {"step"} for k in ("wait.draft", "wait.chain", "wait.full",
+                             "wait.tau",
+                             "predict", "predict_chain", "verify",
+                             "refresh", "rollback", "spec_forward",
+                             "full_forward")}}
+
+
+@pytest.mark.parametrize("case", ["mixed", "chain_controller"])
+def test_phase_spans_per_tick(both, engines, case, monkeypatch):
+    """On a ``FakeClock`` engine, a mixed paired session at depth 1 and a
+    K = 3 chain under the controller record one ``tick`` span an engine
+    tick and under it, by name, parent and ticket: an ``admit`` and a
+    ``harvest`` per request, one ``step`` with its kernel requests,
+    forwards and branch reads, one ``obs.accumulate``. One
+    ``full_forward`` span and one forward-counter step per step whose
+    ``wait.full`` read came back true; the waits by reason add up to
+    ``host_syncs``, ``wait.flags`` to the fetches, ``wait.sample`` to the
+    emits; the occupied-lane and step-host-seconds counters to what the
+    spans show."""
+    from repro_torch.obs import FakeClock
+    from repro_torch.serving import engine as PE
+    answers, fetched, emits = [], set(), [0]
+    any_, fetch, emit = PLS.LaneStep._any, PE._Session._fetch, \
+        PE._Session.emit
+
+    def spy_any(step, t):
+        answers.append(any_(step, t))
+        return answers[-1]
+
+    def spy_fetch(sess, t):
+        fetched.add((id(sess), t))
+        return fetch(sess, t)
+
+    def spy_emit(sess, lane, done):
+        emits[0] += 1
+        return emit(sess, lane, done)
+    monkeypatch.setattr(PLS.LaneStep, "_any", spy_any)
+    monkeypatch.setattr(PE._Session, "_fetch", spy_fetch)
+    monkeypatch.setattr(PE._Session, "emit", spy_emit)
+    clock = FakeClock(0.0, auto_tick=1.0)
+    eng = _port_obs_engine(both, engines, case, obs=True, clock=clock)
+    assert eng.obs.clock is clock is eng.clock
+    tickets, res = _drive_life(eng, _obs_reqs(case)[1])
+    ph = eng.obs.phases
+    spans = ph.spans()
+    assert ph.dropped == 0 and spans
+    by_id = {s.span_id: s for s in spans}
+    kids = {}
+    for s in spans:
+        up = by_id.get(s.parent)
+        assert (None if up is None else up.name) in _PHASE_PARENTS[s.name]
+        assert s.t0 <= s.t1 and s.tick1 == s.tick0 + 1
+        if up is not None:
+            assert up.t0 <= s.t0 <= s.t1 <= up.t1 and up.tick0 == s.tick0
+            kids.setdefault(up.span_id, []).append(s)
+        if s.name != "tick":
+            assert s.workload == "diffusion"
+        in_request = s.name in ("admit", "harvest") or (
+            up is not None and up.name in ("admit", "harvest"))
+        assert (s.ticket is not None) == in_request, s.name
+    ticks = [s for s in spans if s.name == "tick"]
+    assert [s.tick0 for s in ticks] == list(range(eng._tick_count))
+    ids = sorted(t.ticket_id for t in tickets)
+    for name in ("admit", "harvest"):
+        assert sorted(s.ticket for s in spans if s.name == name) == ids
+    steps = [s for s in spans if s.name == "step"]
+    for name in ("step", "obs.accumulate"):
+        assert [s.tick0 for s in spans if s.name == name] == \
+            [s.tick0 for s in ticks]
+    # the branch reads, in order, against their answers
+    reads = [s for s in spans if s.name in ("wait.draft", "wait.chain",
+                                            "wait.full")]
+    assert len(reads) == len(answers)
+    full_true = 0
+    for st in steps:
+        names = [k.name for k in kids[st.span_id]]
+        if case == "mixed":
+            assert names.count("wait.draft") == 1
+            assert "wait.chain" not in names
+        else:
+            assert 1 <= names.count("wait.chain") <= 3
+        assert names.count("wait.full") == 1
+        full = [a for r, a in zip(reads, answers)
+                if r.parent == st.span_id and r.name == "wait.full"][0]
+        assert names.count("full_forward") == names.count("refresh") \
+            == int(full)
+        full_true += full
+    count = {(r["name"], r.get("labels", {}).get("reason")): r["value"]
+             for r in eng.metrics_snapshot() if r["kind"] == "counter"}
+    assert count["speca_full_forward_calls_total", None] == full_true > 0
+    assert count["speca_spec_forward_calls_total", None] == sum(
+        s.name == "spec_forward" for s in spans) > 0
+
+    def waits(reason):
+        return count.get(("speca_device_waits_total", reason), 0.0)
+    for reason in ("draft", "chain", "full", "advanced", "sample",
+                   "flags"):
+        assert sum(s.name == f"wait.{reason}" for s in spans) == \
+            waits(reason) / (6 if reason == "flags" else 1), reason
+    assert waits("draft") + waits("chain") + waits("full") \
+        + waits("advanced") == eng.host_syncs
+    assert (waits("advanced") > 0) == (case == "chain_controller")
+    assert waits("flags") == 6 * len(fetched) > 0
+    assert waits("sample") == emits[0] == len(res)
+    assert waits("fill") == 0        # the conditioning is on the CPU too
+    streams = [1 + (r.policy.guidance_scale is not None)
+               for r in _obs_reqs(case)[1]]
+    assert count["speca_lanes_occupied_total", None] == sum(
+        k * r.timings.service_ticks for k, r in zip(streams, res))
+    host = sum(st.t1 - st.t0 - sum(k.t1 - k.t0 for k in kids[st.span_id]
+                                   if k.name.startswith("wait."))
+               for st in steps)
+    assert count["speca_step_host_seconds_total", None] == host > 0
+    for s in spans:
+        if s.name.startswith("wait."):
+            reason = s.name[len("wait."):]
+            assert count["speca_wait_seconds_total", reason] == sum(
+                x.t1 - x.t0 for x in spans if x.name == s.name)
+    eng.shutdown()
+
+
+def test_phase_fill_writes_and_threshold_count_as_waits_off_the_cpu():
+    """A lane fill's writes from the host (numbers, CPU tensors) onto a
+    non-CPU state that PyTorch makes as copies run in one ``wait.fill``
+    span that counts them; a tensor already on the state's device, a
+    one-element host value written over a larger slice (a fill), and any
+    write onto a CPU state, is no wait. A move between the host and the
+    card is one wait, a read back one on any device. The lane step's
+    threshold schedule (β copied from the host) is a ``wait.tau`` off the
+    CPU only. (The meta device stands in for a card.)"""
+    from repro_torch.obs import FakeClock, MetricsRegistry
+    from repro_torch.serving import engine as PE
+    reg = MetricsRegistry()
+    ph = PhaseRecorder(FakeClock(0.0, auto_tick=1.0), reg)
+    copies = PE._FillCopies(ph)
+    meta = [torch.zeros(4, device="meta") for _ in range(3)]
+    cond = torch.zeros(4, 3, device="meta")
+    copies.put(1, [(meta[0], 5), (meta[1], torch.tensor(2.0)),
+                   (meta[2], torch.zeros((), device="meta")),
+                   (cond, torch.zeros(3)), (cond, 0),
+                   (cond, torch.tensor(1.0))])
+    cpu = torch.zeros(4)
+    copies.put(2, [(cpu, 7), (cpu, torch.tensor(1.0))])
+    assert cpu.tolist() == [0.0, 0.0, 1.0, 0.0]
+    assert [x.name for x in ph.spans()] == ["wait.fill"]
+    assert ph.spans()[0].attrs == (("n", 3),)
+    assert copies.to(torch.ones(2), "cpu").device.type == "cpu"
+    assert copies.to(torch.ones(2), "meta").device.type == "meta"
+    assert copies.item(torch.tensor(3)) == 3
+    snap = {(r["name"], r["labels"].get("reason")): r["value"]
+            for r in reg.snapshot()}
+    assert snap["speca_device_waits_total", "fill"] == 5.0
+    assert [x.attrs for x in ph.spans()] == [(("n", n),) for n in (3, 1, 1)]
+
+    class WL:
+        scfg = PC.SpeCaConfig()
+
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def t_frac(self, s):
+            return torch.ones(s.shape, device=s.device)
+    for dev, waits in (("cpu", 0), ("meta", 1)):
+        step = type("T", (), {"wl": WL(dev)})()
+        tau = PLS.LaneStep._tau(step, ph, torch.zeros(2, dtype=torch.int32,
+                                                      device=dev),
+                                torch.ones(2, device=dev))
+        assert tau.shape == (2,) and tau.device.type == dev
+        assert sum(x.name == "wait.tau" for x in ph.spans()) == waits
 
 
 def _record_reference_errors(monkeypatch):
@@ -1487,7 +1682,10 @@ def _assert_obs_equal(jobs, pobs, ref_errs):
                 for s in b.spans] == \
             [(s.name, s.t0, s.t1, s.tick0, s.tick1, s.attrs)
              for s in a.spans]
-    jsnap, psnap = jobs.metrics.snapshot(), pobs.metrics.snapshot()
+    # the phase counters are the port's own (no reference counterpart)
+    jsnap = jobs.metrics.snapshot()
+    psnap = [r for r in pobs.metrics.snapshot()
+             if r["name"] not in PHASE_METRICS]
     assert [(r["name"], r["labels"]) for r in psnap] == \
         [(r["name"], r["labels"]) for r in jsnap]
     errs = np.concatenate(ref_errs) if ref_errs else np.zeros(0)
@@ -1517,7 +1715,8 @@ def test_obs_on_fake_clocks_matches_reference(both, engines, case,
     finish, both kinds of drop), traces with exact span times, and equal
     counters, gauges, histograms and series, across lifecycle serving, a
     mid-flight ``shutdown`` and a one-shot ``serve_batched``; the clocks
-    are read equally often."""
+    are read equally often. The port's phase spans (no reference
+    counterpart) read their bundle's own clock here, two reads a span."""
     from repro.obs import FakeClock as JFakeClock
     from repro_torch.obs import FakeClock
     (cfg, dcfg, params), _ = both
@@ -1527,8 +1726,11 @@ def test_obs_on_fake_clocks_matches_reference(both, engines, case,
               FakeClock(100.0, auto_tick=0.25))
     jeng = JEngine(cfg, params, dcfg, jscfg, obs=True, clock=clocks[0],
                    **_obs_engine_kw(case))
-    peng = _port_obs_engine(both, engines, case, obs=True, clock=clocks[1])
-    assert peng.clock is peng.obs.clock is clocks[1]
+    phase_clock = FakeClock(0.0, auto_tick=0.25)
+    peng = _port_obs_engine(both, engines, case,
+                            obs=Observability(clock=phase_clock),
+                            clock=clocks[1])
+    assert peng.clock is clocks[1] and peng.obs.clock is phase_clock
     results = []
     for i, eng in enumerate((jeng, peng)):
         _, res = _drive_life(eng, _obs_reqs(case)[i])
@@ -1550,6 +1752,8 @@ def test_obs_on_fake_clocks_matches_reference(both, engines, case,
     assert results[1][3].count(None) == results[0][3].count(None) >= 1
     _assert_obs_equal(jeng.obs, peng.obs, ref_errs)
     assert clocks[1].reads == clocks[0].reads
+    ph = peng.obs.phases
+    assert phase_clock.reads == 2 * (len(ph.spans()) + ph.dropped) > 0
     pq = peng.obs.metrics.series("speca_queue_depth")
     assert pq.points()[0] == (0.0, 4.0)
 
